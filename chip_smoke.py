@@ -118,22 +118,22 @@ def sorted_rows(res) -> np.ndarray:
 
 
 def seed_reads(index, queries: torch.Tensor, parts) -> tuple[int, int]:
-    """(distinct occ rows, distinct table codes) the seed scan reads: the
-    scan of kernels/seed.py's plain version, recording each step's rows."""
-    from sahara_tpu_torch.engine.rank import rank_sym
+    """(distinct occ rows, distinct table j-mers) the seed scan reads; the
+    j-mers bound the table codes from above, since the scan clamps codes.
 
-    q, j, sigma = queries.long(), index.lut_j, index.sigma
-    code = sum((q[:, [o + ln - 1 - i for o, ln in parts]] - 1) * (1 << (2 * i)) for i in range(j))
-    code = code.clamp(0, (1 << (2 * j)) - 1)
-    lo, hi = index.lut[code], index.lut[code + (1 << (2 * j))]
-    seen = []
+    Before the step that adds a part's t-th char from the end, the lane's
+    interval is that of the part's last t chars, and hi = lo + sz (backward
+    search never narrows below empty), so the plain scan of those suffixes
+    gives the rows every step ranks at."""
+    from sahara_tpu_torch.kernels.seed import seed_scan_plain
+
+    j, seen = index.lut_j, []
     for t in range(j, max(ln for _, ln in parts)):
-        act = torch.tensor([ln > t for _, ln in parts], device=q.device).expand_as(lo)
-        c = q[:, [o + max(ln - 1 - t, 0) for o, ln in parts]].clamp(0, sigma - 1)
-        seen += [lo[act] >> 5, hi[act] >> 5]
-        lo = torch.where(act, index.c_arr[c] + rank_sym(index.occ16, sigma, c, lo), lo)
-        hi = torch.where(act, index.c_arr[c] + rank_sym(index.occ16, sigma, c, hi), hi)
-    return torch.unique(torch.cat(seen)).numel(), torch.unique(code).numel()
+        suffixes = [(off + ln - t, t) for off, ln in parts if ln > t]
+        lo, sz = seed_scan_plain(index.occ16, index.c_arr, index.lut, j, queries, suffixes, index.sigma, index.n)
+        seen += [lo.reshape(-1) >> 5, (lo + sz).reshape(-1) >> 5]
+    jmers = torch.cat([queries[:, off + ln - j : off + ln] for off, ln in parts]).long()
+    return torch.unique(torch.cat(seen)).numel(), torch.unique(jmers, dim=0).shape[0]
 
 
 def profile_pass(run) -> dict:

@@ -21,7 +21,6 @@ import torch
 
 from sahara_tpu_torch.engine.device import DeviceIndex, resolve_device
 from sahara_tpu_torch.engine.seedverify import (
-    PART_CAP,
     StageTimer,
     plan_parts,
     seed_bad_mask,
@@ -84,15 +83,18 @@ def _besthits_filter(result: SearchResult) -> SearchResult:
     return _select(result, keep)
 
 
+def _concat(results: list[SearchResult]) -> SearchResult:
+    if not results:
+        return _empty()
+    fields = ("query_id", "seq_id", "pos", "errors")
+    return SearchResult(*(np.concatenate([getattr(r, f) for r in results]) for f in fields))
+
+
 def _merge_results(results: list[SearchResult]) -> SearchResult:
     """Unique (queryId, seqId, pos) rows sorted lexicographically, keeping
     the minimal error count per position."""
-    if not results:
-        return _empty()
-    q = np.concatenate([r.query_id for r in results])
-    s = np.concatenate([r.seq_id for r in results])
-    p = np.concatenate([r.pos for r in results])
-    e = np.concatenate([r.errors for r in results])
+    merged = _concat(results)
+    q, s, p, e = merged.query_id, merged.seq_id, merged.pos, merged.errors
     if len(q) == 0:
         return SearchResult(q, s, p, e)
     order = np.lexsort((e, p, s, q))
@@ -122,26 +124,25 @@ def _run_sv_fused(
     k: int,
     edit: bool,
     chunk: int,
-    part_cap: int,
     parts,
     timer: StageTimer | None = None,
 ) -> SearchResult:
     """Upload the query matrix once as uint8, then run ``sv_fused`` on each
-    chunk of it."""
+    chunk of it.  The chunks' rows are concatenated, not merged."""
     qfull = torch.from_numpy(np.ascontiguousarray(qarr, dtype=np.uint8)).to(index.device)
     seq_starts = index.seq_starts.cpu().numpy().astype(np.int64)
     results = []
     for start in range(0, qarr.shape[0], chunk):
         q_idx, abs_pos, err, over = sv_fused(
-            index, qfull[start : start + chunk], parts, k=k, edit=edit, part_cap=part_cap, timer=timer
+            index, qfull[start : start + chunk], parts, k=k, edit=edit, timer=timer
         )
         if over.any():
             raise NotImplementedError(
                 f"{int(over.sum())} queries have a seed interval over the per-part budget "
-                f"({part_cap}); their exact re-search needs {_WORKQ_ITEM}"
+                f"(PART_CAP); their exact re-search needs {_WORKQ_ITEM}"
             )
         results.append(_sv_hits_to_result(seq_starts, start + q_idx, abs_pos, err, qids))
-    return _merge_results(results)
+    return _concat(results)
 
 
 def search_queries(
@@ -155,7 +156,6 @@ def search_queries(
     chunk: int = 16384,
     engine: str = "auto",
     query_ids: np.ndarray | None = None,
-    sv_part_cap: int | None = None,
     device=None,
     timer: StageTimer | None = None,
 ) -> SearchResult:
@@ -207,11 +207,12 @@ def search_queries(
                 f"{int(bad.sum())} queries carry ranks outside 1..4 where the seed table reads "
                 f"them; their exact search needs {_WORKQ_ITEM}"
             )
-        res = _run_sv_fused(
-            index, qarr, qids, k=k, edit=edit, chunk=chunk,
-            part_cap=PART_CAP if sv_part_cap is None else sv_part_cap, parts=parts, timer=timer,
-        )
+        res = _run_sv_fused(index, qarr, qids, k=k, edit=edit, chunk=chunk, parts=parts, timer=timer)
+        # the filter keeps each row whose error is its query's least, which
+        # commutes with the merge; the cap counts merged rows in order
         if mode == "besthits":
             res = _besthits_filter(res)
-        results.append(_cap_hits_per_query(res, max_hits))
+        if max_hits > 0:
+            res = _cap_hits_per_query(_merge_results([res]), max_hits)
+        results.append(res)
     return _merge_results(results)

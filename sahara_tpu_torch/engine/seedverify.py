@@ -129,7 +129,6 @@ def sv_fused(
     *,
     k: int,
     edit: bool,
-    part_cap: int = PART_CAP,
     timer: StageTimer | None = None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """One chunk: seed -> expand -> locate -> verify -> emit.
@@ -137,13 +136,13 @@ def sv_fused(
     ``queries`` uint8[nq, m] on the index's device.  Returns host arrays
     (q_idx int64[H] local query index, abs_pos int64[H] padded-text start,
     err int64[H], over bool[nq] — queries with a part interval larger than
-    ``part_cap``, which contribute no hits here)."""
+    ``PART_CAP``, which contribute no hits here)."""
     stage = timer.stage if timer is not None else (lambda _name: contextlib.nullcontext())
     dev = queries.device
     p_cnt = len(parts)
     with stage("seed"):
         lo, sz = seed_parts(index, queries, parts)
-        over = (sz > part_cap).any(dim=1)
+        over = (sz > PART_CAP).any(dim=1)
         sz = torch.where(over[:, None], 0, sz)
         n_cands, n_over = torch.stack([sz.sum(dtype=torch.int64), over.sum()]).tolist()
     over_host = over.cpu().numpy() if n_over else np.zeros(queries.shape[0], dtype=bool)

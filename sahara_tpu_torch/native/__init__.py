@@ -58,10 +58,6 @@ def get_lib() -> ctypes.CDLL:
             lib.sahara_sais_i32.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
             ]
-            lib.sahara_sais_u8_i64.restype = ctypes.c_int
-            lib.sahara_sais_u8_i64.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-            ]
             _lib = lib
         return _lib
 
@@ -70,26 +66,22 @@ def suffix_array(text: np.ndarray) -> np.ndarray:
     """Suffix array of a rank text (uint8 values in [0, 255)).
 
     The text need not end with a unique sentinel; ties are broken by suffix
-    order like any general suffix sort.  Returns int64 positions."""
+    order like any general suffix sort.  Texts of 2^31 - 1 chars or more
+    are refused, as the device index refuses them.  Returns int64 positions."""
     text = np.ascontiguousarray(text, dtype=np.uint8)
     n = len(text)
     if n == 0:
         return np.empty(0, dtype=np.int64)
+    if n + 1 >= 2**31:
+        raise ValueError(f"text of {n} chars: suffix arrays need n + 1 < 2^31")
     lib = get_lib()
     # shift ranks +1 and append the unique smallest sentinel 0
-    if n + 1 < 2**31:
-        shifted = np.empty(n + 1, dtype=np.int32)
-        shifted[:n] = text
-        shifted[:n] += 1
-        shifted[n] = 0
-        sa = np.empty(n + 1, dtype=np.int32)
-        rc = lib.sahara_sais_i32(shifted.ctypes.data, sa.ctypes.data, n + 1, int(shifted.max()) + 1)
-    else:
-        shifted = np.empty(n + 1, dtype=np.uint8)
-        shifted[:n] = text + 1
-        shifted[n] = 0
-        sa = np.empty(n + 1, dtype=np.int64)
-        rc = lib.sahara_sais_u8_i64(shifted.ctypes.data, sa.ctypes.data, n + 1, int(shifted.max()) + 1)
+    shifted = np.empty(n + 1, dtype=np.int32)
+    shifted[:n] = text
+    shifted[:n] += 1
+    shifted[n] = 0
+    sa = np.empty(n + 1, dtype=np.int32)
+    rc = lib.sahara_sais_i32(shifted.ctypes.data, sa.ctypes.data, n + 1, int(shifted.max()) + 1)
     if rc != 0:
         raise RuntimeError(f"SA-IS failed ({rc})")
     # drop the sentinel suffix (always sa[0] == n)

@@ -1,8 +1,8 @@
 // SA-IS suffix-array construction for the host index build.
 //
 // Nong, Zhang & Chan, "Two Efficient Algorithms for Linear Time Suffix Array
-// Construction" (2009): induced sorting with LMS substrings, templated on the
-// index type (int32 for texts < 2^31, int64 beyond).  Exposed as a C ABI and
+// Construction" (2009): induced sorting with LMS substrings, over int32 texts
+// of fewer than 2^31 chars.  Exposed as a C ABI and
 // loaded with ctypes (sahara_tpu_torch/native/__init__.py).
 
 #include <algorithm>
@@ -12,8 +12,8 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// SA-IS. Paper-faithful implementation, templated on index type (int32 for
-// texts < 2^31, int64 beyond) and character type.  The input string MUST end
+// SA-IS. Paper-faithful implementation, templated on index and character
+// type (the recursion sorts a string of names).  The input string MUST end
 // with a unique, strictly smallest character (the "sentinel"); the Python
 // wrapper guarantees this by shifting ranks +1 and appending 0.
 // ---------------------------------------------------------------------------
@@ -161,13 +161,6 @@ extern "C" {
 int sahara_sais_i32(const int32_t* s, int32_t* sa, int32_t n, int32_t K) {
     if (n <= 0 || K <= 0) return -1;
     sais_impl<int32_t, int32_t>(s, sa, n, K);
-    return 0;
-}
-
-// Suffix array over uint8 text with int64 indices (for texts >= 2^31).
-int sahara_sais_u8_i64(const uint8_t* s, int64_t* sa, int64_t n, int64_t K) {
-    if (n <= 0 || K <= 0) return -1;
-    sais_impl<int64_t, uint8_t>(s, sa, n, K);
     return 0;
 }
 

@@ -9,6 +9,7 @@ from sahara_tpu.alphabet import D_DNA5
 from sahara_tpu.engine.device import DeviceIndex as JaxDeviceIndex
 from sahara_tpu.engine.driver import search_queries as jax_search_queries
 from sahara_tpu.index.build import build_bifmindex
+from sahara_tpu_torch.engine import seedverify
 from sahara_tpu_torch.engine.device import DeviceIndex
 from sahara_tpu_torch.engine.driver import search_queries
 from sahara_tpu_torch.index.fmindex import from_arrays
@@ -86,11 +87,12 @@ def test_untableable_rank_raises(indexes, rank, where):
         search_queries(pdev, queries, k=2, device="cpu")
 
 
-def test_part_cap_overflow_raises(indexes):
+def test_part_cap_overflow_raises(indexes, monkeypatch):
     seqs, _, _, pdev = indexes
     queries = _reads(seqs, np.random.default_rng(61), 20, 2)
+    monkeypatch.setattr(seedverify, "PART_CAP", 0)
     with pytest.raises(NotImplementedError, match="per-part budget"):
-        search_queries(pdev, queries, k=2, device="cpu", sv_part_cap=0)
+        search_queries(pdev, queries, k=2, device="cpu")
 
 
 @pytest.mark.parametrize("length,k,engine", [(M, 2, "workq"), (M, 8, "auto"), (30, 3, "auto")])
