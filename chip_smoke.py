@@ -4,23 +4,41 @@
 
 Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
 
-1. prints the card's name and power limit, builds the three CUDA kernels
+1. prints the card's name and power limit, builds the five CUDA kernels
    from ``sahara_tpu_torch/kernels/csrc`` (all nvcc runs at once) and prints
    each kernel's registers;
 2. regenerates the ``bench.py`` workload from its seeds (40 MB reference,
    65,536 reads of 100 bp with 2 planted errors, both strands) and builds
-   the forward index with its full-SA sidecar;
-3. holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (exact equality: all integer), and times both;
-4. runs the main path — index upload (the j-mer table build runs K1) and
-   ``search_queries`` at e=2 edit distance — with the launch counts reset
-   just before, checks every kernel was launched and the hit set against
-   the JAX package's, then times three passes (the median is the result),
-   one pass split by stage, and profiles one pass (device busy time, the
-   heaviest device ops and host functions);
+   the bidirectional index with its full-SA sidecar;
+3. holds K1-K3 against their plain PyTorch versions on the card at the
+   seed-and-verify path's shapes (exact equality: all integer), and times
+   both;
+4. runs the seed-and-verify path — upload without the reversed table (the
+   j-mer table build runs K1) and ``search_queries`` at e=2 edit distance —
+   with the launch counts reset just before, checks every kernel was
+   launched and the hit set against the JAX package's, then times three
+   passes (the median is the result), one pass split by stage, and
+   profiles one pass (device busy time, the heaviest device ops and host
+   functions);
 5. uploads the index without the full suffix array and checks that the
-   sampled LF-walk locate (K1) gives the same hits on the first 8,192 reads;
-6. prints the kernels' JSON line, the card line, and as the last line
+   sampled LF-walk locate (K1) gives the same hits on the first 8,192
+   reads, and runs Hamming seed-and-verify (K3's Hamming entry) on the
+   first 8,192 reads, checking each hit's mismatches on the host;
+6. holds K4 (table in shared memory) and K1 against the plain rank on the
+   largest table K4 takes (a random text of 100,000 characters) at 262,144
+   positions, and K5 (count, emit) against the plain step on the queue the
+   work-queue search holds after phase 0 of the workload's first chunk;
+7. runs the work-queue path on the same workload with both occ tables on
+   the card (``engine="workq"``, ``generator_name="optimum"``, as
+   ``bench.py`` does): its hit set must equal the seed-and-verify path's
+   (80,248 rows, same sha256); times three passes, profiles one, and counts
+   its synchronising calls;
+8. runs the seed-and-verify fallback: 1,024 reads with an N in a seed part
+   of every 8th read, ``auto`` against ``workq`` on all of them and against
+   the seed-and-verify rows on the reads without N;
+9. runs the rank bench (``sahara_tpu_torch/bench_rank.py``: K1 and K4 at
+   100,000 characters, K1 alone at 4.6 million);
+10. prints the kernels' JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.  The full report goes to
    ``chiprun_out/chip_smoke.json``.
 
@@ -36,6 +54,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -56,6 +75,10 @@ K = 2
 CHUNK = 16384
 SAMPLED_READS = 8192
 K1_POSITIONS = 1 << 20
+WORKQ_GENERATOR = "optimum"  # bench.py's generator for the work-queue engine
+FALLBACK_READS = 1024
+RANK_BENCH_POSITIONS = 262144  # bench_rank.py's default batch
+SMEM_TEXT_MB = 0.1  # the largest random text whose occ table K4 takes
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and the
 # float32 rate outside the tensor cores, an upper bound on the card's
@@ -251,14 +274,222 @@ def kernel_phases(index, queries: np.ndarray, rng: np.random.Generator, ref: np.
     return rows
 
 
+def smem_phase(dev) -> dict:
+    """K4 and K1 against the plain rank on the largest table K4 takes."""
+    from sahara_tpu_torch.bench_rank import setup
+    from sahara_tpu_torch.kernels.rank import rank_all, rank_all_plain
+    from sahara_tpu_torch.kernels.rank_smem import rank_all_smem
+
+    occ16, sigma, idx = setup(SMEM_TEXT_MB, RANK_BENCH_POSITIONS, dev)
+    want = rank_all_plain(occ16, sigma, idx)
+    err = assert_equal("rank_all_smem", rank_all_smem(occ16, sigma, idx), want)
+    assert_equal("rank_all on K4's table", rank_all(occ16, sigma, idx), want)
+    n = idx.shape[0]
+    # each position read once, each rank written once, the table read once
+    b, by = bound(n * (4 + 4 * sigma) + occ16.numel() * 4, n * sigma * 3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return dict(
+        name="rank_all_smem", route="cuda", source="sahara_tpu_torch/kernels/csrc/rank_smem.cu",
+        replaces="sahara_tpu/kernels/rank.py:108", max_abs_err=err,
+        ms=time_ms(lambda: rank_all_smem(occ16, sigma, idx), 50),
+        plain_ms=time_ms(lambda: rank_all_plain(occ16, sigma, idx), 5),
+        bound_ms=b, bound_by=by, library_ms=None,
+        k1_ms_same_inputs=time_ms(lambda: rank_all(occ16, sigma, idx), 50),
+        l2_staging_bytes=occ16.numel() * 4 * sms,
+        shape=f"{n} positions, {occ16.shape[0]} occ rows ({occ16.numel() * 4} B), sigma={sigma}",
+    )
+
+
+def workq_step_phase(index, queries: np.ndarray) -> list[dict]:
+    """K5 count and emit against the plain step on the queue that the
+    work-queue search of the first chunk holds after phase 0."""
+    from sahara_tpu_torch.engine import workq
+    from sahara_tpu_torch.engine.driver import load_scheme
+    from sahara_tpu_torch.engine.tape import compile_tape
+    from sahara_tpu_torch.kernels.workq import workq_count, workq_count_plain, workq_emit, workq_emit_plain
+
+    dev, m = index.device, queries.shape[1]
+    tape = compile_tape(load_scheme(WORKQ_GENERATOR, 0, K, m, edit=True, sigma=index.sigma, n_text=index.n))
+    qd = torch.from_numpy(np.ascontiguousarray(queries[:CHUNK])).to(dev)
+    ctx, state = workq.start_queue(index, qd, workq.upload_tape(tape, dev),
+                                   torch.ones(CHUNK, dtype=torch.bool, device=dev), edit=True, k=tape.max_errors)
+    ph0 = workq.phase0_length(tape, True)
+    for _ in range(ph0):
+        state = workq.expand_step(index, ctx, state)
+    args = (index.occ16, index.c_arr, ctx.tape, *state)
+    ckw = dict(sigma=index.sigma, rev_off=index.rev_word_off, **ctx.kw)
+    prod, flags = workq_count(*args, **ckw)
+    prod_p, flags_p = workq_count_plain(*args, **ckw)
+    err = assert_equal("workq_count prod", prod, prod_p) + assert_equal("workq_count flags", flags, flags_p)
+    pos = torch.cumsum(flags.reshape(-1), 0, dtype=torch.int32)
+    total = int(pos[-1])
+    eargs = (flags, pos, total, prod, ctx.tape, *state)
+    kids = workq_emit(*eargs, **ctx.kw)
+    kids_p = workq_emit_plain(flags, prod, ctx.tape, *state, **ctx.kw)
+    e_err = sum(assert_equal(f"workq_emit {f}", a, b) for f, a, b in zip(("lb", "lbr", "sz", "meta"), kids, kids_p))
+
+    lb, lbr, sz, meta = state
+    n, sl, e_used = sz.shape[0], ctx.kw["sl"], flags.shape[0]
+    layout, ns = ctx.kw["layout"], ctx.kw["ns"]
+    _, _, d, s_id, q_id = layout.decode(meta)
+    side = ctx.tape[(q_id.long() * ns + s_id) * m + d.clamp(max=m - 1)] & 1
+    primary = torch.where(side == 1, lbr, lb).long()
+    woff = side.long() * index.rev_word_off
+    occ_rows = torch.unique(torch.cat([(primary >> 5) + woff, ((primary + sz) >> 5) + woff])[torch.cat([sz > 0] * 2)])
+    # count: state and tape word per row, each distinct occ row, products and flags written
+    cb, cby = bound(n * 20 + occ_rows.numel() * 64 + n * (3 * sl * 4 + e_used), n * (6 * index.sigma + 4 * e_used))
+    # emit: flags and scan per candidate, products, parent state and tape word, children written
+    eb, eby = bound(e_used * n * 5 + n * (3 * sl * 4 + 20) + total * 16, e_used * n * 2 + total * 20)
+    shape = f"{n} rows after phase 0 ({ph0} steps) of {qd.shape[0]} strand queries, {total} children, sl={sl}"
+    return [
+        dict(name="workq_count", route="cuda", source="sahara_tpu_torch/kernels/csrc/workq.cu",
+             replaces="sahara_tpu/engine/workq.py:859", max_abs_err=err,
+             ms=time_ms(lambda: workq_count(*args, **ckw), 20),
+             plain_ms=time_ms(lambda: workq_count_plain(*args, **ckw), 3),
+             bound_ms=cb, bound_by=cby, library_ms=None, shape=shape),
+        dict(name="workq_emit", route="cuda", source="sahara_tpu_torch/kernels/csrc/workq.cu",
+             replaces="sahara_tpu/engine/workq.py:979", max_abs_err=e_err,
+             ms=time_ms(lambda: workq_emit(*eargs, **ctx.kw), 20),
+             plain_ms=time_ms(lambda: workq_emit_plain(flags, prod, ctx.tape, *state, **ctx.kw), 3),
+             bound_ms=eb, bound_by=eby, library_ms=None, shape=shape),
+    ]
+
+
+def count_syncs(run) -> int:
+    """Synchronising calls one run makes, as torch.cuda's sync debug mode
+    flags them."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def timed_passes(run, want: np.ndarray, label: str) -> list[float]:
+    """Seconds of three passes, each checked against ``want``."""
+    passes = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        passes.append(time.perf_counter() - t0)
+        if not np.array_equal(sorted_rows(res), want):
+            raise AssertionError(f"a timed {label} pass gave another hit set")
+    return passes
+
+
+def require_launches(launches: dict, names, path: str) -> None:
+    for name in names:
+        if launches.get(name, 0) == 0:
+            raise AssertionError(f"the {path} path never launched {name}")
+
+
+def hamming_phase(index, ref: np.ndarray, queries: np.ndarray) -> dict:
+    """Hamming seed-and-verify on the first reads: every hit's mismatch
+    count, recounted on the host, must equal its error count."""
+    from sahara_tpu_torch.engine.driver import search_queries
+    from sahara_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    sub = queries[: 2 * SAMPLED_READS]
+    reset_launches()
+    res = search_queries(index, sub, k=K, edit=False, chunk=CHUNK)
+    launches = LAUNCHES["verify"]
+    require_launches(LAUNCHES, ("verify",), "Hamming")
+    m = sub.shape[1]
+    window = ref[res.pos[:, None] + np.arange(m)]
+    mism = (window != sub[res.query_id]).sum(axis=1)
+    # a read carries two planted edits; it has Hamming hits when both are
+    # substitutions (one in nine) or an indel sits near an end
+    if len(res.pos) < SAMPLED_READS // 10 or (res.seq_id != 0).any() or not np.array_equal(mism, res.errors):
+        raise AssertionError("Hamming hits disagree with their recounted mismatches")
+    return dict(hits=len(res.pos), verify_launches=launches)
+
+
+def workq_path(host, queries: np.ndarray, sv_rows: np.ndarray):
+    """The work-queue engine over the whole workload, both tables on the
+    card; its hit set must equal the seed-and-verify path's."""
+    from sahara_tpu_torch.engine.device import DeviceIndex
+    from sahara_tpu_torch.engine.driver import search_queries
+    from sahara_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    kw = dict(k=K, edit=True, chunk=CHUNK, engine="workq", generator_name=WORKQ_GENERATOR)
+    reset_launches()
+    t0 = time.perf_counter()
+    index = DeviceIndex.from_host(host)
+    torch.cuda.synchronize()
+    out = dict(upload_s=time.perf_counter() - t0, rev_rows=index.rev_rows, occ16_bytes=index.occ16.numel() * 4)
+    t0 = time.perf_counter()
+    res = search_queries(index, queries, **kw)
+    torch.cuda.synchronize()
+    out["first_pass_s"] = time.perf_counter() - t0
+    out["launches"] = dict(LAUNCHES)
+    require_launches(out["launches"], ("workq_count", "workq_emit"), "work-queue")
+    rows = sorted_rows(res)
+    out.update(hits=len(rows), sha256=hashlib.sha256(rows.tobytes()).hexdigest())
+    print(f"workq hits {len(rows)} sha256 {out['sha256']} (first pass {out['first_pass_s']:.2f} s)", flush=True)
+    if not np.array_equal(rows, sv_rows):
+        a, b = {tuple(r) for r in rows.tolist()}, {tuple(r) for r in sv_rows.tolist()}
+        print("only workq:", sorted(a - b)[:10], "only sv:", sorted(b - a)[:10], flush=True)
+        raise AssertionError("work-queue hit set differs from the seed-and-verify hit set")
+
+    run = lambda: search_queries(index, queries, **kw)  # noqa: E731
+    torch.cuda.reset_peak_memory_stats()
+    passes = timed_passes(run, rows, "work-queue")
+    dt = sorted(passes)[1]
+    out.update(passes_s=passes, pass_s=dt, reads_per_s=len(queries) / 2 / dt,
+               max_memory_allocated=torch.cuda.max_memory_allocated(), syncs_per_pass=count_syncs(run),
+               profile=profile_pass(run))
+    busy = out["profile"]["device_busy_ms"]
+    print(f"workq path: {out['reads_per_s']:.1f} reads/s (median of 3: {dt * 1e3:.1f} ms), device busy "
+          f"{busy:.1f} ms ({busy / (dt * 1e3) * 100:.1f}%), {out['syncs_per_pass']} syncs a pass, "
+          f"max_memory_allocated {out['max_memory_allocated']} B", flush=True)
+    return index, out
+
+
+def fallback_phase(index, queries: np.ndarray, sv_rows: np.ndarray) -> dict:
+    """An N in a seed part of every 8th read sends it from seed-and-verify
+    to the work-queue engine: ``auto`` must equal ``workq`` on all reads,
+    and the seed-and-verify rows on the reads without N."""
+    from sahara_tpu_torch.alphabet import D_DNA5
+    from sahara_tpu_torch.engine.driver import search_queries
+    from sahara_tpu_torch.engine.seedverify import plan_parts
+    from sahara_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    sub = queries[: 2 * FALLBACK_READS].copy()
+    off, ln = plan_parts(sub.shape[1], K)[0]
+    for i in range(0, FALLBACK_READS, 8):
+        fwd = sub[2 * i].copy()
+        fwd[off + ln - 1] = 5  # the last char of the first part: the seed table reads it
+        sub[2 * i], sub[2 * i + 1] = fwd, D_DNA5.reverse_complement_rank(fwd)
+    reset_launches()
+    auto = sorted_rows(search_queries(index, sub, k=K, edit=True, chunk=CHUNK))
+    launches = dict(LAUNCHES)
+    require_launches(launches, ("seed_scan", "verify", "workq_count", "workq_emit"), "fallback")
+    wq = sorted_rows(search_queries(index, sub, k=K, edit=True, chunk=CHUNK, engine="workq"))
+    if not np.array_equal(auto, wq):
+        raise AssertionError("auto with fallback differs from the work-queue engine")
+    clean = np.flatnonzero(~(sub == 5).any(axis=1))
+    want = sv_rows[np.isin(sv_rows[:, 0], clean)]
+    if not np.array_equal(auto[np.isin(auto[:, 0], clean)], want):
+        raise AssertionError("reads without N differ from the seed-and-verify rows")
+    out = dict(reads=FALLBACK_READS, n_queries=int(len(sub) - len(clean)), hits=len(auto), launches=launches)
+    print(f"fallback: {out['n_queries']} strand queries with N, {len(auto)} hits, auto == workq, "
+          f"clean reads == seed-and-verify", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    from sahara_tpu_torch.bench_rank import run_size
     from sahara_tpu_torch.engine.device import DeviceIndex
     from sahara_tpu_torch.engine.driver import search_queries
     from sahara_tpu_torch.engine.seedverify import StageTimer
-    from sahara_tpu_torch.index.build import build_fmindex
+    from sahara_tpu_torch.index.build import build_bifmindex
     from sahara_tpu_torch.kernels import LAUNCHES, reset_launches
     from sahara_tpu_torch.kernels._build import build_all
     from sahara_tpu_torch.sim.workload import bench_workload
@@ -266,7 +497,7 @@ def main() -> int:
     report: dict = {}
     card = card_line()
     print(card, flush=True)
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     ptxas = build_all()
     report["build_s"] = time.perf_counter() - t0
     print(f"build: {report['build_s']:.1f} s", flush=True)
@@ -278,30 +509,25 @@ def main() -> int:
     ref, queries = bench_workload()
     report["workload_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    host = build_fmindex([ref], 6, "d_dna5", rate=16)
+    host = build_bifmindex([ref], 6, "d_dna5", rate=16)
     report["index_build_s"] = time.perf_counter() - t0
-    print(f"workload {report['workload_s']:.1f} s, index build {report['index_build_s']:.1f} s "
+    print(f"workload {report['workload_s']:.1f} s, bidirectional index build {report['index_build_s']:.1f} s "
           f"(n={host.n}, {len(queries)} strand queries)", flush=True)
 
-    # kernel vs plain, on an uploaded copy of the index
-    kernels = kernel_phases(DeviceIndex.from_host(host), queries, np.random.default_rng(7), ref)
-    for row in kernels:
-        print(f"{row['name']}: {row['ms']:.4f} ms (plain {row['plain_ms']:.3f} ms, "
-              f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}) at {row['shape']}", flush=True)
+    # K1-K3 vs plain, on an uploaded copy of the forward index
+    kernels = kernel_phases(DeviceIndex.from_host(host, include_rev=False), queries, np.random.default_rng(7), ref)
 
-    # main path: upload + one search pass, with launch counts from zero
+    # seed-and-verify path: upload + one search pass, with launch counts from zero
     kw = dict(k=K, edit=True, chunk=CHUNK)
     reset_launches()
     t0 = time.perf_counter()
-    index = DeviceIndex.from_host(host)
+    index = DeviceIndex.from_host(host, include_rev=False)
     torch.cuda.synchronize()
     report["upload_s"] = time.perf_counter() - t0
     res = search_queries(index, queries, **kw)
     launches = dict(LAUNCHES)
     report["launches"] = launches
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"main path never launched {name}")
+    require_launches(launches, ("rank_all", "seed_scan", "verify"), "seed-and-verify")
     rows = sorted_rows(res)
     sha = hashlib.sha256(rows.tobytes()).hexdigest()
     print(f"hits {len(rows)} (JAX package {JAX_HITS}, BENCH_r05 bench.py {BENCH_R05_HITS}) sha256 {sha}", flush=True)
@@ -309,14 +535,7 @@ def main() -> int:
         raise AssertionError("hit set differs from the JAX package's")
 
     torch.cuda.reset_peak_memory_stats()
-    passes = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        res = search_queries(index, queries, **kw)
-        torch.cuda.synchronize()
-        passes.append(time.perf_counter() - t0)
-        if not np.array_equal(sorted_rows(res), rows):
-            raise AssertionError("timed pass gave another hit set")
+    passes = timed_passes(lambda: search_queries(index, queries, **kw), rows, "seed-and-verify")
     dt = sorted(passes)[1]
     timer = StageTimer(index.device)
     search_queries(index, queries, timer=timer, **kw)
@@ -333,7 +552,7 @@ def main() -> int:
 
     # sampled LF-walk locate: no full suffix array on the card
     reset_launches()
-    sampled = DeviceIndex.from_host(host, full_sa=False)
+    sampled = DeviceIndex.from_host(host, full_sa=False, include_rev=False)
     k1_upload = LAUNCHES["rank_all"]
     sub = queries[: 2 * SAMPLED_READS]
     t0 = time.perf_counter()
@@ -349,20 +568,45 @@ def main() -> int:
     print(f"sampled walk: {len(want)} hits equal on the first {SAMPLED_READS} reads, "
           f"{report['sampled_locate_rank_all_launches']} rank_all launches in locate, "
           f"{report['sampled_pass_s'] * 1e3:.1f} ms", flush=True)
+    del sampled
+    report["hamming"] = hamming_phase(index, ref, queries)
+    print(f"hamming: {report['hamming']['hits']} hits on the first {SAMPLED_READS} reads, mismatches recounted",
+          flush=True)
+    del index
 
+    # K4 and K5 vs plain; then the work-queue path and the fallback
+    kernels.append(smem_phase(torch.device("cuda")))
+    index_bi = DeviceIndex.from_host(host)
+    kernels += workq_step_phase(index_bi, queries)
+    del index_bi
     for row in kernels:
-        row["launches"] = launches.get(row["name"], 0)
-    report.update(card=card, kernels=kernels)
+        print(f"{row['name']}: {row['ms']:.4f} ms (plain {row['plain_ms']:.3f} ms, "
+              f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}) at {row['shape']}", flush=True)
+    index_bi, report["workq"] = workq_path(host, queries, rows)
+    report["fallback"] = fallback_phase(index_bi, queries, rows)
+    del index_bi
+
+    # the rank bench: the path that runs K4
+    reset_launches()
+    report["rank_bench"] = run_size(SMEM_TEXT_MB, RANK_BENCH_POSITIONS) + run_size(4.6, RANK_BENCH_POSITIONS)
+    rank_bench_launches = dict(LAUNCHES)
+    require_launches(rank_bench_launches, ("rank_all_smem",), "rank bench")
+
+    path_launches = {**launches, "verify_hamming": report["hamming"]["verify_launches"],
+                     "rank_all_smem": rank_bench_launches["rank_all_smem"],
+                     "workq_count": report["workq"]["launches"]["workq_count"],
+                     "workq_emit": report["workq"]["launches"]["workq_emit"]}
+    for row in kernels:
+        row["launches"] = path_launches[row["name"]]
+    report.update(card=card, kernels=kernels, total_s=time.perf_counter() - t_start)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
+    print(f"total {report['total_s']:.1f} s")
     print(card)
-    # the Hamming variant of verify is checked and timed above but is not on
-    # the main path (edit distance), so the line lists the three kernels
-    main_kernels = [row for row in kernels if row["name"] in launches]
-    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in main_kernels]}))
+    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

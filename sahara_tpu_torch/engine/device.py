@@ -1,10 +1,14 @@
 """Device-resident view of an FM-index (tensors on one device).
 
-The counterpart of ``sahara_tpu/engine/device.py::DeviceIndex``, reduced to
-what the seed-and-verify path reads: the forward occ table in the planar
-occ16 layout, the sampled suffix array, the packed text, the j-mer seed
-table and the optional full suffix array.  No reverse table is uploaded:
-seed scan and locate rank only the forward table.
+The counterpart of ``sahara_tpu/engine/device.py::DeviceIndex``: the occ
+tables in the planar occ16 layout, the sampled suffix array, the packed
+text, the j-mer seed table and the optional full suffix array.
+
+For a bidirectional host index the reversed-text occ table is stacked after
+the forward one (``rev_rows`` words in), so the work-queue engine picks the
+extension direction per state by a row offset.  Seed scan, locate and
+verify read only the forward half; an SV-only caller skips the reversed
+table with ``include_rev=False``.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ import numpy as np
 import torch
 
 from sahara_tpu_torch.engine.rank import pack_occ16
-from sahara_tpu_torch.index.fmindex import FMIndex
+from sahara_tpu_torch.index.fmindex import BiFMIndex, FMIndex
 from sahara_tpu_torch.index.jmer import build_jmer_lut, pick_lut_j
 
 
@@ -29,7 +33,7 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class DeviceIndex:
-    occ16: torch.Tensor  # int32[W, 16] — engine/rank.py layout
+    occ16: torch.Tensor  # int32[W or 2W, 16] — engine/rank.py layout, forward table first
     c_arr: torch.Tensor  # int32[sigma+1]
     sampled: torch.Tensor  # int32[W, 2] — (checkpoint, bit word) of sampled rows
     sample_seq: torch.Tensor  # int32[S]
@@ -46,15 +50,36 @@ class DeviceIndex:
     lut_j: int = 0
     # full suffix array (absolute padded-text positions): locate is one gather
     sa_full: torch.Tensor | None = None
+    # word offset where the stacked reversed-text table starts (the forward
+    # table's word count); 0 when none is stacked
+    rev_rows: int = 0
+    # 1 + the highest symbol rank present in the text: the work-queue step
+    # enumerates branches only for symbols that can occur
+    sigma_live: int = 0
+    # the collection is closed under reversal: right extensions rank the
+    # forward table, and no reversed table is stacked
+    mirrored: bool = False
 
     @property
     def device(self) -> torch.device:
         return self.occ16.device
 
+    @property
+    def bidirectional(self) -> bool:
+        return self.rev_rows > 0 or self.mirrored
+
+    @property
+    def rev_word_off(self) -> int:
+        """Word offset of the table that serves right extensions."""
+        return 0 if self.mirrored else self.rev_rows
+
     @staticmethod
-    def from_host(index: FMIndex, device=None, full_sa: bool = True) -> "DeviceIndex":
+    def from_host(index: FMIndex, device=None, full_sa: bool = True, include_rev: bool = True) -> "DeviceIndex":
         """Upload a host index.  ``full_sa=False`` leaves the full suffix
-        array on the host, so locate takes the sampled LF-walk."""
+        array on the host, so locate takes the sampled LF-walk;
+        ``include_rev=False`` leaves the reversed-text table on the host
+        (the view is then not bidirectional, and only seed-and-verify can
+        search it)."""
         if index.n >= 2**31:
             raise ValueError("single-device index limited to text < 2^31 positions")
         dev = resolve_device(device)
@@ -62,8 +87,20 @@ class DeviceIndex:
         def put(x) -> torch.Tensor:
             return torch.tensor(np.asarray(x, dtype=np.int32), device=dev)
 
-        occ16 = put(pack_occ16(index.occ))
+        occ = pack_occ16(index.occ)
+        mirrored = bool(getattr(index, "mirrored", False))
+        rev_rows = 0
+        if isinstance(index, BiFMIndex) and index.occ_rev is not None and not mirrored and include_rev:
+            if index.occ_rev.shape != index.occ.shape:
+                raise ValueError("forward and reversed occ tables differ in shape")
+            rev_rows = occ.shape[0]
+            occ = np.concatenate([occ, pack_occ16(index.occ_rev)])
+        occ16 = put(occ)
         c_arr = put(index.c_arr)
+        # symbol counts from the C-array: count(s) = C[s+1] - C[s]
+        counts = np.diff(np.append(np.asarray(index.c_arr, dtype=np.int64)[: index.sigma], index.n))
+        present = np.nonzero(counts[1:] > 0)[0]  # symbol ranks 1.. present
+        sigma_live = min(int(present[-1]) + 2 if len(present) else 2, int(index.sigma))
         lut, lut_j = None, 0
         if index.text4 is not None and index.sigma <= 6:
             lut_j = pick_lut_j(index.n)
@@ -85,4 +122,7 @@ class DeviceIndex:
             sa_full=(
                 put(index.sa_abs) if full_sa and index.sa_abs is not None and has_text else None
             ),
+            rev_rows=rev_rows,
+            sigma_live=sigma_live,
+            mirrored=mirrored,
         )

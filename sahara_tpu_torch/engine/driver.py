@@ -1,15 +1,23 @@
-"""Search driver: bucket queries by length, run seed-and-verify chunk by
-chunk, and return canonical (queryId, seqId, pos, errors) rows.
+"""Search driver: bucket queries by length, pick an engine per bucket, and
+return canonical (queryId, seqId, pos, errors) rows.
 
-The counterpart of the seed-and-verify route of
-``sahara_tpu/engine/driver.py::search_queries``.  What this package does not
-port yet raises ``NotImplementedError`` naming the ROADMAP.md item that will
-port it; nothing is dropped silently:
+The counterpart of ``sahara_tpu/engine/driver.py::search_queries`` on one
+device.  Engines:
 
-- a bucket that seed-and-verify cannot search with exact parts (short
-  reads, k > 7, an index without a text store), and the scheme engines;
-- queries that the reference re-searches through its work-queue engine:
-  ranks the j-mer table cannot encode (N), and seeds over ``PART_CAP``.
+- ``sv`` (seed-and-verify, ``engine/seedverify.py``) where exact parts
+  filter (``sv_eligible``).  Queries it cannot search exactly on its own —
+  ranks the j-mer table cannot encode (N) and seeds over ``PART_CAP`` — are
+  re-searched through the work-queue engine and merged, as the reference
+  does.
+- ``workq`` (the scheme engine, ``engine/workq.py``) for every other bucket
+  under ``auto``, and for every bucket under ``engine="workq"``.  The
+  reference's ``auto`` routes short reads through one-error SV seeds
+  (ROADMAP.md queue 1 item 10, not ported yet); the port sends them to the
+  work-queue engine, whose hit set is the same.
+
+What is not ported raises ``NotImplementedError`` naming its ROADMAP.md
+item: the frontier engine (item 14) and meshes (item 15).  Interval-sharded
+indexes (item 13) have no entry point in the port yet.
 """
 
 from __future__ import annotations
@@ -19,7 +27,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from sahara_tpu_torch.engine import workq
 from sahara_tpu_torch.engine.device import DeviceIndex, resolve_device
+from sahara_tpu_torch.engine.locate import expand_intervals, lf_walk
 from sahara_tpu_torch.engine.seedverify import (
     StageTimer,
     plan_parts,
@@ -27,8 +37,10 @@ from sahara_tpu_torch.engine.seedverify import (
     sv_eligible,
     sv_fused,
 )
-
-_WORKQ_ITEM = "ROADMAP.md queue 1 item 9 (work-queue engine)"
+from sahara_tpu_torch.engine.tape import SchemeTape, compile_tape
+from sahara_tpu_torch.schemes import expand, get_generator, limit_to_hamming
+from sahara_tpu_torch.schemes.costs import optimize_by_wnc_topdown
+from sahara_tpu_torch.schemes.types import Scheme
 
 
 @dataclasses.dataclass
@@ -126,23 +138,135 @@ def _run_sv_fused(
     chunk: int,
     parts,
     timer: StageTimer | None = None,
-) -> SearchResult:
+) -> tuple[SearchResult, np.ndarray]:
     """Upload the query matrix once as uint8, then run ``sv_fused`` on each
-    chunk of it.  The chunks' rows are concatenated, not merged."""
+    chunk of it.  The chunks' rows are concatenated, not merged.  Returns
+    the rows and bool[nq]: queries with a part interval over ``PART_CAP``,
+    which gave no rows here."""
     qfull = torch.from_numpy(np.ascontiguousarray(qarr, dtype=np.uint8)).to(index.device)
     seq_starts = index.seq_starts.cpu().numpy().astype(np.int64)
-    results = []
+    results, over_all = [], []
     for start in range(0, qarr.shape[0], chunk):
         q_idx, abs_pos, err, over = sv_fused(
             index, qfull[start : start + chunk], parts, k=k, edit=edit, timer=timer
         )
-        if over.any():
-            raise NotImplementedError(
-                f"{int(over.sum())} queries have a seed interval over the per-part budget "
-                f"(PART_CAP); their exact re-search needs {_WORKQ_ITEM}"
-            )
+        over_all.append(over)
         results.append(_sv_hits_to_result(seq_starts, start + q_idx, abs_pos, err, qids))
-    return _concat(results)
+    return _concat(results), np.concatenate(over_all) if over_all else np.zeros(0, dtype=bool)
+
+
+def load_scheme(
+    generator_name: str, min_k: int, max_k: int, length: int, *, edit: bool, sigma: int, n_text: int,
+    dynamic: bool = False,
+) -> Scheme:
+    """Generate and expand a scheme for one query length; ``dynamic`` picks
+    the part sizes with the top-down weighted-node-count optimiser."""
+    oss = get_generator(generator_name).generator(min_k, max_k, 0, 0)
+    if dynamic:
+        ess = expand(oss, optimize_by_wnc_topdown(oss, length, sigma, n_text, edit))
+    else:
+        ess = expand(oss, length)
+    return ess if edit else limit_to_hamming(ess)
+
+
+def _locate_flat_hits(index: DeviceIndex, hits: workq.FlatHits, ns: int, query_ids: np.ndarray) -> SearchResult:
+    """Expand a work-queue result's hit intervals to rows and locate them."""
+    if hits.n_hits == 0:
+        return _empty()
+    dev = index.device
+    lb = torch.from_numpy(hits.lb).to(dev)
+    sz = torch.from_numpy(hits.sz).to(dev)
+    rows, src, valid, _ = expand_intervals(lb, sz, int(hits.sz.sum(dtype=np.int64)))
+    seq_id, pos = lf_walk(index, rows, valid)
+    src, seq_id, pos = (t.cpu().numpy().astype(np.int64) for t in (src, seq_id, pos))
+    return SearchResult(
+        query_id=query_ids[hits.lane[src] // ns].astype(np.int64),
+        seq_id=seq_id,
+        pos=pos,
+        errors=hits.err[src].astype(np.int64),
+    )
+
+
+def _run_workq_grouped(
+    index: DeviceIndex,
+    qarr: np.ndarray,
+    tape: SchemeTape,
+    qids: np.ndarray,
+    *,
+    edit: bool,
+    active: np.ndarray | None,
+    max_hits: int,
+    chunk: int,
+) -> SearchResult:
+    """Work-queue engine driver: split schemes with more than ``MAX_NS``
+    searches into tape groups, chunk the queries to the meta-packing limit,
+    search each (chunk, group) with dedup on, locate, merge and cap.
+
+    A step that passes ``workq.HARD_CAP`` halves the chunk's active queries
+    and searches the halves, recursing until each fits; one query alone
+    over the ceiling raises ``RuntimeError``."""
+    groups = [
+        SchemeTape(side=tape.side[g : g + workq.MAX_NS], qpos=tape.qpos[g : g + workq.MAX_NS],
+                   lo=tape.lo[g : g + workq.MAX_NS], hi=tape.hi[g : g + workq.MAX_NS])
+        for g in range(0, tape.num_searches, workq.MAX_NS)
+    ]
+    dev = index.device
+    group_tapes = [workq.upload_tape(g, dev) for g in groups]
+    chunk = min(chunk, *(workq.max_chunk_queries(g.length, g.num_searches, g.max_errors, edit) for g in groups))
+    nq = qarr.shape[0]
+    act_all = np.ones(nq, dtype=bool) if active is None else np.asarray(active, dtype=bool)
+    qfull = torch.from_numpy(np.ascontiguousarray(qarr, dtype=np.uint8)).to(dev)
+    cap_per_query = 4 * max_hits if max_hits > 0 else 0
+    results: list[SearchResult] = []
+
+    def search(q, act: np.ndarray, ids, gt: SchemeTape, dt) -> None:
+        try:
+            hits = workq.workq_search(
+                index, q, dt, torch.from_numpy(act).to(dev), edit=edit, k=gt.max_errors,
+                ph0=workq.phase0_length(gt, edit), dedup_every=workq.DEDUP_EVERY,
+                cap_per_query=cap_per_query,
+            )
+        except workq.QueueOverflow:
+            act_idx = np.flatnonzero(act)
+            if len(act_idx) <= 1:
+                raise RuntimeError(
+                    "a single query's search frontier exceeds the work-queue ceiling (workq.HARD_CAP)"
+                ) from None
+            for half in np.array_split(act_idx, 2):
+                sub = np.zeros_like(act)
+                sub[half] = True
+                search(q, sub, ids, gt, dt)
+            return
+        results.append(_locate_flat_hits(index, hits, gt.num_searches, ids))
+
+    for start in range(0, nq, chunk):
+        act = act_all[start : start + chunk]
+        if act.any():
+            for gt, dt in zip(groups, group_tapes):
+                search(qfull[start : start + chunk], act, qids[start : start + chunk], gt, dt)
+    return _cap_hits_per_query(_merge_results(results), max_hits)
+
+
+def _run_sv_with_fallback(
+    index: DeviceIndex, qarr: np.ndarray, qids: np.ndarray, *, k: int, edit: bool, chunk: int, scheme_kw: dict,
+    timer: StageTimer | None,
+) -> SearchResult:
+    """Seed-and-verify over the bucket; queries it cannot search exactly
+    alone (N in a table-covered seed, a seed over ``PART_CAP``) go through
+    the work-queue engine instead, and the two row sets are concatenated."""
+    parts = plan_parts(qarr.shape[1], k)
+    bad = seed_bad_mask(index, qarr, parts)
+    fallback = np.zeros(qarr.shape[0], dtype=bool) if bad is None else bad.copy()
+    keep = np.flatnonzero(~fallback)
+    sv_q, sv_ids = (qarr, qids) if bad is None else (qarr[keep], qids[keep])
+    res, over = _run_sv_fused(index, sv_q, sv_ids, k=k, edit=edit, chunk=chunk, parts=parts, timer=timer)
+    fallback[keep[over]] = True
+    if not fallback.any():
+        return res
+    tape = compile_tape(load_scheme(min_k=0, max_k=k, length=qarr.shape[1], edit=edit, **scheme_kw))
+    res_fb = _run_workq_grouped(index, qarr[fallback], tape, qids[fallback], edit=edit, active=None,
+                                max_hits=0, chunk=chunk)
+    return _concat([res, res_fb])
 
 
 def search_queries(
@@ -150,26 +274,36 @@ def search_queries(
     queries,
     *,
     k: int,
+    generator_name: str = "h2-k2",
     edit: bool = True,
     mode: str = "all",
     max_hits: int = 0,
+    dynamic: bool = False,
     chunk: int = 16384,
     engine: str = "auto",
     query_ids: np.ndarray | None = None,
+    mesh=None,
     device=None,
     timer: StageTimer | None = None,
 ) -> SearchResult:
     """Approximate search of rank-array queries (a list of 1-D arrays, or
     one 2-D array of equal-length queries) against a device index.
 
-    ``device`` (default: the CUDA card) must be the index's device.
-    ``timer`` collects per-stage milliseconds.  Returns located hits over all
-    queries in canonical order."""
+    ``engine``: ``auto`` (seed-and-verify where it applies, else the
+    work-queue engine), ``sv`` or ``workq``.  ``generator_name`` and
+    ``dynamic`` choose the work-queue engine's search scheme.  ``device``
+    (default: the CUDA card) must be the index's device.  ``timer``
+    collects the seed-and-verify stages' milliseconds.  Returns located
+    hits over all queries in canonical order."""
     dev = resolve_device(device)
     if index.device.type != dev.type:
         raise ValueError(f"index lies on {index.device}, search asked for {dev}")
-    if engine not in ("auto", "sv"):
-        raise NotImplementedError(f"engine {engine!r} is not ported yet; see ROADMAP.md queue 1")
+    if engine not in ("auto", "sv", "workq"):
+        raise NotImplementedError(
+            f"engine {engine!r} is not ported; the frontier engine is ROADMAP.md queue 1 item 14"
+        )
+    if mesh is not None:
+        raise NotImplementedError("multi-device search is not ported; see ROADMAP.md queue 1 item 15")
     if mode not in ("all", "besthits"):
         raise ValueError(f"unknown search mode {mode!r}")
 
@@ -195,24 +329,36 @@ def search_queries(
             qids = np.asarray(idxs, dtype=np.int64)
         if query_ids is not None:
             qids = np.asarray(query_ids, dtype=np.int64)[qids]
-        if not sv_eligible(index, length, k):
-            raise NotImplementedError(
-                f"seed-and-verify with exact parts cannot search m={length}, k={k} on this index; "
-                f"{_WORKQ_ITEM} and item 10 (one-error seeds) will"
+        scheme_kw = dict(generator_name=generator_name, sigma=index.sigma, n_text=index.n, dynamic=dynamic)
+        use_sv = engine in ("auto", "sv") and sv_eligible(index, length, k)
+        if engine == "sv" and not use_sv:
+            raise ValueError(
+                "seed-verify engine not applicable (index lacks a text store, "
+                f"or parts too short for m={length}, k={k})"
             )
-        parts = plan_parts(length, k)
-        bad = seed_bad_mask(index, qarr, parts)
-        if bad is not None:
-            raise NotImplementedError(
-                f"{int(bad.sum())} queries carry ranks outside 1..4 where the seed table reads "
-                f"them; their exact search needs {_WORKQ_ITEM}"
-            )
-        res = _run_sv_fused(index, qarr, qids, k=k, edit=edit, chunk=chunk, parts=parts, timer=timer)
-        # the filter keeps each row whose error is its query's least, which
-        # commutes with the merge; the cap counts merged rows in order
-        if mode == "besthits":
-            res = _besthits_filter(res)
-        if max_hits > 0:
-            res = _cap_hits_per_query(_merge_results([res]), max_hits)
-        results.append(res)
+        if use_sv:
+            res = _run_sv_with_fallback(index, qarr, qids, k=k, edit=edit, chunk=chunk, scheme_kw=scheme_kw,
+                                        timer=timer)
+            # the filter keeps each row whose error is its query's least,
+            # which commutes with the merge; the cap counts merged rows in order
+            if mode == "besthits":
+                res = _besthits_filter(res)
+            if max_hits > 0:
+                res = _cap_hits_per_query(_merge_results([res]), max_hits)
+            results.append(res)
+        elif mode == "all":
+            tape = compile_tape(load_scheme(min_k=0, max_k=k, length=length, edit=edit, **scheme_kw))
+            results.append(_run_workq_grouped(index, qarr, tape, qids, edit=edit, active=None,
+                                              max_hits=max_hits, chunk=chunk))
+        else:
+            # strata j = 0..k: a query stops at the first stratum with hits
+            active = np.ones(len(qarr), dtype=bool)
+            for j in range(k + 1):
+                if not active.any():
+                    break
+                tape = compile_tape(load_scheme(min_k=j, max_k=j, length=length, edit=edit, **scheme_kw))
+                res = _run_workq_grouped(index, qarr, tape, qids, edit=edit, active=active,
+                                         max_hits=max_hits, chunk=chunk)
+                results.append(res)
+                active &= ~np.isin(qids, res.query_id)
     return _merge_results(results)

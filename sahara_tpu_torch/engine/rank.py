@@ -58,6 +58,12 @@ def rank_all_from_row(row: torch.Tensor, sigma: int, i: torch.Tensor) -> torch.T
     return (row[..., :sigma].long() + popcount32(bits)).to(torch.int32)
 
 
+def rank_all_offset(occ16: torch.Tensor, sigma: int, i: torch.Tensor, word_off: torch.Tensor) -> torch.Tensor:
+    """rank-all against a stacked occ table: ``word_off`` picks the
+    sub-table per position (0 = forward, ``rev_rows`` = reversed text)."""
+    return rank_all_from_row(occ16[(i.long() >> 5) + word_off.long()], sigma, i)
+
+
 def rank_sym(occ16: torch.Tensor, sigma: int, sym: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """int32[...]: count of symbol ``sym`` in bwt[0:i] (one symbol per lane)."""
     row = occ_row(occ16, i)

@@ -1,5 +1,6 @@
 """sahara_tpu_torch.search_queries against sahara_tpu's seed-and-verify
-driver, row for row, and the cases the port refuses instead of dropping."""
+driver, row for row: the seed-and-verify route, its fallback to the
+work-queue engine, and the routes the port refuses instead of dropping."""
 
 import numpy as np
 import pytest
@@ -25,8 +26,8 @@ def indexes():
     seqs = random_seqs(rng, 6, min_len=1500, max_len=4000, sigma=5)
     seqs[1][200:900] = seqs[0][1000:1700]  # a repeat: multi-hit reads
     host = build_bifmindex(seqs, 6, "d_dna5", rate=16)
-    names = ("occ", "c_arr", "sampled", "sample_seq", "sample_pos", "seq_lens", "text4", "sa_abs")
-    meta = {"kind": "uni", "sigma": 6, "alphabet": "d_dna5", "rate": 16, "n": host.n}
+    names = ("occ", "c_arr", "sampled", "sample_seq", "sample_pos", "seq_lens", "text4", "sa_abs", "occ_rev")
+    meta = {"kind": "bi", "sigma": 6, "alphabet": "d_dna5", "rate": 16, "n": host.n}
     port_host = from_arrays({k: getattr(host, k) for k in names}, meta)
     return seqs, JaxDeviceIndex.from_host(host), port_host, DeviceIndex.from_host(port_host, device="cpu")
 
@@ -77,31 +78,44 @@ def test_matrix_queries_and_sampled_walk_match_full_sa(indexes):
 
 @pytest.mark.parametrize("rank,where", [(5, -3), (0, -1)])
 def test_untableable_rank_raises(indexes, rank, where):
-    """A query the reference re-searches with its work-queue engine (a rank
-    the j-mer table cannot encode) is refused, never dropped."""
-    seqs, _, _, pdev = indexes
+    """A rank the j-mer table cannot encode no longer raises: the query is
+    re-searched through the work-queue engine, as the reference does, and
+    the rows equal its ``auto`` rows."""
+    seqs, jdev, _, pdev = indexes
     queries = _reads(seqs, np.random.default_rng(60), 20, 2)
-    queries[7] = queries[7].copy()
-    queries[7][where] = rank
-    with pytest.raises(NotImplementedError, match="work-queue engine"):
-        search_queries(pdev, queries, k=2, device="cpu")
+    queries[6] = queries[6].copy()  # a forward strand: it has hits
+    queries[6][where] = rank
+    want = jax_search_queries(jdev, queries, k=2)
+    got = search_queries(pdev, queries, k=2, device="cpu")
+    assert got.rows() == want.rows() and 6 in set(got.query_id.tolist())
 
 
 def test_part_cap_overflow_raises(indexes, monkeypatch):
-    seqs, _, _, pdev = indexes
+    """Seeds over the per-part budget no longer raise: those queries go
+    through the work-queue engine, and the rows equal the reference's."""
+    seqs, jdev, _, pdev = indexes
     queries = _reads(seqs, np.random.default_rng(61), 20, 2)
+    want = jax_search_queries(jdev, queries, k=2, sv_part_cap=0)
     monkeypatch.setattr(seedverify, "PART_CAP", 0)
-    with pytest.raises(NotImplementedError, match="per-part budget"):
-        search_queries(pdev, queries, k=2, device="cpu")
+    got = search_queries(pdev, queries, k=2, device="cpu")
+    assert got.rows() == want.rows() and len(want.rows()) >= 20
 
 
-@pytest.mark.parametrize("length,k,engine", [(M, 2, "workq"), (M, 8, "auto"), (30, 3, "auto")])
-def test_unported_routes_raise(indexes, length, k, engine):
-    """The scheme engines, k > 7 and reads too short for exact parts."""
+@pytest.mark.parametrize("route", ["frontier", "mesh", "sv_short"])
+def test_unported_routes_raise(indexes, route):
+    """The frontier engine and meshes are not ported; seed-and-verify
+    refuses reads too short for exact parts, as the reference does."""
     seqs, _, _, pdev = indexes
-    queries = [np.asarray(seqs[0][:length], dtype=np.uint8)]
-    with pytest.raises(NotImplementedError):
-        search_queries(pdev, queries, k=k, engine=engine, device="cpu")
+    kw = dict(k=2, device="cpu")
+    if route == "frontier":
+        kw["engine"] = "frontier"
+    elif route == "mesh":
+        kw["mesh"] = object()
+    else:
+        kw.update(k=3, engine="sv")
+    queries = [np.asarray(seqs[0][: 30 if route == "sv_short" else M], dtype=np.uint8)]
+    with pytest.raises(ValueError if route == "sv_short" else NotImplementedError):
+        search_queries(pdev, queries, **kw)
 
 
 def test_search_needs_a_card_by_default(indexes):

@@ -10,14 +10,18 @@ import numpy as np
 import pytest
 import torch
 
+from sahara_tpu_torch.engine import workq
 from sahara_tpu_torch.engine.device import DeviceIndex
-from sahara_tpu_torch.engine.driver import search_queries
+from sahara_tpu_torch.engine.driver import load_scheme, search_queries
 from sahara_tpu_torch.engine.seedverify import plan_parts
-from sahara_tpu_torch.index.build import build_fmindex
+from sahara_tpu_torch.engine.tape import compile_tape
+from sahara_tpu_torch.index.build import build_bifmindex, build_fmindex
 from sahara_tpu_torch.kernels import LAUNCHES
 from sahara_tpu_torch.kernels.rank import rank_all, rank_all_plain
+from sahara_tpu_torch.kernels.rank_smem import rank_all_smem, rank_all_smem_plain
 from sahara_tpu_torch.kernels.seed import seed_scan, seed_scan_plain
 from sahara_tpu_torch.kernels.verify import verify, verify_plain
+from sahara_tpu_torch.kernels.workq import workq_count, workq_count_plain, workq_emit, workq_emit_plain
 
 pytestmark = pytest.mark.gpu
 
@@ -107,3 +111,88 @@ def test_search_on_card_matches_cpu(host, full_sa):
     got = search_queries(DeviceIndex.from_host(idx_host, device=dev, full_sa=full_sa), queries,
                          k=2, chunk=256)
     assert got.rows() == want.rows() and len(want.rows()) >= 700
+
+
+@pytest.fixture(scope="module")
+def bihost():
+    rng = np.random.default_rng(78)
+    seqs = [rng.integers(1, 5, int(rng.integers(200, 1500))).astype(np.uint8) for _ in range(12)]
+    seqs[4][:300] = seqs[1][-300:]  # a repeat
+    seqs[7][50] = 5  # an N in the text: sigma_live = 6
+    return build_bifmindex(seqs, 6, "d_dna5"), seqs
+
+
+def test_rank_all_smem_kernel_matches_plain(bihost):
+    dev = _card()
+    idx_host, _ = bihost
+    index = DeviceIndex.from_host(idx_host, device=dev, include_rev=False)
+    idx = torch.from_numpy(np.r_[0, idx_host.n, np.random.default_rng(6).integers(0, idx_host.n, 300_000)]
+                           .astype(np.int32)).to(dev)
+    before = LAUNCHES["rank_all_smem"]
+    got = rank_all_smem(index.occ16, index.sigma, idx)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rank_all_smem"] == before + 1
+    assert torch.equal(got, rank_all_smem_plain(index.occ16, index.sigma, idx))
+
+
+def test_rank_all_smem_refuses_a_large_table():
+    dev = _card()
+    occ16 = torch.zeros((4000, 16), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        rank_all_smem(occ16, 6, torch.zeros(8, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("edit", [True, False])
+def test_workq_step_kernels_match_plain(bihost, edit):
+    """K5 count and emit against their plain versions on queues taken from
+    a real search, step after step."""
+    dev = _card()
+    idx_host, seqs = bihost
+    index = DeviceIndex.from_host(idx_host, device=dev)
+    queries = _reads(seqs, np.random.default_rng(8), 400, 40, 2)
+    queries[::9, 7] = 5  # N in some reads
+    tape = compile_tape(load_scheme("h2-k2", 0, 2, 40, edit=edit, sigma=6, n_text=idx_host.n))
+    qd = torch.from_numpy(queries).to(dev)
+    ctx, state = workq.start_queue(index, qd, workq.upload_tape(tape, dev),
+                                   torch.ones(len(queries), dtype=torch.bool, device=dev), edit=edit, k=2)
+    kw = dict(sigma=index.sigma, rev_off=index.rev_word_off, **ctx.kw)
+    for _ in range(30):
+        args = (index.occ16, index.c_arr, ctx.tape, *state)
+        prod, flags = workq_count(*args, **kw)
+        prod_p, flags_p = workq_count_plain(*args, **kw)
+        assert torch.equal(prod, prod_p) and torch.equal(flags, flags_p)
+        pos = torch.cumsum(flags.reshape(-1), 0, dtype=torch.int32)
+        total = int(pos[-1])
+        got = workq_emit(flags, pos, total, prod, ctx.tape, *state, **ctx.kw)
+        want = workq_emit_plain(flags, prod, ctx.tape, *state, **ctx.kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        state = got
+    assert total > 0
+
+
+@pytest.mark.parametrize("edit", [True, False])
+def test_workq_search_on_card_matches_cpu(bihost, edit):
+    dev = _card()
+    idx_host, seqs = bihost
+    queries = _reads(seqs, np.random.default_rng(9), 300, 30, 2)
+    queries[::7, 3] = 5
+    tape = compile_tape(load_scheme("optimum", 0, 2, 30, edit=edit, sigma=6, n_text=idx_host.n))
+    runs = []
+    for d in ("cpu", dev):
+        index = DeviceIndex.from_host(idx_host, device=d)
+        hits = workq.run_workq_search(index, queries, tape, edit=edit, dedup=True)
+        runs.append(sorted(zip(hits.lane.tolist(), hits.lb.tolist(), hits.sz.tolist(), hits.err.tolist())))
+    assert runs[0] == runs[1] and len(runs[0]) >= 250
+
+
+def test_fallback_on_card_matches_cpu(bihost):
+    """N reads leave seed-and-verify for the work-queue engine on the card."""
+    dev = _card()
+    idx_host, seqs = bihost
+    queries = _reads(seqs, np.random.default_rng(10), 400, 50, 2)
+    queries[::8, 16] = 5  # the last char of the first part: the j-mer table cannot seed it
+    want = search_queries(DeviceIndex.from_host(idx_host, device="cpu"), queries, k=2, device="cpu", chunk=128)
+    before = LAUNCHES["workq_count"]
+    got = search_queries(DeviceIndex.from_host(idx_host, device=dev), queries, k=2, chunk=128)
+    assert LAUNCHES["workq_count"] > before
+    assert got.rows() == want.rows() and len(want.rows()) >= 400

@@ -12,6 +12,7 @@ from sahara_tpu.kernels.rank import pack_occ16 as jax_pack_occ16
 from sahara_tpu.kernels.rank import rank_all_hbm, rank_all_vmem
 from sahara_tpu_torch.engine import rank
 from sahara_tpu_torch.kernels.rank import rank_all
+from sahara_tpu_torch.kernels.rank_smem import SMEM_LIMIT, occ16_smem_bytes, rank_all_smem
 
 
 @pytest.fixture(scope="module")
@@ -83,3 +84,32 @@ def test_rank_all_rejects_other_devices(occ_fixture):
     with pytest.raises(ValueError):
         rank_all(occ16.to("meta"), 6, torch.from_numpy(idx))
 
+
+def test_rank_all_smem_plain_matches_pallas_vmem(occ_fixture):
+    """K4's plain version (taken on the CPU) against rank_all_vmem in
+    interpret mode, the TPU kernel it replaces."""
+    host, occ16, idx = occ_fixture
+    got = rank_all_smem(occ16, host.sigma, torch.from_numpy(idx)).numpy()
+    want = rank_all_vmem(jax_pack_occ16(host.occ), host.sigma, jnp.asarray(idx), interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def test_rank_all_smem_refuses_tables_over_shared_memory(occ_fixture):
+    host, occ16, idx = occ_fixture
+    rows = SMEM_LIMIT // occ16_smem_bytes(1)
+    assert occ16_smem_bytes(rows) <= SMEM_LIMIT < occ16_smem_bytes(rows + 1)
+    big = torch.zeros((rows + 1, 16), dtype=torch.int32)
+    with pytest.raises(ValueError, match="shared memory"):
+        rank_all_smem(big, host.sigma, torch.from_numpy(idx[:4]))
+
+
+def test_rank_all_offset_matches_xla(occ_fixture):
+    """rank-all against the stacked forward + reversed table."""
+    host, _, idx = occ_fixture
+    w = host.occ.shape[0]
+    stacked = np.concatenate([host.occ, host.occ_rev])
+    off = np.random.default_rng(5).integers(0, 2, size=idx.shape[0]).astype(np.int32) * w
+    got = rank.rank_all_offset(torch.from_numpy(rank.pack_occ16(stacked)), host.sigma, torch.from_numpy(idx),
+                               torch.from_numpy(off)).numpy()
+    want = jax_rank.rank_all_offset(jnp.asarray(stacked), host.sigma, jnp.asarray(idx), jnp.asarray(off))
+    np.testing.assert_array_equal(got, np.asarray(want))

@@ -1,0 +1,236 @@
+"""sahara_tpu_torch's work-queue engine and its driver routes against
+sahara_tpu's, on the CPU: hit multisets with dedup off, located rows with
+dedup on, the HARD_CAP split, tape groups and the seed-and-verify fallback.
+Every stage is integer, so every comparison is exact."""
+
+import numpy as np
+import pytest
+import torch
+
+from sahara_tpu.engine.device import DeviceIndex as JaxDeviceIndex
+from sahara_tpu.engine.driver import search_queries as jax_search_queries
+from sahara_tpu.engine.tape import compile_tape as jax_compile_tape
+from sahara_tpu.engine.workq import run_workq_search as jax_run_workq_search
+from sahara_tpu.index.build import build_bifmindex
+from sahara_tpu.schemes import GENERATORS as JAX_GENERATORS
+from sahara_tpu.schemes import expand as jax_expand
+from sahara_tpu.schemes import limit_to_hamming as jax_limit_to_hamming
+from sahara_tpu_torch.engine import seedverify, workq
+from sahara_tpu_torch.engine.device import DeviceIndex
+from sahara_tpu_torch.engine.driver import load_scheme, search_queries
+from sahara_tpu_torch.engine.rank import pack_occ16
+from sahara_tpu_torch.engine.tape import compile_tape
+from sahara_tpu_torch.index.fmindex import from_arrays
+
+from tests.util import random_seqs
+
+_ARRAYS = ("occ", "c_arr", "sampled", "sample_seq", "sample_pos", "seq_lens", "text4", "sa_abs", "occ_rev")
+
+
+def _port_host(host):
+    meta = {"kind": "bi", "sigma": host.sigma, "alphabet": host.alphabet_name, "rate": host.rate, "n": host.n,
+            "mirrored": host.mirrored}
+    return from_arrays({k: getattr(host, k) for k in _ARRAYS if getattr(host, k) is not None}, meta)
+
+
+def _both(host):
+    """(JAX device index, port host index, port CPU index) of one host index."""
+    port_host = _port_host(host)
+    return JaxDeviceIndex.from_host(host), port_host, DeviceIndex.from_host(port_host, device="cpu")
+
+
+def _multiset(hits):
+    return sorted(zip(hits.lane.tolist(), hits.lb.tolist(), hits.sz.tolist(), hits.err.tolist()))
+
+
+@pytest.fixture(scope="module")
+def three_seqs():
+    """tests/test_workq.py's fixture: three random sequences, six 20-char
+    queries, every other one with a substitution."""
+    rng = np.random.default_rng(7)
+    seqs = [rng.integers(1, 5, size=ln).astype(np.uint8) for ln in (300, 150, 80)]
+    m, qs = 20, []
+    for i in range(6):
+        s = seqs[i % 3]
+        p = (i * 13) % (len(s) - m)
+        q = s[p : p + m].copy()
+        if i % 2:
+            q[5] = 1 + (q[5] % 4)
+        qs.append(q)
+    return (seqs, *_both(build_bifmindex(seqs, 6, "d_dna5")), np.stack(qs).astype(np.int32))
+
+
+@pytest.fixture(scope="module")
+def sv_workload():
+    """tests/test_sv_driver.py's fixture: 24 reads of 36 chars over three
+    short sequences, 20 with up to two substitutions and 4 random."""
+    rng = np.random.default_rng(11)
+    seqs = random_seqs(rng, 3, min_len=80, max_len=200, sigma=5)
+    m, queries = 36, []
+    for _ in range(20):
+        s = seqs[int(rng.integers(0, len(seqs)))]
+        p = int(rng.integers(0, len(s) - m))
+        q = np.array(s[p : p + m], dtype=np.uint8)
+        for _ in range(int(rng.integers(0, 3))):
+            at = int(rng.integers(0, m))
+            q[at] = 1 + (q[at] - 1 + 1) % 4
+        queries.append(q)
+    queries += [rng.integers(1, 5, m).astype(np.uint8) for _ in range(4)]
+    return (*_both(build_bifmindex(seqs, 6, "d_dna5", rate=16)), queries)
+
+
+@pytest.fixture(scope="module")
+def repeat_workload():
+    """tests/test_workq_split.py's fixture: 256 reads with one substitution
+    over a tandem repeat, so intervals are wide and the queue is long."""
+    rng = np.random.default_rng(0)
+    ref = np.tile(rng.integers(1, 5, size=251).astype(np.uint8), 100)
+    qs = []
+    for _ in range(256):
+        p = int(rng.integers(0, len(ref) - 36))
+        q = ref[p : p + 36].copy()
+        at = int(rng.integers(0, 36))
+        q[at] = 1 + (q[at] - 1 + int(rng.integers(1, 4))) % 4
+        qs.append(q)
+    return (*_both(build_bifmindex([ref], 6, "d_dna5", rate=16)), qs)
+
+
+def test_device_index_stacks_the_reversed_table(three_seqs):
+    _, jdev, port_host, pdev, _ = three_seqs
+    w = port_host.occ.shape[0]
+    assert pdev.rev_rows == w and pdev.rev_word_off == w and pdev.bidirectional
+    np.testing.assert_array_equal(pdev.occ16[:w].numpy(), pack_occ16(port_host.occ))
+    np.testing.assert_array_equal(pdev.occ16[w:].numpy(), pack_occ16(port_host.occ_rev))
+    assert pdev.sigma_live == jdev.sigma_live == 5
+    sv_only = DeviceIndex.from_host(port_host, device="cpu", include_rev=False)
+    assert sv_only.occ16.shape[0] == w and not sv_only.bidirectional
+
+
+@pytest.mark.parametrize("gen", ["optimum", "h2-k2"])
+@pytest.mark.parametrize("edit", [True, False])
+def test_flat_hits_multiset_equals_jax(three_seqs, gen, edit):
+    """With dedup off the hit multiset is exact, phase 0 included (the port
+    runs it through the general step)."""
+    _, jdev, _, pdev, qarr = three_seqs
+    jax_ess = jax_expand(JAX_GENERATORS[gen].generator(0, 2, 0, 0), qarr.shape[1])
+    want = jax_run_workq_search(jdev, qarr, jax_compile_tape(jax_ess if edit else jax_limit_to_hamming(jax_ess)),
+                                edit=edit)
+    tape = compile_tape(load_scheme(gen, 0, 2, qarr.shape[1], edit=edit, sigma=6, n_text=pdev.n))
+    got = workq.run_workq_search(pdev, qarr, tape, edit=edit)
+    assert _multiset(got) == _multiset(want) and got.n_hits > 0
+
+
+def test_active_mask_and_dedup(three_seqs):
+    """Inactive queries start no lane; dedup shrinks the hit multiset and
+    keeps its (lane, interval) set."""
+    _, _, _, pdev, qarr = three_seqs
+    tape = compile_tape(load_scheme("optimum", 0, 2, qarr.shape[1], edit=True, sigma=6, n_text=pdev.n))
+    active = np.array([True, False, True, False, True, False])
+    hits = workq.run_workq_search(pdev, qarr, tape, edit=True, active=active)
+    assert set((hits.lane // tape.num_searches).tolist()) <= {0, 2, 4}
+    full = workq.run_workq_search(pdev, qarr, tape, edit=True)
+    dedup = workq.run_workq_search(pdev, qarr, tape, edit=True, dedup=True)
+    assert dedup.n_hits < full.n_hits
+    assert {h[:3] for h in _multiset(dedup)} == {h[:3] for h in _multiset(full)}
+
+
+@pytest.mark.parametrize("mode", ["all", "besthits"])
+@pytest.mark.parametrize("k", [1, 2])
+def test_workq_rows_equal_jax(sv_workload, mode, k):
+    jdev, _, pdev, queries = sv_workload
+    kw = dict(k=k, edit=True, mode=mode, chunk=16, engine="workq")
+    want = jax_search_queries(jdev, queries, **kw)
+    got = search_queries(pdev, queries, device="cpu", **kw)
+    assert got.rows() == want.rows() and len(want.rows()) >= 15
+
+
+def test_workq_hamming_and_max_hits_rows_equal_jax(sv_workload):
+    """The in-search cap (4 x max_hits) on a fixture where no query reaches
+    it, and the Hamming scheme."""
+    jdev, _, pdev, queries = sv_workload
+    for kw in (dict(k=2, edit=False), dict(k=1, edit=True, max_hits=2)):
+        want = jax_search_queries(jdev, queries, engine="workq", chunk=16, **kw)
+        got = search_queries(pdev, queries, engine="workq", chunk=16, device="cpu", **kw)
+        assert got.rows() == want.rows()
+
+
+def test_auto_routes_short_reads_to_workq(sv_workload):
+    """Too short for exact parts: the port's auto takes the work-queue
+    engine where the reference takes one-error seeds; same rows."""
+    jdev, _, pdev, queries = sv_workload
+    short = [q[:20] for q in queries[:6]]
+    want = jax_search_queries(jdev, short, k=2, edit=True, chunk=8)
+    assert search_queries(pdev, short, k=2, edit=True, chunk=8, device="cpu").rows() == want.rows()
+
+
+def test_hard_cap_split_gives_the_same_rows(repeat_workload, monkeypatch):
+    jdev, _, pdev, qs = repeat_workload
+    kw = dict(k=1, generator_name="optimum", edit=True, mode="all", engine="workq")
+    base = search_queries(pdev, qs, device="cpu", **kw)
+    assert base.rows() == jax_search_queries(jdev, qs, **kw).rows() and len(base.rows()) > 256
+    monkeypatch.setattr(workq, "HARD_CAP", 512)
+    tape = compile_tape(load_scheme("optimum", 0, 1, 36, edit=True, sigma=6, n_text=pdev.n))
+    with pytest.raises(workq.QueueOverflow):  # the whole chunk does not fit: the driver must split
+        workq.run_workq_search(pdev, np.stack(qs), tape, edit=True, dedup=True)
+    assert search_queries(pdev, qs, device="cpu", **kw).rows() == base.rows()
+    monkeypatch.setattr(workq, "HARD_CAP", 2)
+    with pytest.raises(RuntimeError, match="single query"):
+        search_queries(pdev, qs[:4], device="cpu", **kw)
+
+
+def test_wide_intervals_locate_the_same_on_both_walks(repeat_workload):
+    """Work-queue hit intervals span many rows; the full-SA gather and the
+    sampled LF-walk locate them alike, and no located row is a sentinel."""
+    _, port_host, pdev, qs = repeat_workload
+    kw = dict(k=1, generator_name="optimum", edit=True, engine="workq", device="cpu")
+    full = search_queries(pdev, qs[:64], **kw)
+    sampled = search_queries(DeviceIndex.from_host(port_host, device="cpu", full_sa=False), qs[:64], **kw)
+    assert sampled.rows() == full.rows()
+    assert ((full.pos >= 0) & (full.pos + 36 - 1 <= port_host.seq_lens[full.seq_id])).all()
+
+
+def test_many_searches_split_into_tape_groups(three_seqs):
+    """01*0 at k=3 has 10 searches, more than MAX_NS = 8."""
+    seqs, jdev, _, pdev, _ = three_seqs
+    assert compile_tape(load_scheme("01*0", 0, 3, 18, edit=False, sigma=6, n_text=pdev.n)).num_searches > workq.MAX_NS
+    qs = [seqs[0][i * 11 : i * 11 + 18].copy() for i in range(3)]
+    qs[1][4] = 1 + (qs[1][4] % 4)
+    kw = dict(k=3, generator_name="01*0", edit=False)
+    got = search_queries(pdev, qs, device="cpu", **kw)
+    assert got.rows() == jax_search_queries(jdev, qs, **kw).rows() and len(got.rows()) >= 3
+
+
+@pytest.fixture(scope="module")
+def n_reads(sv_workload):
+    """Reads with an N at the end of a seed part (where the j-mer table
+    reads it) in every third read, and one random read."""
+    *_, queries = sv_workload
+    qs = [q.copy() for q in queries]
+    for q in qs[::3]:
+        q[11] = 5
+    return qs
+
+
+@pytest.mark.parametrize("mode", ["all", "besthits"])
+def test_sv_fallback_for_n_reads_equals_jax(sv_workload, n_reads, mode):
+    jdev, _, pdev, _ = sv_workload
+    kw = dict(k=2, edit=True, mode=mode, chunk=16)
+    assert seedverify.seed_bad_mask(pdev, np.stack(n_reads), seedverify.plan_parts(36, 2)) is not None
+    want = jax_search_queries(jdev, n_reads, **kw)
+    assert search_queries(pdev, n_reads, device="cpu", **kw).rows() == want.rows()
+
+
+def test_sv_fallback_over_part_cap_equals_jax(sv_workload, monkeypatch):
+    jdev, _, pdev, queries = sv_workload
+    want = jax_search_queries(jdev, queries, k=2, edit=True, chunk=16, sv_part_cap=1)
+    monkeypatch.setattr(seedverify, "PART_CAP", 1)
+    got = search_queries(pdev, queries, k=2, edit=True, chunk=16, device="cpu")
+    assert got.rows() == want.rows() and len(want.rows()) >= 20
+
+
+def test_workq_needs_a_bidirectional_index(sv_workload):
+    _, port_host, _, queries = sv_workload
+    sv_only = DeviceIndex.from_host(port_host, device="cpu", include_rev=False)
+    with pytest.raises(ValueError, match="bidirectional"):
+        search_queries(sv_only, queries, k=2, engine="workq", device="cpu")
+    assert torch.equal(sv_only.occ16, DeviceIndex.from_host(port_host, device="cpu").occ16[: sv_only.occ16.shape[0]])
