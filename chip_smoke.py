@@ -26,8 +26,10 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
    first 8,192 reads, checking each hit's mismatches on the host;
 6. holds K4 (table in shared memory) and K1 against the plain rank on the
    largest table K4 takes (a random text of 100,000 characters) at 262,144
-   positions, and K5 (count, emit) against the plain step on the queue the
-   work-queue search holds after phase 0 of the workload's first chunk;
+   positions, and K5 (the one-launch work-queue step) against the plain
+   step on three queues of the workload's first chunk: the queue after
+   phase 0, the largest queue, and a drain step of a search with the
+   in-search cap; records the chunk's queue size per step;
 7. runs the work-queue path on the same workload with both occ tables on
    the card (``engine="workq"``, ``generator_name="optimum"``, as
    ``bench.py`` does): its hit set must equal the seed-and-verify path's
@@ -159,6 +161,11 @@ def seed_reads(index, queries: torch.Tensor, parts) -> tuple[int, int]:
     return torch.unique(torch.cat(seen)).numel(), torch.unique(jmers, dim=0).shape[0]
 
 
+def dev_ms(e) -> float:
+    """Device milliseconds of one profiler event (key average)."""
+    return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+
 def profile_pass(run) -> dict:
     """Device busy time and the heaviest ops of one pass (torch.profiler),
     and the heaviest host functions (cProfile, a second pass)."""
@@ -166,9 +173,6 @@ def profile_pass(run) -> dict:
     import pstats
 
     from torch.profiler import ProfilerActivity, profile
-
-    def dev_ms(e) -> float:
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -300,59 +304,134 @@ def smem_phase(dev) -> dict:
     )
 
 
-def workq_step_phase(index, queries: np.ndarray) -> list[dict]:
-    """K5 count and emit against the plain step on the queue that the
-    work-queue search of the first chunk holds after phase 0."""
+def kernel_device_ms(fn, name: str, reps: int) -> float:
+    """Mean device time of kernel ``name`` per launch over ``reps`` calls
+    of ``fn`` (torch.profiler), after one warm call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
+    launches = sum(e.count for e in events)
+    if launches != reps:
+        raise AssertionError(f"the profiler saw {launches} launches of {name}, not {reps}")
+    return sum(dev_ms(e) for e in events) / launches
+
+
+def workq_step_phase(index, queries: np.ndarray) -> tuple[dict, dict]:
+    """K5 against its plain step on three queues of the first chunk's
+    work-queue search (dedup on, as the path runs it): (a) after phase 0,
+    (b) the largest, (c) the drain step with the most capped rows of a
+    search with the in-search cap at 1.  Returns the kernel row and the
+    chunk's queue size per step."""
     from sahara_tpu_torch.engine import workq
     from sahara_tpu_torch.engine.driver import load_scheme
     from sahara_tpu_torch.engine.tape import compile_tape
-    from sahara_tpu_torch.kernels.workq import workq_count, workq_count_plain, workq_emit, workq_emit_plain
+    from sahara_tpu_torch.kernels.workq import n_branches, workq_step, workq_step_plain
 
     dev, m = index.device, queries.shape[1]
     tape = compile_tape(load_scheme(WORKQ_GENERATOR, 0, K, m, edit=True, sigma=index.sigma, n_text=index.n))
     qd = torch.from_numpy(np.ascontiguousarray(queries[:CHUNK])).to(dev)
-    ctx, state = workq.start_queue(index, qd, workq.upload_tape(tape, dev),
-                                   torch.ones(CHUNK, dtype=torch.bool, device=dev), edit=True, k=tape.max_errors)
     ph0 = workq.phase0_length(tape, True)
-    for _ in range(ph0):
-        state = workq.expand_step(index, ctx, state)
-    args = (index.occ16, index.c_arr, ctx.tape, *state)
-    ckw = dict(sigma=index.sigma, rev_off=index.rev_word_off, **ctx.kw)
-    prod, flags = workq_count(*args, **ckw)
-    prod_p, flags_p = workq_count_plain(*args, **ckw)
-    err = assert_equal("workq_count prod", prod, prod_p) + assert_equal("workq_count flags", flags, flags_p)
-    pos = torch.cumsum(flags.reshape(-1), 0, dtype=torch.int32)
-    total = int(pos[-1])
-    eargs = (flags, pos, total, prod, ctx.tape, *state)
-    kids = workq_emit(*eargs, **ctx.kw)
-    kids_p = workq_emit_plain(flags, prod, ctx.tape, *state, **ctx.kw)
-    e_err = sum(assert_equal(f"workq_emit {f}", a, b) for f, a, b in zip(("lb", "lbr", "sz", "meta"), kids, kids_p))
 
-    lb, lbr, sz, meta = state
-    n, sl, e_used = sz.shape[0], ctx.kw["sl"], flags.shape[0]
-    layout, ns = ctx.kw["layout"], ctx.kw["ns"]
-    _, _, d, s_id, q_id = layout.decode(meta)
-    side = ctx.tape[(q_id.long() * ns + s_id) * m + d.clamp(max=m - 1)] & 1
-    primary = torch.where(side == 1, lbr, lb).long()
-    woff = side.long() * index.rev_word_off
-    occ_rows = torch.unique(torch.cat([(primary >> 5) + woff, ((primary + sz) >> 5) + woff])[torch.cat([sz > 0] * 2)])
-    # count: state and tape word per row, each distinct occ row, products and flags written
-    cb, cby = bound(n * 20 + occ_rows.numel() * 64 + n * (3 * sl * 4 + e_used), n * (6 * index.sigma + 4 * e_used))
-    # emit: flags and scan per candidate, products, parent state and tape word, children written
-    eb, eby = bound(e_used * n * 5 + n * (3 * sl * 4 + 20) + total * 16, e_used * n * 2 + total * 20)
-    shape = f"{n} rows after phase 0 ({ph0} steps) of {qd.shape[0]} strand queries, {total} children, sl={sl}"
-    return [
-        dict(name="workq_count", route="cuda", source="sahara_tpu_torch/kernels/csrc/workq.cu",
-             replaces="sahara_tpu/engine/workq.py:859", max_abs_err=err,
-             ms=time_ms(lambda: workq_count(*args, **ckw), 20),
-             plain_ms=time_ms(lambda: workq_count_plain(*args, **ckw), 3),
-             bound_ms=cb, bound_by=cby, library_ms=None, shape=shape),
-        dict(name="workq_emit", route="cuda", source="sahara_tpu_torch/kernels/csrc/workq.cu",
-             replaces="sahara_tpu/engine/workq.py:979", max_abs_err=e_err,
-             ms=time_ms(lambda: workq_emit(*eargs, **ctx.kw), 20),
-             plain_ms=time_ms(lambda: workq_emit_plain(flags, prod, ctx.tape, *state, **ctx.kw), 3),
-             bound_ms=eb, bound_by=eby, library_ms=None, shape=shape),
-    ]
+    def search(cap: int, keep) -> list[int]:
+        """Run the chunk's search; ``keep`` sees each step's input first.
+        Returns the queue size per step."""
+        sizes, expand_step = [], workq.expand_step
+
+        def recorded(ctx, state, *, drain=False):
+            sizes.append(state[2].shape[0])
+            keep(len(sizes) - 1, ctx, state, drain)
+            return expand_step(ctx, state, drain=drain)
+
+        workq.expand_step = recorded
+        try:
+            workq.workq_search(index, qd, workq.upload_tape(tape, dev), torch.ones(CHUNK, dtype=torch.bool, device=dev),
+                               edit=True, k=tape.max_errors, ph0=ph0, dedup_every=workq.DEDUP_EVERY,
+                               cap_per_query=cap)
+        finally:
+            workq.expand_step = expand_step
+        return sizes
+
+    cases: dict = {}  # label -> (step, context, input queue, drain, pre-step hit counts)
+
+    def keep_uncapped(g, ctx, state, drain):
+        if g == ph0:
+            cases["a"] = (g, ctx, state, drain, None)
+        if "b" not in cases or state[2].shape[0] > cases["b"][2][2].shape[0]:
+            cases["b"] = (g, ctx, state, drain, None)
+
+    def capped_rows(ctx, state) -> int:
+        q_id = ctx.layout.decode(state[3])[4]
+        return int(((ctx.hq_counts[q_id.long()] >= ctx.cap_per_query) & (state[2] > 0)).sum())
+
+    most_capped = [0]
+
+    def keep_capped(g, ctx, state, drain):
+        if drain and capped_rows(ctx, state) > most_capped[0]:
+            most_capped[0] = capped_rows(ctx, state)
+            cases["c"] = (g, ctx, state, drain, ctx.hq_counts.clone())
+
+    sizes = search(0, keep_uncapped)
+    search(1, keep_capped)
+    if "c" not in cases:
+        raise AssertionError("no drain step of the capped search had a capped row")
+    peak = int(np.argmax(sizes))
+    profile = dict(sizes=sizes, peak_rows=sizes[peak], peak_step=peak, ph0=ph0, steps=len(sizes))
+    print(f"chunk 0 queue: {len(sizes)} steps, {sizes[ph0]} rows after phase 0 ({ph0} steps), peak {sizes[peak]} "
+          f"rows at step {peak}", flush=True)
+
+    out = []
+    for label, what in (("a", "after phase 0"), ("b", "largest queue"), ("c", "capped drain step")):
+        g, ctx, state, drain, counts = cases[label]
+        if counts is not None:
+            ctx.hq_counts.copy_(counts)
+        got = workq_step(ctx, *state, drain=drain)
+        want = workq_step_plain(ctx, *state, drain=drain)
+        err = sum(assert_equal(f"workq_step ({what}) {f}", a, b)
+                  for f, a, b in zip(("lb", "lbr", "sz", "meta", "hits"), got, want))
+        lb, lbr, sz, meta = state
+        n, n_kids, n_hits = sz.shape[0], got[0].shape[0], got[4].shape[1]
+        _, _, d, s_id, q_id = ctx.layout.decode(meta)
+        alive = sz > 0
+        if drain:
+            alive &= d < m
+            if ctx.cap_per_query:
+                alive &= ctx.hq_counts[q_id.long()] < ctx.cap_per_query
+        side = ctx.tape[(q_id.long() * ctx.ns + s_id) * m + d.clamp(max=m - 1)] & 1
+        primary = torch.where(side == 1, lbr, lb).long()
+        woff = side.long() * ctx.rev_off
+        occ_rows = torch.unique(torch.cat([(primary >> 5) + woff, ((primary + sz) >> 5) + woff])[alive.repeat(2)])
+        e_used = n_branches(ctx.sl, ctx.edit)
+        # state and tape word per row, each distinct occ row, children and hits written
+        b, by = bound(n * 20 + occ_rows.numel() * 64 + (n_kids + n_hits) * 16,
+                      n * (6 * ctx.sigma + 4 * e_used) + n_kids * 8)
+        step = lambda: workq_step(ctx, *state, drain=drain)  # noqa: E731
+        out.append(dict(
+            case=label, what=what, step=g, drain=drain, cap_per_query=ctx.cap_per_query, rows=n, children=n_kids,
+            hits=n_hits, capped_rows=capped_rows(ctx, state) if ctx.cap_per_query else 0, max_abs_err=err,
+            ms=kernel_device_ms(step, "step_kernel", 20), call_ms=time_ms(step, 20),
+            plain_ms=time_ms(lambda: workq_step_plain(ctx, *state, drain=drain), 3), bound_ms=b, bound_by=by,
+            occ_rows=occ_rows.numel(),
+        ))
+        print(f"workq_step ({what}, step {g}): {n} rows, {n_kids} children, {n_hits} hits: device "
+              f"{out[-1]['ms']:.4f} ms, call {out[-1]['call_ms']:.4f} ms, plain {out[-1]['plain_ms']:.3f} ms, "
+              f"bound {b:.5f} ms by {by}", flush=True)
+    a = out[0]
+    row = dict(
+        name="workq_step", route="cuda", source="sahara_tpu_torch/kernels/csrc/workq.cu",
+        replaces="sahara_tpu/engine/workq.py:702", max_abs_err=sum(c["max_abs_err"] for c in out),
+        ms=a["ms"], call_ms=a["call_ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"], bound_by=a["bound_by"],
+        library_ms=None, cases=out,
+        shape=f"{a['rows']} rows after phase 0 ({ph0} steps) of {qd.shape[0]} strand queries, {a['children']} "
+              f"children, sl={ctx.sl}",
+    )
+    return row, profile
 
 
 def count_syncs(run) -> int:
@@ -426,7 +505,7 @@ def workq_path(host, queries: np.ndarray, sv_rows: np.ndarray):
     torch.cuda.synchronize()
     out["first_pass_s"] = time.perf_counter() - t0
     out["launches"] = dict(LAUNCHES)
-    require_launches(out["launches"], ("workq_count", "workq_emit"), "work-queue")
+    require_launches(out["launches"], ("workq_step",), "work-queue")
     rows = sorted_rows(res)
     out.update(hits=len(rows), sha256=hashlib.sha256(rows.tobytes()).hexdigest())
     print(f"workq hits {len(rows)} sha256 {out['sha256']} (first pass {out['first_pass_s']:.2f} s)", flush=True)
@@ -467,7 +546,7 @@ def fallback_phase(index, queries: np.ndarray, sv_rows: np.ndarray) -> dict:
     reset_launches()
     auto = sorted_rows(search_queries(index, sub, k=K, edit=True, chunk=CHUNK))
     launches = dict(LAUNCHES)
-    require_launches(launches, ("seed_scan", "verify", "workq_count", "workq_emit"), "fallback")
+    require_launches(launches, ("seed_scan", "verify", "workq_step"), "fallback")
     wq = sorted_rows(search_queries(index, sub, k=K, edit=True, chunk=CHUNK, engine="workq"))
     if not np.array_equal(auto, wq):
         raise AssertionError("auto with fallback differs from the work-queue engine")
@@ -577,8 +656,9 @@ def main() -> int:
     # K4 and K5 vs plain; then the work-queue path and the fallback
     kernels.append(smem_phase(torch.device("cuda")))
     index_bi = DeviceIndex.from_host(host)
-    kernels += workq_step_phase(index_bi, queries)
-    del index_bi
+    step_row, report["workq_queue"] = workq_step_phase(index_bi, queries)
+    kernels.append(step_row)
+    del index_bi, step_row
     for row in kernels:
         print(f"{row['name']}: {row['ms']:.4f} ms (plain {row['plain_ms']:.3f} ms, "
               f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}) at {row['shape']}", flush=True)
@@ -594,8 +674,7 @@ def main() -> int:
 
     path_launches = {**launches, "verify_hamming": report["hamming"]["verify_launches"],
                      "rank_all_smem": rank_bench_launches["rank_all_smem"],
-                     "workq_count": report["workq"]["launches"]["workq_count"],
-                     "workq_emit": report["workq"]["launches"]["workq_emit"]}
+                     "workq_step": report["workq"]["launches"]["workq_step"]}
     for row in kernels:
         row["launches"] = path_launches[row["name"]]
     report.update(card=card, kernels=kernels, total_s=time.perf_counter() - t_start)

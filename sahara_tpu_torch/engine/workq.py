@@ -9,12 +9,13 @@ text, and a packed meta word (op/edge flags | err | d | search | query, see
 1. dedup    every ``dedup_every``-th step after phase 0, merge states that a
             surviving state dominates (scatter-min over a hash of the cursor,
             then a field-by-field check), PyTorch;
-2. drain    states that consumed the whole query leave as hits (lane, lb,
-            sz, err) unless an edge flag says a shorter span exists, and
-            with ``cap_per_query`` queries that emitted enough stop, PyTorch;
-3. count    K5 ``workq_count``: ranks, products and candidate flags;
-4. scan     ``torch.cumsum`` over the flags, one host read of the total;
-5. emit     K5 ``workq_emit``: the children, the next step's queue.
+2. step     K5 ``workq_step``, one launch: on drain steps (from step m on)
+            states that consumed the whole query leave as hits (lane, lb,
+            sz, err) unless an edge flag says a shorter span exists, and with
+            ``cap_per_query`` the states of queries that emitted enough stop;
+            every other live state is ranked and expanded, and its children,
+            compacted in parent-major order, are the next step's queue.  The
+            host reads the (children, hits) totals once.
 
 Transition semantics are the reference's (match/sub/del/ins, minimal-span
 edge flags, I-D adjacency suppression); with ``dedup=False`` the hit
@@ -25,11 +26,11 @@ as the reference's lockstep phase 0 does.  One difference there: a query
 rank of 0 (the sentinel) never matches, where the reference's phase 0 lets
 it match a sequence boundary.
 
-PyTorch allocates exactly, so the queue holds just the live states and
-there is no capacity plan, no overflow flag and no retry: each step reads
-its child count once and sizes the next queue.  A step whose child count
-passes ``HARD_CAP`` raises ``QueueOverflow``; the driver then halves the
-chunk's active queries.
+There is no capacity plan, no overflow flag and no retry: the step sizes
+its outputs by their bound (every branch of every row, every row a hit),
+reads its child count once and narrows the next queue to it.  A step
+whose child count passes ``HARD_CAP`` raises ``QueueOverflow``; the driver
+then halves the chunk's active queries.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ import torch
 
 from sahara_tpu_torch.engine.device import DeviceIndex
 from sahara_tpu_torch.engine.tape import SchemeTape
-from sahara_tpu_torch.kernels.workq import EDGES, workq_count, workq_emit
+from sahara_tpu_torch.kernels.workq import EDGES, StepContext, step_context, workq_step
 
 MAX_NS = 8  # searches per tape (the driver splits bigger schemes into groups)
 MAX_M = 511
@@ -220,17 +221,8 @@ def _dedup(lb, lbr, sz, meta, word, layout: MetaLayout) -> torch.Tensor:
     return torch.where(kill, 0, sz)
 
 
-@dataclasses.dataclass
-class StepContext:
-    """What every step of one search reads: the packed lane tape and the
-    kernels' static arguments."""
-
-    tape: torch.Tensor  # int32[nq * ns * m], from pack_lane_tape
-    kw: dict  # sl, edit, m, ns, layout
-
-
 def start_queue(index: DeviceIndex, queries: torch.Tensor, device_tape, active: torch.Tensor, *, edit: bool,
-                k: int) -> tuple[StepContext, tuple[torch.Tensor, ...]]:
+                k: int, cap_per_query: int = 0) -> tuple[StepContext, tuple[torch.Tensor, ...]]:
     """The step context and the first queue: one state per active lane, in
     lane order, on the whole text at d = 0."""
     nq, m = queries.shape
@@ -244,26 +236,30 @@ def start_queue(index: DeviceIndex, queries: torch.Tensor, device_tape, active: 
         )
     if not index.bidirectional:
         raise ValueError("scheme search requires a bidirectional index")
-    sl = max(min(index.sigma_live or sigma, sigma), 2)
-    ctx = StepContext(pack_lane_tape(queries, *device_tape), dict(sl=sl, edit=edit, m=m, ns=ns, layout=layout))
     lanes = torch.arange(nq * ns, dtype=torch.int64, device=index.device)
     lanes = lanes[active[lanes // ns]]
     meta = ((lanes % ns) << layout.s_shift) | ((lanes // ns) << layout.q_shift)
     meta = torch.where(meta >= 1 << 31, meta - (1 << 32), meta).to(torch.int32)
+    ctx = step_context(
+        index.occ16, index.c_arr, pack_lane_tape(queries, *device_tape), sigma=sigma,
+        sl=max(min(index.sigma_live or sigma, sigma), 2), edit=edit, m=m, ns=ns, rev_off=index.rev_word_off,
+        layout=layout, max_rows=max(meta.shape[0], HARD_CAP),
+        hq_counts=torch.zeros(nq, dtype=torch.int32, device=index.device) if cap_per_query else None,
+        cap_per_query=cap_per_query,
+    )
     return ctx, (torch.zeros_like(meta), torch.zeros_like(meta), torch.full_like(meta, index.n), meta)
 
 
-def expand_step(index: DeviceIndex, ctx: StepContext, state: tuple[torch.Tensor, ...]) -> tuple[torch.Tensor, ...]:
-    """The children of every live state: K5 count, the flag scan, K5 emit.
-    Reads the child count once to size the next queue."""
-    lb, lbr, sz, meta = state
-    prod, flags = workq_count(index.occ16, index.c_arr, ctx.tape, lb, lbr, sz, meta, sigma=index.sigma,
-                              rev_off=index.rev_word_off, **ctx.kw)
-    pos = torch.cumsum(flags.reshape(-1), 0, dtype=torch.int32)
-    total = int(pos[-1]) if pos.numel() else 0
-    if total > HARD_CAP:
-        raise QueueOverflow(f"a step needs {total} queue rows, over HARD_CAP={HARD_CAP}")
-    return workq_emit(flags, pos, total, prod, ctx.tape, lb, lbr, sz, meta, **ctx.kw)
+def expand_step(ctx: StepContext, state: tuple[torch.Tensor, ...], *, drain: bool = False):
+    """One K5 step: (the next queue, this step's hits int32[4, h]).  On a
+    drain step with the in-search cap, adds the hits to the per-query
+    counts."""
+    lb, lbr, sz, meta, hits = workq_step(ctx, *state, drain=drain)
+    if sz.shape[0] > HARD_CAP:
+        raise QueueOverflow(f"a step needs {sz.shape[0]} queue rows, over HARD_CAP={HARD_CAP}")
+    if ctx.cap_per_query and hits.shape[1]:
+        ctx.hq_counts.index_add_(0, (hits[0] // ctx.ns).long(), torch.ones_like(hits[0]))
+    return (lb, lbr, sz, meta), hits
 
 
 def workq_search(
@@ -284,31 +280,22 @@ def workq_search(
     ``cap_per_query`` > 0 stops expanding a query once it has emitted that
     many hit intervals (the reference's in-search bound; the count may
     overshoot by one step's worth, so the driver still caps rows)."""
-    nq, m = queries.shape
-    ctx, (lb, lbr, sz, meta) = start_queue(index, queries, device_tape, active, edit=edit, k=k)
-    ns, layout = ctx.kw["ns"], ctx.kw["layout"]
-    hq_counts = torch.zeros(nq, dtype=torch.int32, device=index.device) if cap_per_query else None
+    m = queries.shape[1]
+    ctx, state = start_queue(index, queries, device_tape, active, edit=edit, k=k, cap_per_query=cap_per_query)
     hits: list[torch.Tensor] = []
     main_steps, tail_steps = main_tail_steps(m, ph0, k, edit)
     for g in range(ph0 + main_steps + tail_steps):
+        lb, lbr, sz, meta = state
         if sz.shape[0] == 0:
             break
         if dedup_every and g >= ph0 and (g - ph0) % dedup_every == 0:
-            _, _, d, s_id, q_id = layout.decode(meta)
-            word = ctx.tape[(q_id.long() * ns + s_id) * m + d.clamp(max=m - 1)]
-            sz = _dedup(lb, lbr, sz, meta, word, layout)
-        if g >= m:  # only now can a state have consumed all m characters
-            opf, err, d, s_id, q_id = layout.decode(meta)
-            alive = sz > 0
-            if cap_per_query:
-                alive &= hq_counts[q_id.long()] < cap_per_query
-            done = alive & (d >= m)
-            fin = torch.nonzero(done & ((opf & EDGES) == 0))[:, 0]
-            hits.append(torch.stack([q_id[fin] * ns + s_id[fin], lb[fin], sz[fin], err[fin]]))
-            if cap_per_query:
-                hq_counts.index_add_(0, q_id[fin].long(), torch.ones_like(fin, dtype=torch.int32))
-            sz = torch.where(alive & ~done, sz, 0)
-        lb, lbr, sz, meta = expand_step(index, ctx, (lb, lbr, sz, meta))
+            _, _, d, s_id, q_id = ctx.layout.decode(meta)
+            word = ctx.tape[(q_id.long() * ctx.ns + s_id) * m + d.clamp(max=m - 1)]
+            state = (lb, lbr, _dedup(lb, lbr, sz, meta, word, ctx.layout), meta)
+        # only from step m on can a state have consumed all m characters
+        state, step_hits = expand_step(ctx, state, drain=g >= m)
+        if step_hits.shape[1]:
+            hits.append(step_hits)
     out = torch.cat(hits, dim=1).cpu().numpy() if hits else np.zeros((4, 0), dtype=np.int32)
     return FlatHits(lane=out[0], lb=out[1], sz=out[2], err=out[3], n_hits=out.shape[1])
 

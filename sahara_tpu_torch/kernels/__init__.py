@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 LAUNCHES = {
-    "rank_all": 0, "seed_scan": 0, "verify": 0, "rank_all_smem": 0, "workq_count": 0, "workq_emit": 0,
+    "rank_all": 0, "seed_scan": 0, "verify": 0, "rank_all_smem": 0, "workq_step": 0,
 }
 
 

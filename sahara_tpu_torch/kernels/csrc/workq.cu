@@ -1,43 +1,57 @@
-// K5 workq_step: one step of the work-queue scheme search, in two launches.
+// K5 workq_step: one step of the work-queue scheme search in one launch.
 //
-// Replaces the state-queue step of sahara_tpu/engine/workq.py::workq_search
-// (expand_step, :702-1073): the rank products and candidate flags of every
-// queue row (:859-922), and the child rows built from the compacted
-// candidates (:979-1055).  The TPU program stitched the compaction from
-// f32 matrix products (_positions, _compact_matmul); here the caller runs
-// one integer prefix sum (torch.cumsum) over the flags between the two
-// kernels, and the second kernel scatters each flagged candidate to its
-// slot.  Dedup and the hit drain run before the first kernel, in PyTorch.
+// Replaces the state-queue step of sahara_tpu/engine/workq.py::make_step (:702-1073): the hit drain,
+// the rank products and candidate flags of every queue row (:859-922), the compaction the TPU program
+// stitched from f32 matrix products (_compact_matmul :204, _positions :259) and the child rows
+// (:979-1055).  Dedup stays outside, in PyTorch.  One thread per queue row, 256 rows a tile:
 //
-//   workq_count  one thread per queue row: decode the packed meta word, read
-//                the lane's tape word, rank-all at both interval ends on the
-//                side's table (stacked occ16, word offset side * rev_off),
-//                write cnt / newp / news for the sl live symbols to
-//                prod[row, 3 * sl] and the candidate flags to
-//                flags[branch, row] (branch-major: match/sub for symbols
-//                1..sl-1, then for edit distance deletions 1..sl-1 and one
-//                insertion), so the compacted children come out in the
-//                reference's queue order.
-//   workq_emit   one thread per candidate (branch, row); a flagged one writes
-//                its child (lb, lbr, sz, meta) at slot pos[c] - 1 of the
-//                inclusive scan.
+//   1. Row.  Decode the packed meta word and read the lane's tape word (side | lo<<1 | hi<<5 | qc<<9 |
+//      maxlo<<17).  On drain steps (the DRAIN template flag) a row of a query whose pre-step hit count
+//      has reached cap_per_query (when that is > 0) dies, and a row that consumed the query (d >= m)
+//      leaves the queue, as a hit (lane, lb, sz, err) unless an edge flag says a shorter span exists.
+//      A live row ranks at both interval ends on its side's table (stacked occ16, word offset
+//      side * rev_off): every 16 B load of the two occ rows is in flight before any is used.  cnt / newp /
+//      news and the candidate mask (one bit per branch) stay in registers.
+//   2. Tile.  (children, hits) per row = (popcount of the mask, 0 or 1), packed in one word and scanned
+//      with warp shuffles, then over the warp totals in shared memory.
+//   3. Across tiles.  A single-pass decoupled look-back (Merrill & Garland 2016).  Tile ids come from
+//      a ticket counter, not blockIdx, so every tile a block waits on already runs.  Each tile
+//      publishes one 64-bit status word (epoch | flag | hits | children): first its aggregate, then its
+//      inclusive prefix, with release stores read back with acquire loads.  The epoch tag retires the
+//      previous step's words, so the status array is never cleared between steps.
+//   4. Emit.  Each row builds its children in shared memory at its tile offset, structure-of-arrays
+//      (lb, lbr, sz, meta), and the block writes them out coalesced from the tile's global base; the
+//      hits likewise.  The last tile writes the (children, hits) totals for the host.
 //
-// Bound on the H100: memory.  workq_count reads 16 B of state, a 4 B tape
-// word and two 64 B occ rows per live row and writes 12 * sl + e_used bytes;
-// the occ rows are scattered over an 80-160 MB table, so DRAM latency, not
-// bandwidth, sets its pace, and one thread per row keeps enough of them in
-// flight.  workq_emit reads a flag byte and a scan entry per candidate and
-// about 36 B per child.
+// Order is parent-major: parents in queue order, each parent's children in branch order (match/sub for
+// symbols 1..sl-1, then for edit distance deletions 1..sl-1 and one insertion).  The reference's
+// branch-major order would need every branch's grand total before the first child is placed.
 //
-// Design: sigma and edit are template parameters (sigma <= 8); the meta bit
-// layout (MetaLayout in engine/workq.py) is passed as field widths.
+// Bound on the H100: memory, and its latency more than its bandwidth.  Per row 16 B of state and a 4 B
+// tape word; per live row two random 64 B occ rows of an 80-160 MB table; per child and per hit 16 B
+// written.  Products, flags and the scan never reach global memory, and one thread per row, with both
+// rows' loads started together, keeps many occ rows in flight.
 
 #include "occ.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr uint32_t kOpIns = 1, kOpDel = 2, kEdgeL = 4, kEdgeR = 8, kEdges = kEdgeL | kEdgeR;
+
+// Tile status word: children (bits 0-26) | hits (27-50) | flag (51-52) | epoch (53-63).  The host keeps
+// a queue under 2^23 rows, so a step has under 15 * 2^23 < 2^27 children and under 2^24 hits, and packed
+// values add without carrying from one field into the next.
+constexpr int kHitShift = 27, kFlagShift = 51, kEpochShift = 53;
+constexpr uint64_t kChildMask = (1ull << kHitShift) - 1;
+constexpr uint64_t kValueMask = (1ull << kFlagShift) - 1;
+constexpr uint64_t kAggregate = 1, kPrefix = 2;
+constexpr int64_t kMaxRows = 1 << 23;
+constexpr int kEpochs = 1 << (64 - kEpochShift);
+// Shared memory a block may take without opting in, less room for the kernel's static part.
+constexpr size_t kDefaultSmem = 47 * 1024;
 
 struct Layout {
     uint32_t err_shift, d_shift, s_shift, q_shift;
@@ -58,206 +72,359 @@ Layout make_layout(int opf_bits, int err_bits, int d_bits, int s_bits) {
     return L;
 }
 
-struct Row {
-    uint32_t opf, err, d, rest;
-    int32_t word;
+}  // namespace
+
+// What every step of one search reads, filled once per search by the host (kernels/workq.py::_Static,
+// field for field; every field 8 bytes, so the two layouts cannot drift apart by padding).
+struct StepStatic {
+    const int32_t* occ16;
+    const int32_t* c_arr;
+    const int32_t* tape;
+    const int32_t* hq_counts;  // int32[nq] when cap_per_query > 0
+    unsigned long long* status;  // one word per tile, zero when allocated
+    int32_t* counters;  // children total, hits total, ticket
+    int64_t sigma, sl, edit, m, ns, rev_off, opf_bits, err_bits, d_bits, s_bits, cap_per_query, max_tiles;
 };
 
-// Decode a meta word and fetch the lane's tape word (side | lo<<1 | hi<<5 |
-// qc<<9 | maxlo<<17) at tape position min(d, m - 1).
-__device__ __forceinline__ Row decode(uint32_t meta, const Layout& L, const int32_t* __restrict__ tape, int m,
-                                      int ns) {
-    Row r;
-    r.opf = meta & L.opf_mask;
-    r.err = (meta >> L.err_shift) & L.err_mask;
-    r.d = (meta >> L.d_shift) & L.d_mask;
-    const uint32_t s = (meta >> L.s_shift) & L.s_mask;
-    const uint32_t q = (meta >> L.q_shift) & L.q_mask;
-    r.rest = meta & ((L.s_mask << L.s_shift) | (L.q_mask << L.q_shift));
-    const int64_t lane = static_cast<int64_t>(q) * ns + s;
-    const int dc = r.d < static_cast<uint32_t>(m - 1) ? static_cast<int>(r.d) : m - 1;
-    r.word = __ldg(tape + lane * m + dc);
-    return r;
+namespace {
+
+struct Params {
+    const int32_t* occ16;
+    const int32_t* c_arr;
+    const int32_t* tape;
+    const int32_t* hq_counts;
+    const int32_t* lb;
+    const int32_t* lbr;
+    const int32_t* sz;
+    const int32_t* meta;
+    unsigned long long* status;
+    int32_t* counters;
+    int32_t* out;  // children int32[4, child_cap]: lb | lbr | sz | meta
+    int32_t* hits;  // int32[4, n]: lane | lb | sz | err (drain steps)
+    int64_t child_cap;
+    int n, sl, m, ns, cap_per_query;
+    int32_t rev_off;
+    uint32_t ticket_base, epoch;
+    Layout L;
+};
+
+__device__ __forceinline__ uint64_t load_status(const unsigned long long* p) {
+    unsigned long long v;
+    asm volatile("ld.acquire.gpu.b64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+    return v;
 }
 
-template <int SIGMA>
-__device__ __forceinline__ void rank_at(const int32_t* __restrict__ table, int32_t pos, int32_t out[SIGMA]) {
-    int32_t row[sahara::kRowInts];
-    sahara::load_row(table, pos, row);
-    const uint32_t mask = (1u << (pos & 31)) - 1u;
-#pragma unroll
-    for (int s = 0; s < SIGMA; ++s) out[s] = row[s] + __popc(static_cast<uint32_t>(row[SIGMA + s]) & mask);
+// A release store: the fence before it orders everything this thread wrote earlier.
+__device__ __forceinline__ void store_status(unsigned long long* p, uint64_t flag, uint32_t epoch, uint64_t value) {
+    const unsigned long long v = (static_cast<uint64_t>(epoch) << kEpochShift) | (flag << kFlagShift) | value;
+    asm volatile("st.release.gpu.b64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
 }
 
-template <int SIGMA, bool EDIT>
-__global__ void __launch_bounds__(kThreads) count_kernel(
-    const int32_t* __restrict__ occ16, const int32_t* __restrict__ c_arr, const int32_t* __restrict__ tape,
-    const int32_t* __restrict__ lb, const int32_t* __restrict__ lbr, const int32_t* __restrict__ sz,
-    const int32_t* __restrict__ meta, int64_t n, int sl, int m, int ns, int32_t rev_off, Layout L,
-    int32_t* __restrict__ prod, uint8_t* __restrict__ flags) {
-    const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (t >= n) return;
-    const int n_ms = sl - 1;
-    const int e_used = EDIT ? 2 * n_ms + 1 : n_ms;
-    int32_t* p = prod + t * 3 * sl;
-    const int32_t size = sz[t];
-    if (size <= 0) {
-        for (int b = 0; b < e_used; ++b) flags[b * n + t] = 0;
-        for (int j = 0; j < 3 * sl; ++j) p[j] = 0;
-        return;
-    }
-    const Row r = decode(static_cast<uint32_t>(meta[t]), L, tape, m, ns);
-    const int side = r.word & 1;
-    const uint32_t lo_b = (r.word >> 1) & 0xF, hi_b = (r.word >> 5) & 0xF;
-    const int qc = (r.word >> 9) & 0xFF;
-    const int32_t primary = side ? lbr[t] : lb[t];
-    const int32_t secondary = side ? lb[t] : lbr[t];
-    const int32_t* table = occ16 + static_cast<int64_t>(side ? rev_off : 0) * sahara::kRowInts;
-    int32_t r_lo[SIGMA], r_hi[SIGMA];
-    rank_at<SIGMA>(table, primary, r_lo);
-    rank_at<SIGMA>(table, primary + size, r_hi);
-    const uint32_t last = r.opf & 3u;
-    int32_t prefix = 0;
-#pragma unroll
-    for (int j = 0; j < SIGMA; ++j) {
-        if (j >= sl) break;
-        const int32_t cnt = r_hi[j] - r_lo[j];
-        p[j] = cnt;
-        p[sl + j] = __ldg(c_arr + j) + r_lo[j];
-        p[2 * sl + j] = secondary + prefix;
-        prefix += cnt;
-        if (j == 0) continue;
-        const uint32_t e_ms = r.err + (qc != j ? 1u : 0u);
-        flags[(j - 1) * n + t] = cnt > 0 && e_ms <= hi_b && e_ms >= lo_b;
-        if (EDIT) flags[(n_ms + j - 1) * n + t] = cnt > 0 && r.err + 1 <= hi_b && r.d > 0 && last != kOpIns;
-    }
-    if (EDIT) flags[2 * n_ms * n + t] = r.err + 1 <= hi_b && r.err + 1 >= lo_b && last != kOpDel;
-}
-
-template <bool EDIT>
-__global__ void __launch_bounds__(kThreads) emit_kernel(
-    const uint8_t* __restrict__ flags, const int32_t* __restrict__ pos, const int32_t* __restrict__ prod,
-    const int32_t* __restrict__ tape, const int32_t* __restrict__ lb, const int32_t* __restrict__ lbr,
-    const int32_t* __restrict__ sz, const int32_t* __restrict__ meta, int64_t n, int sl, int m, int ns, Layout L,
-    int32_t* __restrict__ out_lb, int32_t* __restrict__ out_lbr, int32_t* __restrict__ out_sz,
-    int32_t* __restrict__ out_meta) {
-    const int n_ms = sl - 1;
-    const int64_t e_used = EDIT ? 2 * n_ms + 1 : n_ms;
-    const int64_t c = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (c >= e_used * n || !flags[c]) return;
-    const int64_t slot = pos[c] - 1;
-    const int b = static_cast<int>(c / n);
-    const int64_t parent = c - b * n;
-    const Row r = decode(static_cast<uint32_t>(meta[parent]), L, tape, m, ns);
-    const int side = r.word & 1;
-    const int qc = (r.word >> 9) & 0xFF;
-    int sym = b < n_ms ? b + 1 : b - n_ms + 1;
-    sym = sym < 1 ? 1 : (sym > sl - 1 ? sl - 1 : sym);
-    const int32_t* p = prod + parent * 3 * sl;
-    const int32_t g_cnt = p[sym], g_newp = p[sl + sym], g_news = p[2 * sl + sym];
-    const int32_t ext_lb = side ? g_news : g_newp;
-    const int32_t ext_lbr = side ? g_newp : g_news;
-    int32_t new_lb = ext_lb, new_lbr = ext_lbr, new_sz = g_cnt;
-    uint32_t new_err = r.err + (qc != sym ? 1u : 0u), new_d = r.d + 1, new_op = 0;
-    if (EDIT) {
-        const bool is_del = b >= n_ms && b < 2 * n_ms;
-        const bool is_ins = b >= 2 * n_ms;
-        if (is_ins) {
-            new_lb = lb[parent];
-            new_lbr = lbr[parent];
-            new_sz = sz[parent];
+// Exclusive prefix of `tile` (> 0), run by one whole warp.  Each round reads the 32 status words before
+// the window's end, waits until each carries this epoch's flag, and sums back to the nearest inclusive
+// prefix; a window of aggregates alone adds up and moves the window 32 tiles back.
+__device__ uint64_t look_back(const unsigned long long* status, int64_t tile, uint32_t epoch) {
+    const int lane = threadIdx.x & 31;
+    uint64_t excl = 0;
+    for (int64_t end = tile - 1;; end -= 32) {
+        const int64_t idx = end - lane;
+        uint64_t s = kPrefix << kFlagShift;  // before tile 0: an inclusive prefix of 0
+        if (idx >= 0) {
+            do {
+                s = load_status(status + idx);
+            } while ((s >> kEpochShift) != epoch || ((s >> kFlagShift) & 3) == 0);
         }
-        if (b >= n_ms) new_err = r.err + 1;
-        if (is_del) new_d = r.d;
+        const unsigned prefixes = __ballot_sync(kFull, ((s >> kFlagShift) & 3) == kPrefix);
+        const int stop = prefixes ? __ffs(prefixes) - 1 : 31;
+        uint64_t v = lane <= stop ? (s & kValueMask) : 0;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+        excl += v;
+        if (prefixes) return excl;
+    }
+}
+
+// rank-all at lo and hi on one table: the occ rows' vectors that hold the sigma checkpoints and bit
+// planes (at most eight 16 B loads) are all started first.
+template <int SIGMA>
+__device__ __forceinline__ void rank_pair(const int32_t* __restrict__ table, int32_t lo, int32_t hi,
+                                          int32_t r_lo[SIGMA], int32_t r_hi[SIGMA]) {
+    constexpr int kVecs = (2 * SIGMA + 3) / 4;
+    const int4* a = reinterpret_cast<const int4*>(table + static_cast<int64_t>(lo >> 5) * sahara::kRowInts);
+    const int4* b = reinterpret_cast<const int4*>(table + static_cast<int64_t>(hi >> 5) * sahara::kRowInts);
+    int4 va[kVecs], vb[kVecs];
+#pragma unroll
+    for (int v = 0; v < kVecs; ++v) {
+        va[v] = __ldg(a + v);
+        vb[v] = __ldg(b + v);
+    }
+    int32_t ra[4 * kVecs], rb[4 * kVecs];
+#pragma unroll
+    for (int v = 0; v < kVecs; ++v) {
+        ra[4 * v] = va[v].x, ra[4 * v + 1] = va[v].y, ra[4 * v + 2] = va[v].z, ra[4 * v + 3] = va[v].w;
+        rb[4 * v] = vb[v].x, rb[4 * v + 1] = vb[v].y, rb[4 * v + 2] = vb[v].z, rb[4 * v + 3] = vb[v].w;
+    }
+    const uint32_t mask_lo = (1u << (lo & 31)) - 1u, mask_hi = (1u << (hi & 31)) - 1u;
+#pragma unroll
+    for (int s = 0; s < SIGMA; ++s) {
+        r_lo[s] = ra[s] + __popc(static_cast<uint32_t>(ra[SIGMA + s]) & mask_lo);
+        r_hi[s] = rb[s] + __popc(static_cast<uint32_t>(rb[SIGMA + s]) & mask_hi);
+    }
+}
+
+template <int SIGMA, bool EDIT, bool DRAIN>
+__global__ void __launch_bounds__(kThreads) step_kernel(const Params p) {
+    // children staging: lb | lbr | sz | meta, kThreads * e_used each; then on drain steps the hits
+    // staging: lane | lb | sz | err, kThreads each
+    extern __shared__ int32_t stage[];
+    __shared__ uint32_t s_warp[kWarps];
+    __shared__ uint32_t s_tile;
+    __shared__ uint64_t s_base;
+
+    const Layout& L = p.L;
+    const int n_ms = p.sl - 1;
+    const int e_used = EDIT ? 2 * n_ms + 1 : n_ms;
+    const int stride = kThreads * e_used;
+    int32_t* const hstage = stage + 4 * stride;
+
+    if (threadIdx.x == 0) s_tile = atomicAdd(reinterpret_cast<unsigned*>(p.counters + 2), 1u) - p.ticket_base;
+    __syncthreads();
+    const int64_t tile = s_tile;
+    const int64_t t = tile * kThreads + threadIdx.x;
+
+    // 1. this row
+    int32_t lb = 0, lbr = 0, size = 0;
+    if (t < p.n) {
+        lb = p.lb[t];
+        lbr = p.lbr[t];
+        size = p.sz[t];
+    }
+    bool alive = size > 0, hit = false;
+    uint32_t opf = 0, err = 0, d = 0, rest = 0, lane = 0;
+    int32_t word = 0;
+    if (alive) {
+        const uint32_t meta = static_cast<uint32_t>(p.meta[t]);
+        opf = meta & L.opf_mask;
+        err = (meta >> L.err_shift) & L.err_mask;
+        d = (meta >> L.d_shift) & L.d_mask;
+        const uint32_t s = (meta >> L.s_shift) & L.s_mask;
+        const uint32_t q = (meta >> L.q_shift) & L.q_mask;
+        rest = meta & ((L.s_mask << L.s_shift) | (L.q_mask << L.q_shift));
+        lane = q * p.ns + s;
+        const int dc = d < static_cast<uint32_t>(p.m - 1) ? static_cast<int>(d) : p.m - 1;
+        word = __ldg(p.tape + static_cast<int64_t>(lane) * p.m + dc);
+        if (DRAIN) {
+            if (p.cap_per_query > 0 && __ldg(p.hq_counts + q) >= p.cap_per_query) {
+                alive = false;
+            } else if (d >= static_cast<uint32_t>(p.m)) {
+                hit = (opf & kEdges) == 0;
+                alive = false;
+            }
+        }
+    }
+    const int side = word & 1;
+    const uint32_t lo_b = (word >> 1) & 0xF, hi_b = (word >> 5) & 0xF;
+    const int qc = (word >> 9) & 0xFF;
+    const uint32_t last = opf & 3u;
+    int32_t cnt[SIGMA] = {}, newp[SIGMA] = {}, news[SIGMA] = {};
+    uint32_t mask = 0;
+    if (alive) {
+        const int32_t primary = side ? lbr : lb;
+        const int32_t secondary = side ? lb : lbr;
+        int32_t r_lo[SIGMA], r_hi[SIGMA];
+        rank_pair<SIGMA>(p.occ16 + static_cast<int64_t>(side ? p.rev_off : 0) * sahara::kRowInts, primary,
+                         primary + size, r_lo, r_hi);
+        int32_t prefix = 0;
+#pragma unroll
+        for (int j = 0; j < SIGMA; ++j) {
+            cnt[j] = r_hi[j] - r_lo[j];
+            newp[j] = __ldg(p.c_arr + j) + r_lo[j];
+            news[j] = secondary + prefix;
+            prefix += cnt[j];
+        }
+#pragma unroll
+        for (int j = 1; j < SIGMA; ++j) {
+            if (j >= p.sl) break;
+            const uint32_t e_ms = err + (qc != j ? 1u : 0u);
+            if (cnt[j] > 0 && e_ms <= hi_b && e_ms >= lo_b) mask |= 1u << (j - 1);
+            if (EDIT && cnt[j] > 0 && err + 1 <= hi_b && d > 0 && last != kOpIns) mask |= 1u << (n_ms + j - 1);
+        }
+        if (EDIT && err + 1 <= hi_b && err + 1 >= lo_b && last != kOpDel) mask |= 1u << (2 * n_ms);
+    }
+
+    // 2. block scan of (children | hits << 16)
+    const int wl = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const uint32_t own = __popc(mask) | (static_cast<uint32_t>(hit) << 16);
+    uint32_t incl = own;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const uint32_t y = __shfl_up_sync(kFull, incl, o);
+        if (wl >= o) incl += y;
+    }
+    if (wl == 31) s_warp[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+        uint32_t w = wl < kWarps ? s_warp[wl] : 0;
+#pragma unroll
+        for (int o = 1; o < kWarps; o <<= 1) {
+            const uint32_t y = __shfl_up_sync(kFull, w, o);
+            if (wl >= o) w += y;
+        }
+        if (wl < kWarps) s_warp[wl] = w;
+    }
+    __syncthreads();
+    const uint32_t excl = (warp ? s_warp[warp - 1] : 0) + incl - own;
+    const uint32_t tile_total = s_warp[kWarps - 1];
+
+    // 4a. stage this row's children and hit at the tile offsets
+    if (mask) {
+        int k = excl & 0xFFFF;
         const uint32_t edge_bit = side == 0 ? kEdgeL : kEdgeR;
         const uint32_t other_bit = side == 0 ? kEdgeR : kEdgeL;
-        if (b < n_ms) {
-            new_op = r.opf & other_bit;
-        } else if (is_del) {
-            new_op = kOpDel | (r.opf & kEdges) | edge_bit;
-        } else {
-            new_op = kOpIns | (r.opf & kEdges);
+        auto put = [&](int32_t c_lb, int32_t c_lbr, int32_t c_sz, uint32_t op, uint32_t c_err, uint32_t c_d) {
+            stage[k] = c_lb;
+            stage[stride + k] = c_lbr;
+            stage[2 * stride + k] = c_sz;
+            stage[3 * stride + k] = static_cast<int32_t>(op | (c_err << L.err_shift) | (c_d << L.d_shift) | rest);
+            ++k;
+        };
+#pragma unroll
+        for (int j = 1; j < SIGMA; ++j) {
+            if (j >= p.sl) break;
+            if (mask >> (j - 1) & 1u) {
+                put(side ? news[j] : newp[j], side ? newp[j] : news[j], cnt[j], EDIT ? opf & other_bit : 0u,
+                    err + (qc != j ? 1u : 0u), d + 1);
+            }
+        }
+        if (EDIT) {
+#pragma unroll
+            for (int j = 1; j < SIGMA; ++j) {
+                if (j >= p.sl) break;
+                if (mask >> (n_ms + j - 1) & 1u) {
+                    put(side ? news[j] : newp[j], side ? newp[j] : news[j], cnt[j],
+                        kOpDel | (opf & kEdges) | edge_bit, err + 1, d);
+                }
+            }
+            if (mask >> (2 * n_ms) & 1u) put(lb, lbr, size, kOpIns | (opf & kEdges), err + 1, d + 1);
         }
     }
-    out_lb[slot] = new_lb;
-    out_lbr[slot] = new_lbr;
-    out_sz[slot] = new_sz;
-    out_meta[slot] = static_cast<int32_t>(new_op | (new_err << L.err_shift) | (new_d << L.d_shift) | r.rest);
+    if (DRAIN && hit) {
+        const int h = excl >> 16;
+        hstage[h] = static_cast<int32_t>(lane);
+        hstage[kThreads + h] = lb;
+        hstage[2 * kThreads + h] = size;
+        hstage[3 * kThreads + h] = static_cast<int32_t>(err);
+    }
+
+    // 3. the tile's global base
+    if (warp == 0) {
+        const uint64_t agg = (tile_total & 0xFFFF) | (static_cast<uint64_t>(tile_total >> 16) << kHitShift);
+        uint64_t base = 0;
+        if (tile == 0) {
+            if (wl == 0) store_status(p.status, kPrefix, p.epoch, agg);
+        } else {
+            if (wl == 0) store_status(p.status + tile, kAggregate, p.epoch, agg);
+            base = look_back(p.status, tile, p.epoch);
+            if (wl == 0) store_status(p.status + tile, kPrefix, p.epoch, base + agg);
+        }
+        if (wl == 0) s_base = base;
+    }
+    __syncthreads();
+
+    // 4b. write the staged rows out
+    const int64_t base_c = static_cast<int64_t>(s_base & kChildMask);
+    const int64_t base_h = static_cast<int64_t>(s_base >> kHitShift);
+    const int n_c = tile_total & 0xFFFF, n_h = tile_total >> 16;
+    for (int i = threadIdx.x; i < n_c; i += kThreads) {
+#pragma unroll
+        for (int f = 0; f < 4; ++f) p.out[f * p.child_cap + base_c + i] = stage[f * stride + i];
+    }
+    if (DRAIN) {
+        for (int i = threadIdx.x; i < n_h; i += kThreads) {
+#pragma unroll
+            for (int f = 0; f < 4; ++f) p.hits[static_cast<int64_t>(f) * p.n + base_h + i] = hstage[f * kThreads + i];
+        }
+    }
+    if (threadIdx.x == 0 && tile == (p.n - 1) / kThreads) {
+        p.counters[0] = static_cast<int32_t>(base_c + n_c);
+        p.counters[1] = static_cast<int32_t>(base_h + n_h);
+    }
+}
+
+template <int SIGMA, bool EDIT, bool DRAIN>
+int launch(const Params& p, unsigned blocks, cudaStream_t stream) {
+    const int e_used = EDIT ? 2 * (p.sl - 1) + 1 : p.sl - 1;
+    const size_t smem = sizeof(int32_t) * (4 * kThreads * e_used + (DRAIN ? 4 * kThreads : 0));
+    if (smem > kDefaultSmem) {
+        const cudaError_t e = cudaFuncSetAttribute(step_kernel<SIGMA, EDIT, DRAIN>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                   static_cast<int>(smem));
+        if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    step_kernel<SIGMA, EDIT, DRAIN><<<blocks, kThreads, smem, stream>>>(p);
+    return static_cast<int>(cudaGetLastError());
 }
 
 template <int SIGMA>
-int count_sigma(bool edit, const int32_t* occ16, const int32_t* c_arr, const int32_t* tape, const int32_t* lb,
-                const int32_t* lbr, const int32_t* sz, const int32_t* meta, int64_t n, int sl, int m, int ns,
-                int32_t rev_off, const Layout& L, int32_t* prod, uint8_t* flags, cudaStream_t stream) {
-    const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+int launch_sigma(bool edit, bool drain, const Params& p, unsigned blocks, cudaStream_t stream) {
     if (edit) {
-        count_kernel<SIGMA, true><<<blocks, kThreads, 0, stream>>>(occ16, c_arr, tape, lb, lbr, sz, meta, n, sl,
-                                                                     m, ns, rev_off, L, prod, flags);
-    } else {
-        count_kernel<SIGMA, false><<<blocks, kThreads, 0, stream>>>(occ16, c_arr, tape, lb, lbr, sz, meta, n, sl,
-                                                                      m, ns, rev_off, L, prod, flags);
+        return drain ? launch<SIGMA, true, true>(p, blocks, stream) : launch<SIGMA, true, false>(p, blocks, stream);
     }
-    return static_cast<int>(cudaGetLastError());
+    return drain ? launch<SIGMA, false, true>(p, blocks, stream) : launch<SIGMA, false, false>(p, blocks, stream);
 }
 
 }  // namespace
 
-extern "C" int sahara_workq_count(const void* occ16, const void* c_arr, const void* tape, const void* lb,
-                                  const void* lbr, const void* sz, const void* meta, int64_t n, int sigma, int sl,
-                                  int edit, int m, int ns, int32_t rev_off, int opf_bits, int err_bits, int d_bits,
-                                  int s_bits, void* prod, void* flags, void* stream) {
+// One step over the n-row queue (lb, lbr, sz, meta).  children is int32[4, child_cap] with child_cap >=
+// e_used * n, hits int32[4, n] on drain steps (else unused); the kernel writes the (children, hits)
+// totals to counters[0:2].  ticket_base is the ticket counter's value before this launch and epoch this
+// step's tag (1 .. 2^11 - 1, never repeated while the status array holds words of an earlier step).
+extern "C" int sahara_workq_step(const StepStatic* st, const void* lb, const void* lbr, const void* sz,
+                                 const void* meta, int64_t n, int drain, uint32_t ticket_base, uint32_t epoch,
+                                 void* children, int64_t child_cap, void* hits, void* stream) {
     if (n <= 0) return 0;
-    if (sl < 2 || sl > sigma) return static_cast<int>(cudaErrorInvalidValue);
-    const Layout L = make_layout(opf_bits, err_bits, d_bits, s_bits);
-    const auto* o = static_cast<const int32_t*>(occ16);
-    const auto* c = static_cast<const int32_t*>(c_arr);
-    const auto* tp = static_cast<const int32_t*>(tape);
-    const auto* a = static_cast<const int32_t*>(lb);
-    const auto* ar = static_cast<const int32_t*>(lbr);
-    const auto* z = static_cast<const int32_t*>(sz);
-    const auto* mt = static_cast<const int32_t*>(meta);
-    auto* pr = static_cast<int32_t*>(prod);
-    auto* fl = static_cast<uint8_t*>(flags);
+    const int64_t tiles = (n + kThreads - 1) / kThreads;
+    const int64_t e_used = st->edit ? 2 * (st->sl - 1) + 1 : st->sl - 1;
+    if (st->sl < 2 || st->sl > st->sigma || n > kMaxRows || tiles > st->max_tiles || child_cap < e_used * n ||
+        epoch == 0 || epoch >= static_cast<uint32_t>(kEpochs) || (drain && hits == nullptr) ||
+        (drain && st->cap_per_query > 0 && st->hq_counts == nullptr)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    Params p;
+    p.occ16 = st->occ16;
+    p.c_arr = st->c_arr;
+    p.tape = st->tape;
+    p.hq_counts = st->hq_counts;
+    p.lb = static_cast<const int32_t*>(lb);
+    p.lbr = static_cast<const int32_t*>(lbr);
+    p.sz = static_cast<const int32_t*>(sz);
+    p.meta = static_cast<const int32_t*>(meta);
+    p.status = st->status;
+    p.counters = st->counters;
+    p.out = static_cast<int32_t*>(children);
+    p.hits = static_cast<int32_t*>(hits);
+    p.child_cap = child_cap;
+    p.n = static_cast<int>(n);
+    p.sl = static_cast<int>(st->sl);
+    p.m = static_cast<int>(st->m);
+    p.ns = static_cast<int>(st->ns);
+    p.cap_per_query = static_cast<int>(st->cap_per_query);
+    p.rev_off = static_cast<int32_t>(st->rev_off);
+    p.ticket_base = ticket_base;
+    p.epoch = epoch;
+    p.L = make_layout(static_cast<int>(st->opf_bits), static_cast<int>(st->err_bits), static_cast<int>(st->d_bits),
+                      static_cast<int>(st->s_bits));
+    const unsigned blocks = static_cast<unsigned>(tiles);
+    const bool e = st->edit != 0, dr = drain != 0;
     auto s = static_cast<cudaStream_t>(stream);
-    const bool e = edit != 0;
-    switch (sigma) {
-        case 2: return count_sigma<2>(e, o, c, tp, a, ar, z, mt, n, sl, m, ns, rev_off, L, pr, fl, s);
-        case 3: return count_sigma<3>(e, o, c, tp, a, ar, z, mt, n, sl, m, ns, rev_off, L, pr, fl, s);
-        case 4: return count_sigma<4>(e, o, c, tp, a, ar, z, mt, n, sl, m, ns, rev_off, L, pr, fl, s);
-        case 5: return count_sigma<5>(e, o, c, tp, a, ar, z, mt, n, sl, m, ns, rev_off, L, pr, fl, s);
-        case 6: return count_sigma<6>(e, o, c, tp, a, ar, z, mt, n, sl, m, ns, rev_off, L, pr, fl, s);
-        case 7: return count_sigma<7>(e, o, c, tp, a, ar, z, mt, n, sl, m, ns, rev_off, L, pr, fl, s);
-        case 8: return count_sigma<8>(e, o, c, tp, a, ar, z, mt, n, sl, m, ns, rev_off, L, pr, fl, s);
+    switch (st->sigma) {
+        case 2: return launch_sigma<2>(e, dr, p, blocks, s);
+        case 3: return launch_sigma<3>(e, dr, p, blocks, s);
+        case 4: return launch_sigma<4>(e, dr, p, blocks, s);
+        case 5: return launch_sigma<5>(e, dr, p, blocks, s);
+        case 6: return launch_sigma<6>(e, dr, p, blocks, s);
+        case 7: return launch_sigma<7>(e, dr, p, blocks, s);
+        case 8: return launch_sigma<8>(e, dr, p, blocks, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
-}
-
-extern "C" int sahara_workq_emit(const void* flags, const void* pos, const void* prod, const void* tape,
-                                 const void* lb, const void* lbr, const void* sz, const void* meta, int64_t n,
-                                 int sl, int edit, int m, int ns, int opf_bits, int err_bits, int d_bits, int s_bits,
-                                 void* out_lb, void* out_lbr, void* out_sz, void* out_meta, void* stream) {
-    if (n <= 0) return 0;
-    if (sl < 2) return static_cast<int>(cudaErrorInvalidValue);
-    const Layout L = make_layout(opf_bits, err_bits, d_bits, s_bits);
-    const int64_t e_used = edit ? 2 * (sl - 1) + 1 : sl - 1;
-    const unsigned blocks = static_cast<unsigned>((e_used * n + kThreads - 1) / kThreads);
-    auto s = static_cast<cudaStream_t>(stream);
-    const auto* fl = static_cast<const uint8_t*>(flags);
-    const auto* ps = static_cast<const int32_t*>(pos);
-    const auto* pr = static_cast<const int32_t*>(prod);
-    const auto* tp = static_cast<const int32_t*>(tape);
-    const auto* a = static_cast<const int32_t*>(lb);
-    const auto* ar = static_cast<const int32_t*>(lbr);
-    const auto* z = static_cast<const int32_t*>(sz);
-    const auto* mt = static_cast<const int32_t*>(meta);
-    auto* ol = static_cast<int32_t*>(out_lb);
-    auto* olr = static_cast<int32_t*>(out_lbr);
-    auto* oz = static_cast<int32_t*>(out_sz);
-    auto* om = static_cast<int32_t*>(out_meta);
-    if (edit) {
-        emit_kernel<true><<<blocks, kThreads, 0, s>>>(fl, ps, pr, tp, a, ar, z, mt, n, sl, m, ns, L, ol, olr, oz, om);
-    } else {
-        emit_kernel<false><<<blocks, kThreads, 0, s>>>(fl, ps, pr, tp, a, ar, z, mt, n, sl, m, ns, L, ol, olr, oz, om);
-    }
-    return static_cast<int>(cudaGetLastError());
 }

@@ -1,23 +1,25 @@
-"""K5 workq_step: the work-queue engine's step, count and emit
+"""K5 workq_step: one step of the work-queue engine in one launch
 (csrc/workq.cu).
 
-The Hopper counterpart of the step in
-``sahara_tpu/engine/workq.py::workq_search`` (``expand_step``).  A step over
-a queue of n states (int32 lb, lbr, sz, meta) is:
+The Hopper counterpart of the step in ``sahara_tpu/engine/workq.py``
+(``make_step``).  A step over a queue of n states (int32 lb, lbr, sz, meta)
+drains the states that consumed the query (drain steps only), ranks every
+live state at both interval ends on its side's table, and writes the child
+states, compacted, with the step's hits (lane, lb, sz, err).  Children come
+out parent-major: parents in queue order, each parent's children in branch
+order (match/sub for symbols 1..sl-1, then for edit distance deletions
+1..sl-1 and one insertion).
 
-1. ``workq_count``: per row, rank-all at both interval ends on the side's
-   table and the candidate flags, branch-major ``[e_used, n]``;
-2. an inclusive ``torch.cumsum`` over the flags (the compaction scan);
-3. ``workq_emit``: the child row of every flagged candidate, at its slot.
-
-Dead rows (sz == 0) flag nothing and get zero products in both versions.
-The plain versions below are the reference's arithmetic in PyTorch; the
-children come out in the same branch-major order as the kernel's.
+``step_context`` makes what every step of one search reads and checks it
+once; on a CUDA device it also allocates the kernel's look-back scratch.
+``workq_step_plain`` is the same function in PyTorch, which the wrapper
+takes for CPU tensors only.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -29,162 +31,182 @@ OP_MATCH, OP_INS, OP_DEL = 0, 1, 2
 EDGE_L, EDGE_R = 4, 8
 EDGES = EDGE_L | EDGE_R
 
-_fns: dict[str, ctypes._CFuncPtr] = {}
+TILE = 256  # queue rows per block (kThreads in csrc/workq.cu)
+MAX_ROWS = 1 << 23  # queue rows a step takes: the status word's fields are sized to it
+EPOCHS = 1 << 11  # status-word tags; tag 0 marks a word never written
 
-_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+_fn = None
 
 
-def _kernel(name: str):
-    fn = _fns.get(name)
-    if fn is None:
-        fn = getattr(load("workq"), f"sahara_workq_{name}")
+class _Static(ctypes.Structure):
+    """``StepStatic`` of csrc/workq.cu, field for field."""
+
+    _fields_ = [(f, _P) for f in ("occ16", "c_arr", "tape", "hq_counts", "status", "counters")] + [
+        (f, _I64) for f in ("sigma", "sl", "edit", "m", "ns", "rev_off", "opf_bits", "err_bits", "d_bits",
+                            "s_bits", "cap_per_query", "max_tiles")
+    ]
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = load("workq").sahara_workq_step
         fn.restype = ctypes.c_int
-        if name == "count":
-            fn.argtypes = [_P] * 7 + [_I64] + [_I] * 5 + [ctypes.c_int32] + [_I] * 4 + [_P] * 3
-        else:
-            fn.argtypes = [_P] * 8 + [_I64] + [_I] * 8 + [_P] * 5
-        _fns[name] = fn
-    return fn
+        fn.argtypes = ([ctypes.POINTER(_Static)] + [_P] * 4 + [_I64, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32]
+                       + [_P, _I64, _P, _P])
+        _fn = fn
+    return _fn
 
 
 def n_branches(sl: int, edit: bool) -> int:
-    """Candidate columns per row: match/sub per live symbol, and for edit
+    """Candidate branches per row: match/sub per live symbol, and for edit
     distance a deletion per live symbol plus one insertion."""
     return 2 * (sl - 1) + 1 if edit else sl - 1
 
 
-def _tape_fields(tape: torch.Tensor, layout, meta: torch.Tensor, m: int, ns: int):
+@dataclasses.dataclass
+class StepContext:
+    """What every step of one search reads: the stacked occ table, the C
+    array, the packed lane tape (``pack_lane_tape``), the static arguments,
+    the in-search cap's per-query hit counts, and on a CUDA device the
+    kernel's scratch (tile status words, the counters, the ticket and epoch
+    the host tracks)."""
+
+    occ16: torch.Tensor
+    c_arr: torch.Tensor
+    tape: torch.Tensor
+    sigma: int
+    sl: int
+    edit: bool
+    m: int
+    ns: int
+    rev_off: int
+    layout: object  # engine.workq.MetaLayout
+    hq_counts: torch.Tensor | None  # int32[nq] when cap_per_query > 0
+    cap_per_query: int
+    status: torch.Tensor | None = None  # int64[tiles]
+    counters: torch.Tensor | None = None  # int32[4]: children total, hits total, ticket, unused
+    static: _Static | None = None
+    tickets: int = 0
+    epoch: int = 0
+
+
+def step_context(occ16, c_arr, tape, *, sigma, sl, edit, m, ns, rev_off, layout, max_rows, hq_counts=None,
+                 cap_per_query=0) -> StepContext:
+    """The step context of one search whose queues hold at most
+    ``max_rows`` rows; checks the tensors once and, on a CUDA device,
+    allocates the scratch."""
+    if cap_per_query and hq_counts is None:
+        raise ValueError("cap_per_query needs hq_counts")
+    ctx = StepContext(occ16, c_arr, tape, sigma, sl, edit, m, ns, rev_off, layout, hq_counts, cap_per_query)
+    tensors = [occ16, c_arr, tape] + ([hq_counts] if hq_counts is not None else [])
+    if not on_cuda(*tensors):
+        return ctx
+    for name, t, ndim in (("occ16", occ16, 2), ("c_arr", c_arr, 1), ("tape", tape, 1), ("hq_counts", hq_counts, 1)):
+        if t is not None:
+            check(name, t, torch.int32, ndim)
+    if occ16.shape[1] != ROW_INTS or not 2 <= sl <= sigma <= ROW_INTS // 2:
+        raise ValueError(f"occ16 must be [W, {ROW_INTS}] with 2 <= sl <= sigma <= 8")
+    if max_rows > MAX_ROWS:
+        raise ValueError(f"the step kernel takes queues of at most {MAX_ROWS} rows")
+    tiles = max(-(-max_rows // TILE), 1)
+    ctx.status = torch.zeros(tiles, dtype=torch.int64, device=occ16.device)
+    ctx.counters = torch.zeros(4, dtype=torch.int32, device=occ16.device)
+    ctx.static = _Static(
+        occ16.data_ptr(), c_arr.data_ptr(), tape.data_ptr(), hq_counts.data_ptr() if hq_counts is not None else None,
+        ctx.status.data_ptr(), ctx.counters.data_ptr(), sigma, sl, int(edit), m, ns, rev_off, layout.opf_bits,
+        layout.err_bits, layout.d_bits, layout.s_bits, cap_per_query, tiles,
+    )
+    return ctx
+
+
+def workq_step_plain(ctx: StepContext, lb, lbr, sz, meta, *, drain: bool = False):
+    """(lb, lbr, sz, meta) of the children, parent-major, and the hits
+    int32[4, h] (lane, lb, sz, err) of a drain step, in queue order."""
+    layout, sl, m, n_ms = ctx.layout, ctx.sl, ctx.m, ctx.sl - 1
     opf, err, d, s_id, q_id = layout.decode(meta)
-    lane = q_id.long() * ns + s_id.long()
-    word = tape[lane * m + d.clamp(max=m - 1).long()]
-    return opf, err, d, word
-
-
-def workq_count_plain(occ16, c_arr, tape, lb, lbr, sz, meta, *, sigma, sl, edit, m, ns, rev_off, layout):
-    """(prod int32[n, 3 * sl] = cnt | newp | news, flags uint8[e_used, n])."""
+    lane = q_id * ctx.ns + s_id
+    word = ctx.tape[lane.long() * m + d.clamp(max=m - 1).long()]
     alive = sz > 0
-    opf, err, d, word = _tape_fields(tape, layout, meta, m, ns)
+    hit = torch.zeros_like(alive)
+    if drain:
+        if ctx.cap_per_query:
+            alive &= ctx.hq_counts[q_id.long()] < ctx.cap_per_query
+        done = alive & (d >= m)
+        hit = done & ((opf & EDGES) == 0)
+        alive &= ~done
     side = word & 1
     lo_b, hi_b, qc = (word >> 1) & 0xF, (word >> 5) & 0xF, (word >> 9) & 0xFF
     primary = torch.where(side == 1, lbr, lb)
     secondary = torch.where(side == 1, lb, lbr)
-    woff = side * rev_off
-    r_lo = rank_all_offset(occ16, sigma, primary, woff)[:, :sl]
-    r_hi = rank_all_offset(occ16, sigma, primary + sz, woff)[:, :sl]
+    woff = side * ctx.rev_off
+    r_lo = rank_all_offset(ctx.occ16, ctx.sigma, primary, woff)[:, :sl]
+    r_hi = rank_all_offset(ctx.occ16, ctx.sigma, primary + sz, woff)[:, :sl]
     cnt = r_hi - r_lo
-    prefix = torch.cumsum(cnt, dim=1, dtype=torch.int32) - cnt
-    prod = torch.cat([cnt, c_arr[None, :sl] + r_lo, secondary[:, None] + prefix], dim=1)
-    prod = torch.where(alive[:, None], prod, 0).to(torch.int32)
+    newp = ctx.c_arr[None, :sl] + r_lo
+    news = secondary[:, None] + torch.cumsum(cnt, dim=1, dtype=torch.int32) - cnt
+    ext_lb = torch.where(side[:, None] == 1, news, newp)[:, 1:]
+    ext_lbr = torch.where(side[:, None] == 1, newp, news)[:, 1:]
+    cnt, live = cnt[:, 1:], cnt[:, 1:] > 0
+
+    # one column per branch: [flag, lb, lbr, sz, op, err, d], each [n, n_ms] or [n, 1]
     syms = torch.arange(1, sl, dtype=torch.int32, device=sz.device)[None, :]
-    live = cnt[:, 1:] > 0
     e_ms = err[:, None] + (qc[:, None] != syms).to(torch.int32)
-    cols = [alive[:, None] & live & (e_ms <= hi_b[:, None]) & (e_ms >= lo_b[:, None])]
-    if edit:
+    col = lambda x: x[:, None].expand(-1, n_ms)  # noqa: E731
+    zero = torch.zeros_like(cnt)
+    other_bit = torch.where(side == 0, EDGE_R, EDGE_L)
+    branches = [(alive[:, None] & live & (e_ms <= hi_b[:, None]) & (e_ms >= lo_b[:, None]),
+                 ext_lb, ext_lbr, cnt, col(opf & other_bit) if ctx.edit else zero, e_ms, col(d + 1))]
+    if ctx.edit:
         last = opf & 3
-        cols.append(alive[:, None] & live & ((err + 1) <= hi_b)[:, None] & (d > 0)[:, None]
-                    & (last != OP_INS)[:, None])
-        cols.append((alive & (err + 1 <= hi_b) & (err + 1 >= lo_b) & (last != OP_DEL))[:, None])
-    flags = torch.cat(cols, dim=1).T.contiguous().to(torch.uint8)
-    return prod, flags
-
-
-def workq_emit_plain(flags, prod, tape, lb, lbr, sz, meta, *, sl, edit, m, ns, layout):
-    """Child rows (lb, lbr, sz, meta) of the flagged candidates, in flat
-    branch-major order."""
-    n = sz.shape[0]
-    n_ms = sl - 1
-    cand = torch.nonzero(flags.reshape(-1))[:, 0]
-    branch, parent = cand // n, cand % n
-    p_meta = meta[parent]
-    opf, err, d, word = _tape_fields(tape, layout, p_meta, m, ns)
-    side = word & 1
-    qc = (word >> 9) & 0xFF
-    sym = torch.where(branch < n_ms, branch + 1, branch - n_ms + 1).clamp(1, sl - 1)
-    p = prod[parent]
-    g_cnt = p.gather(1, sym[:, None])[:, 0]
-    g_newp = p.gather(1, (sl + sym)[:, None])[:, 0]
-    g_news = p.gather(1, (2 * sl + sym)[:, None])[:, 0]
-    new_lb = torch.where(side == 1, g_news, g_newp)
-    new_lbr = torch.where(side == 1, g_newp, g_news)
-    new_sz = g_cnt
-    new_err = err + (qc != sym).to(torch.int32)
-    new_d = d + 1
-    new_op = torch.zeros_like(opf)
-    if edit:
-        is_del = (branch >= n_ms) & (branch < 2 * n_ms)
-        is_ins = branch >= 2 * n_ms
-        new_lb = torch.where(is_ins, lb[parent], new_lb)
-        new_lbr = torch.where(is_ins, lbr[parent], new_lbr)
-        new_sz = torch.where(is_ins, sz[parent], new_sz)
-        new_err = torch.where(branch < n_ms, new_err, err + 1)
-        new_d = torch.where(is_del, d, new_d)
         edge_bit = torch.where(side == 0, EDGE_L, EDGE_R)
-        other_bit = torch.where(side == 0, EDGE_R, EDGE_L)
-        del_op = OP_DEL | (opf & EDGES) | edge_bit
-        ins_op = OP_INS | (opf & EDGES)
-        new_op = torch.where(branch < n_ms, opf & other_bit, torch.where(is_del, del_op, ins_op))
-    new_meta = new_op | (new_err << layout.err_shift) | (new_d << layout.d_shift) | (p_meta & layout.rest_mask_i32)
-    return tuple(x.to(torch.int32) for x in (new_lb, new_lbr, new_sz, new_meta))
+        del_ok = alive & (err + 1 <= hi_b) & (d > 0) & (last != OP_INS)
+        ins_ok = alive & (err + 1 <= hi_b) & (err + 1 >= lo_b) & (last != OP_DEL)
+        branches.append((del_ok[:, None] & live, ext_lb, ext_lbr, cnt, col(OP_DEL | (opf & EDGES) | edge_bit),
+                         col(err + 1), col(d)))
+        branches.append(tuple(x[:, None] for x in (ins_ok, lb, lbr, sz, OP_INS | (opf & EDGES), err + 1, d + 1)))
+    flag, c_lb, c_lbr, c_sz, c_op, c_err, c_d = (torch.cat(f, dim=1).reshape(-1) for f in zip(*branches))
+    pick = torch.nonzero(flag)[:, 0]
+    parent = pick // n_branches(sl, ctx.edit)
+    c_meta = (c_op[pick] | (c_err[pick] << layout.err_shift) | (c_d[pick] << layout.d_shift)
+              | (meta[parent] & layout.rest_mask_i32))
+    fin = torch.nonzero(hit)[:, 0]
+    hits = torch.stack([lane[fin], lb[fin], sz[fin], err[fin]]).to(torch.int32)
+    return (*(x[pick].to(torch.int32) for x in (c_lb, c_lbr, c_sz)), c_meta.to(torch.int32), hits)
 
 
-def _layout_args(layout) -> list[int]:
-    return [layout.opf_bits, layout.err_bits, layout.d_bits, layout.s_bits]
-
-
-def _check_state(occ16, c_arr, tape, lb, lbr, sz, meta, sigma, sl):
-    check("occ16", occ16, torch.int32, 2)
-    check("c_arr", c_arr, torch.int32, 1)
-    check("tape", tape, torch.int32, 1)
+def workq_step(ctx: StepContext, lb, lbr, sz, meta, *, drain: bool = False):
+    """One step (see ``workq_step_plain``): the kernel on CUDA tensors.
+    Reads the (children, hits) totals once to narrow the outputs."""
+    if not on_cuda(ctx.tape, lb, lbr, sz, meta):
+        return workq_step_plain(ctx, lb, lbr, sz, meta, drain=drain)
+    if ctx.static is None:
+        raise ValueError("the step context was made for CPU tensors")
     for name, t in (("lb", lb), ("lbr", lbr), ("sz", sz), ("meta", meta)):
         check(name, t, torch.int32, 1)
         if t.shape != sz.shape:
             raise ValueError(f"{name}: every state vector must have the same length")
-    if occ16.shape[1] != ROW_INTS or not 2 <= sl <= sigma <= ROW_INTS // 2:
-        raise ValueError(f"occ16 must be [W, {ROW_INTS}] with 2 <= sl <= sigma <= 8")
-
-
-def workq_count(occ16, c_arr, tape, lb, lbr, sz, meta, *, sigma, sl, edit, m, ns, rev_off, layout):
-    """Rank products and candidate flags of every queue row (see
-    ``workq_count_plain``); the kernel on CUDA tensors."""
-    tensors = (occ16, c_arr, tape, lb, lbr, sz, meta)
-    if not on_cuda(*tensors):
-        return workq_count_plain(*tensors, sigma=sigma, sl=sl, edit=edit, m=m, ns=ns, rev_off=rev_off,
-                                 layout=layout)
-    _check_state(*tensors, sigma, sl)
     n = sz.shape[0]
-    prod = torch.empty((n, 3 * sl), dtype=torch.int32, device=sz.device)
-    flags = torch.empty((n_branches(sl, edit), n), dtype=torch.uint8, device=sz.device)
+    tiles = -(-n // TILE)
+    if tiles > ctx.static.max_tiles:
+        raise ValueError(f"a queue of {n} rows is longer than the step context's {ctx.static.max_tiles * TILE}")
+    cap, hit_cap = n_branches(ctx.sl, ctx.edit) * n, n if drain else 0
+    out = torch.empty(4 * (cap + hit_cap), dtype=torch.int32, device=sz.device)
+    children, hits = out[: 4 * cap].view(4, cap), out[4 * cap :].view(4, hit_cap)
     if n == 0:
-        return prod, flags
-    rc = _kernel("count")(
-        *(t.data_ptr() for t in tensors), n, sigma, sl, int(edit), m, ns, rev_off, *_layout_args(layout),
-        prod.data_ptr(), flags.data_ptr(), stream_of(sz),
+        return (*children, hits)
+    ctx.epoch += 1
+    if ctx.epoch == EPOCHS:  # every tag used: retire the old words and start over
+        ctx.status.zero_()
+        ctx.epoch = 1
+    rc = _kernel()(
+        ctypes.byref(ctx.static), lb.data_ptr(), lbr.data_ptr(), sz.data_ptr(), meta.data_ptr(), n, int(drain),
+        ctx.tickets & 0xFFFFFFFF, ctx.epoch, out.data_ptr(), cap, out.data_ptr() + 16 * cap if drain else None,
+        stream_of(sz),
     )
-    raise_on_error(rc, "workq_count")
-    LAUNCHES["workq_count"] += 1
-    return prod, flags
-
-
-def workq_emit(flags, pos, total, prod, tape, lb, lbr, sz, meta, *, sl, edit, m, ns, layout):
-    """The ``total`` child rows of the flagged candidates; ``pos`` is the
-    inclusive int32 scan of ``flags``.  The kernel on CUDA tensors."""
-    if not on_cuda(flags, pos, prod, tape, lb, lbr, sz, meta):
-        return workq_emit_plain(flags, prod, tape, lb, lbr, sz, meta, sl=sl, edit=edit, m=m, ns=ns,
-                                layout=layout)
-    n = sz.shape[0]
-    check("flags", flags, torch.uint8, 2)
-    check("pos", pos, torch.int32, 1)
-    check("prod", prod, torch.int32, 2)
-    if flags.shape != (n_branches(sl, edit), n) or pos.shape[0] != flags.numel() or prod.shape != (n, 3 * sl):
-        raise ValueError("flags, pos and prod do not match the queue")
-    out = [torch.empty(total, dtype=torch.int32, device=sz.device) for _ in range(4)]
-    if n == 0 or total == 0:
-        return tuple(out)
-    rc = _kernel("emit")(
-        flags.data_ptr(), pos.data_ptr(), prod.data_ptr(), tape.data_ptr(), lb.data_ptr(), lbr.data_ptr(),
-        sz.data_ptr(), meta.data_ptr(), n, sl, int(edit), m, ns, *_layout_args(layout),
-        *(t.data_ptr() for t in out), stream_of(sz),
-    )
-    raise_on_error(rc, "workq_emit")
-    LAUNCHES["workq_emit"] += 1
-    return tuple(out)
+    raise_on_error(rc, "workq_step")
+    LAUNCHES["workq_step"] += 1
+    ctx.tickets += tiles
+    n_kids, n_hits, _, _ = ctx.counters.tolist()
+    return (*children[:, :n_kids], hits[:, :n_hits])

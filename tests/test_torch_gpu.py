@@ -21,7 +21,7 @@ from sahara_tpu_torch.kernels.rank import rank_all, rank_all_plain
 from sahara_tpu_torch.kernels.rank_smem import rank_all_smem, rank_all_smem_plain
 from sahara_tpu_torch.kernels.seed import seed_scan, seed_scan_plain
 from sahara_tpu_torch.kernels.verify import verify, verify_plain
-from sahara_tpu_torch.kernels.workq import workq_count, workq_count_plain, workq_emit, workq_emit_plain
+from sahara_tpu_torch.kernels.workq import EPOCHS, TILE, workq_step, workq_step_plain
 
 pytestmark = pytest.mark.gpu
 
@@ -142,32 +142,78 @@ def test_rank_all_smem_refuses_a_large_table():
         rank_all_smem(occ16, 6, torch.zeros(8, dtype=torch.int32, device=dev))
 
 
+def _record_steps(index, queries, tape, *, edit, k, cap, monkeypatch, check=None):
+    """Run one work-queue search (dedup on) and return every step's
+    (context, input queue, drain, pre-step hit counts); ``check`` sees each
+    step before it runs."""
+    dev = index.device
+    steps = []
+    expand_step = workq.expand_step
+
+    def recorded(ctx, state, *, drain=False):
+        if check is not None:
+            check(ctx, state, drain)
+        steps.append((ctx, state, drain, None if ctx.hq_counts is None else ctx.hq_counts.clone()))
+        return expand_step(ctx, state, drain=drain)
+
+    monkeypatch.setattr(workq, "expand_step", recorded)
+    workq.workq_search(index, torch.from_numpy(queries).to(dev), workq.upload_tape(tape, dev),
+                       torch.ones(len(queries), dtype=torch.bool, device=dev), edit=edit, k=k,
+                       ph0=workq.phase0_length(tape, edit), dedup_every=workq.DEDUP_EVERY, cap_per_query=cap)
+    monkeypatch.undo()
+    return steps
+
+
+@pytest.mark.parametrize("cap", [0, 1])
 @pytest.mark.parametrize("edit", [True, False])
-def test_workq_step_kernels_match_plain(bihost, edit):
-    """K5 count and emit against their plain versions on queues taken from
-    a real search, step after step."""
+def test_workq_step_kernels_match_plain(bihost, monkeypatch, edit, cap):
+    """K5's one-launch step against its plain version at every step of a
+    real search, drain steps and the in-search cap included."""
     dev = _card()
     idx_host, seqs = bihost
     index = DeviceIndex.from_host(idx_host, device=dev)
     queries = _reads(seqs, np.random.default_rng(8), 400, 40, 2)
     queries[::9, 7] = 5  # N in some reads
     tape = compile_tape(load_scheme("h2-k2", 0, 2, 40, edit=edit, sigma=6, n_text=idx_host.n))
-    qd = torch.from_numpy(queries).to(dev)
-    ctx, state = workq.start_queue(index, qd, workq.upload_tape(tape, dev),
-                                   torch.ones(len(queries), dtype=torch.bool, device=dev), edit=edit, k=2)
-    kw = dict(sigma=index.sigma, rev_off=index.rev_word_off, **ctx.kw)
-    for _ in range(30):
-        args = (index.occ16, index.c_arr, ctx.tape, *state)
-        prod, flags = workq_count(*args, **kw)
-        prod_p, flags_p = workq_count_plain(*args, **kw)
-        assert torch.equal(prod, prod_p) and torch.equal(flags, flags_p)
-        pos = torch.cumsum(flags.reshape(-1), 0, dtype=torch.int32)
-        total = int(pos[-1])
-        got = workq_emit(flags, pos, total, prod, ctx.tape, *state, **ctx.kw)
-        want = workq_emit_plain(flags, prod, ctx.tape, *state, **ctx.kw)
+    seen = dict(drains=0, children=0, hits=0)
+
+    def check(ctx, state, drain):
+        before = LAUNCHES["workq_step"]
+        got = workq_step(ctx, *state, drain=drain)
+        torch.cuda.synchronize()
+        assert LAUNCHES["workq_step"] == before + 1
+        want = workq_step_plain(ctx, *state, drain=drain)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
-        state = got
-    assert total > 0
+        seen.update(drains=seen["drains"] + drain, children=seen["children"] + len(got[0]),
+                    hits=seen["hits"] + got[4].shape[1])
+
+    _record_steps(index, queries, tape, edit=edit, k=2, cap=cap, monkeypatch=monkeypatch, check=check)
+    assert seen["drains"] > 0 and seen["children"] > 0 and seen["hits"] > 0
+
+
+def test_workq_step_look_back_over_many_tiles(bihost, monkeypatch):
+    """Queues of over 1,000 tiles (a real queue repeated): the look-back
+    chains every tile's offsets, for children and for hits.  The first
+    launch also wraps the epoch tag and the ticket counter."""
+    dev = _card()
+    idx_host, seqs = bihost
+    index = DeviceIndex.from_host(idx_host, device=dev)
+    queries = _reads(seqs, np.random.default_rng(12), 400, 40, 2)
+    tape = compile_tape(load_scheme("h2-k2", 0, 2, 40, edit=True, sigma=6, n_text=idx_host.n))
+    steps = _record_steps(index, queries, tape, edit=True, k=2, cap=3, monkeypatch=monkeypatch)
+    widest = max((s for s in steps if not s[2]), key=lambda s: s[1][2].shape[0])
+    drains = [s for s in steps if s[2]]
+    ctx = widest[0]
+    ctx.epoch, ctx.tickets = EPOCHS - 1, (1 << 32) - 3
+    ctx.counters[2] = -3
+    for ctx, state, drain, counts in (widest, max(drains, key=lambda s: s[1][2].shape[0])):
+        reps = -(-1000 * TILE // state[2].shape[0]) + 1
+        big = tuple(x.repeat(reps) for x in state)
+        ctx.hq_counts.copy_(counts)
+        got = workq_step(ctx, *big, drain=drain)
+        want = workq_step_plain(ctx, *big, drain=drain)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert big[2].shape[0] > 1000 * TILE and len(got[0]) > 0 and (got[4].shape[1] > 0) == drain
 
 
 @pytest.mark.parametrize("edit", [True, False])
@@ -192,7 +238,7 @@ def test_fallback_on_card_matches_cpu(bihost):
     queries = _reads(seqs, np.random.default_rng(10), 400, 50, 2)
     queries[::8, 16] = 5  # the last char of the first part: the j-mer table cannot seed it
     want = search_queries(DeviceIndex.from_host(idx_host, device="cpu"), queries, k=2, device="cpu", chunk=128)
-    before = LAUNCHES["workq_count"]
+    before = LAUNCHES["workq_step"]
     got = search_queries(DeviceIndex.from_host(idx_host, device=dev), queries, k=2, chunk=128)
-    assert LAUNCHES["workq_count"] > before
+    assert LAUNCHES["workq_step"] > before
     assert got.rows() == want.rows() and len(want.rows()) >= 400

@@ -1,7 +1,8 @@
 """sahara_tpu_torch's work-queue engine and its driver routes against
 sahara_tpu's, on the CPU: hit multisets with dedup off, located rows with
-dedup on, the HARD_CAP split, tape groups and the seed-and-verify fallback.
-Every stage is integer, so every comparison is exact."""
+dedup on, the HARD_CAP split, tape groups and the seed-and-verify fallback;
+and the one-launch step against the step as a drain, a branch-major count
+and an emit.  Every stage is integer, so every comparison is exact."""
 
 import numpy as np
 import pytest
@@ -18,9 +19,10 @@ from sahara_tpu.schemes import limit_to_hamming as jax_limit_to_hamming
 from sahara_tpu_torch.engine import seedverify, workq
 from sahara_tpu_torch.engine.device import DeviceIndex
 from sahara_tpu_torch.engine.driver import load_scheme, search_queries
-from sahara_tpu_torch.engine.rank import pack_occ16
+from sahara_tpu_torch.engine.rank import pack_occ16, rank_all_offset
 from sahara_tpu_torch.engine.tape import compile_tape
 from sahara_tpu_torch.index.fmindex import from_arrays
+from sahara_tpu_torch.kernels.workq import EDGE_L, EDGE_R, EDGES, OP_DEL, OP_INS, workq_step_plain
 
 from tests.util import random_seqs
 
@@ -234,3 +236,140 @@ def test_workq_needs_a_bidirectional_index(sv_workload):
     with pytest.raises(ValueError, match="bidirectional"):
         search_queries(sv_only, queries, k=2, engine="workq", device="cpu")
     assert torch.equal(sv_only.occ16, DeviceIndex.from_host(port_host, device="cpu").occ16[: sv_only.occ16.shape[0]])
+
+
+# The step as a drain, a count and an emit: the drain in PyTorch, then the
+# rank products and branch-major candidate flags of every row, then the child
+# of every flagged candidate in flat branch-major order.  The engine ran it so
+# while the dedup-off multisets above held it against the JAX package.
+
+
+def _tape_fields(tape, layout, meta, m, ns):
+    opf, err, d, s_id, q_id = layout.decode(meta)
+    lane = q_id.long() * ns + s_id.long()
+    word = tape[lane * m + d.clamp(max=m - 1).long()]
+    return opf, err, d, word
+
+
+def _count_plain(occ16, c_arr, tape, lb, lbr, sz, meta, *, sigma, sl, edit, m, ns, rev_off, layout):
+    """(prod int32[n, 3 * sl] = cnt | newp | news, flags uint8[e_used, n])."""
+    alive = sz > 0
+    opf, err, d, word = _tape_fields(tape, layout, meta, m, ns)
+    side = word & 1
+    lo_b, hi_b, qc = (word >> 1) & 0xF, (word >> 5) & 0xF, (word >> 9) & 0xFF
+    primary = torch.where(side == 1, lbr, lb)
+    secondary = torch.where(side == 1, lb, lbr)
+    woff = side * rev_off
+    r_lo = rank_all_offset(occ16, sigma, primary, woff)[:, :sl]
+    r_hi = rank_all_offset(occ16, sigma, primary + sz, woff)[:, :sl]
+    cnt = r_hi - r_lo
+    prefix = torch.cumsum(cnt, dim=1, dtype=torch.int32) - cnt
+    prod = torch.cat([cnt, c_arr[None, :sl] + r_lo, secondary[:, None] + prefix], dim=1)
+    prod = torch.where(alive[:, None], prod, 0).to(torch.int32)
+    syms = torch.arange(1, sl, dtype=torch.int32)[None, :]
+    live = cnt[:, 1:] > 0
+    e_ms = err[:, None] + (qc[:, None] != syms).to(torch.int32)
+    cols = [alive[:, None] & live & (e_ms <= hi_b[:, None]) & (e_ms >= lo_b[:, None])]
+    if edit:
+        last = opf & 3
+        cols.append(alive[:, None] & live & ((err + 1) <= hi_b)[:, None] & (d > 0)[:, None]
+                    & (last != OP_INS)[:, None])
+        cols.append((alive & (err + 1 <= hi_b) & (err + 1 >= lo_b) & (last != OP_DEL))[:, None])
+    return prod, torch.cat(cols, dim=1).T.contiguous().to(torch.uint8)
+
+
+def _emit_plain(flags, prod, tape, lb, lbr, sz, meta, *, sl, edit, m, ns, layout):
+    """Child rows (lb, lbr, sz, meta) of the flagged candidates, in flat
+    branch-major order."""
+    n, n_ms = sz.shape[0], sl - 1
+    cand = torch.nonzero(flags.reshape(-1))[:, 0]
+    branch, parent = cand // n, cand % n
+    p_meta = meta[parent]
+    opf, err, d, word = _tape_fields(tape, layout, p_meta, m, ns)
+    side = word & 1
+    qc = (word >> 9) & 0xFF
+    sym = torch.where(branch < n_ms, branch + 1, branch - n_ms + 1).clamp(1, sl - 1)
+    p = prod[parent]
+    g_cnt = p.gather(1, sym[:, None])[:, 0]
+    g_newp = p.gather(1, (sl + sym)[:, None])[:, 0]
+    g_news = p.gather(1, (2 * sl + sym)[:, None])[:, 0]
+    new_lb = torch.where(side == 1, g_news, g_newp)
+    new_lbr = torch.where(side == 1, g_newp, g_news)
+    new_sz = g_cnt
+    new_err = err + (qc != sym).to(torch.int32)
+    new_d = d + 1
+    new_op = torch.zeros_like(opf)
+    if edit:
+        is_del = (branch >= n_ms) & (branch < 2 * n_ms)
+        is_ins = branch >= 2 * n_ms
+        new_lb = torch.where(is_ins, lb[parent], new_lb)
+        new_lbr = torch.where(is_ins, lbr[parent], new_lbr)
+        new_sz = torch.where(is_ins, sz[parent], new_sz)
+        new_err = torch.where(branch < n_ms, new_err, err + 1)
+        new_d = torch.where(is_del, d, new_d)
+        edge_bit = torch.where(side == 0, EDGE_L, EDGE_R)
+        other_bit = torch.where(side == 0, EDGE_R, EDGE_L)
+        del_op = OP_DEL | (opf & EDGES) | edge_bit
+        ins_op = OP_INS | (opf & EDGES)
+        new_op = torch.where(branch < n_ms, opf & other_bit, torch.where(is_del, del_op, ins_op))
+    new_meta = new_op | (new_err << layout.err_shift) | (new_d << layout.d_shift) | (p_meta & layout.rest_mask_i32)
+    return tuple(x.to(torch.int32) for x in (new_lb, new_lbr, new_sz, new_meta))
+
+
+def _oracle_step(ctx, lb, lbr, sz, meta, *, drain):
+    """The drain, count and emit above; the children stably reordered by
+    parent, which is the one-launch step's order."""
+    layout, m, ns = ctx.layout, ctx.m, ctx.ns
+    hits = torch.zeros((4, 0), dtype=torch.int32)
+    if drain:
+        opf, err, d, s_id, q_id = layout.decode(meta)
+        alive = sz > 0
+        if ctx.cap_per_query:
+            alive &= ctx.hq_counts[q_id.long()] < ctx.cap_per_query
+        done = alive & (d >= m)
+        fin = torch.nonzero(done & ((opf & EDGES) == 0))[:, 0]
+        hits = torch.stack([q_id[fin] * ns + s_id[fin], lb[fin], sz[fin], err[fin]])
+        sz = torch.where(alive & ~done, sz, 0)
+    kw = dict(sl=ctx.sl, edit=ctx.edit, m=m, ns=ns, layout=layout)
+    prod, flags = _count_plain(ctx.occ16, ctx.c_arr, ctx.tape, lb, lbr, sz, meta, sigma=ctx.sigma,
+                               rev_off=ctx.rev_off, **kw)
+    kids = _emit_plain(flags, prod, ctx.tape, lb, lbr, sz, meta, **kw)
+    order = torch.sort(torch.nonzero(flags.reshape(-1))[:, 0] % sz.shape[0], stable=True).indices
+    return (*(x[order] for x in kids), hits)
+
+
+@pytest.mark.parametrize("cap", [0, 1])
+@pytest.mark.parametrize("edit", [True, False])
+@pytest.mark.parametrize("workload", ["three_seqs", "repeat_workload"])
+def test_step_equals_drain_count_emit(request, monkeypatch, workload, edit, cap):
+    """Every step of one chunk, dedup on: the one-launch step's children
+    equal the branch-major oracle's reordered by parent, and its hits the
+    PyTorch drain's, with and without the in-search cap."""
+    if workload == "three_seqs":
+        *_, pdev, qarr = request.getfixturevalue(workload)
+        k = 2
+    else:
+        _, _, pdev, qs = request.getfixturevalue(workload)
+        qarr, k = np.stack(qs), 1
+    tape = compile_tape(load_scheme("optimum", 0, k, qarr.shape[1], edit=edit, sigma=6, n_text=pdev.n))
+    seen = dict(steps=0, drains=0, children=0, hits=0, capped=0)
+    expand_step = workq.expand_step
+
+    def checked(ctx, state, *, drain=False):
+        got = workq_step_plain(ctx, *state, drain=drain)
+        want = _oracle_step(ctx, *state, drain=drain)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        if drain and cap:
+            q_id = ctx.layout.decode(state[3])[4]
+            seen["capped"] += int(((ctx.hq_counts[q_id.long()] >= cap) & (state[2] > 0)).sum())
+        seen.update(steps=seen["steps"] + 1, drains=seen["drains"] + drain, children=seen["children"] + len(got[0]),
+                    hits=seen["hits"] + got[4].shape[1])
+        return expand_step(ctx, state, drain=drain)
+
+    monkeypatch.setattr(workq, "expand_step", checked)
+    workq.workq_search(pdev, torch.from_numpy(qarr.astype(np.int32)), workq.upload_tape(tape, "cpu"),
+                       torch.ones(len(qarr), dtype=torch.bool), edit=edit, k=k, ph0=workq.phase0_length(tape, edit),
+                       dedup_every=workq.DEDUP_EVERY, cap_per_query=cap)
+    assert seen["drains"] > 0 and seen["steps"] > seen["drains"] and seen["children"] > 0 and seen["hits"] > 0
+    # Hamming states all finish on the first drain step, before any cap can bind
+    assert seen["capped"] > 0 or not (cap and edit)
