@@ -5,14 +5,18 @@
 Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
 
 1. prints the card's name and power limit, builds the five CUDA kernels
-   from ``sahara_tpu_torch/kernels/csrc`` (all nvcc runs at once) and prints
+   from ``sahara_tpu_torch/kernels/csrc`` and the first versions of the K2
+   and K3 kernels (``LEGACY_SOURCES``; all nvcc runs at once) and prints
    each kernel's registers;
 2. regenerates the ``bench.py`` workload from its seeds (40 MB reference,
    65,536 reads of 100 bp with 2 planted errors, both strands) and builds
    the bidirectional index with its full-SA sidecar;
 3. holds K1-K3 against their plain PyTorch versions on the card at the
    seed-and-verify path's shapes (exact equality: all integer), and times
-   both;
+   both; K2 and K3 (edit) also by the profiler's device time, warm and
+   with L2 flushed before each launch (the pass meets them cold), beside
+   their first versions on the same inputs; counts K3's SASS instructions
+   per row of its steady loop by pipe (cuobjdump);
 4. runs the seed-and-verify path — upload without the reversed table (the
    j-mer table build runs K1) and ``search_queries`` at e=2 edit distance —
    with the launch counts reset just before, checks every kernel was
@@ -49,6 +53,8 @@ Any failure raises, and the script exits non-zero.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import hashlib
 import json
 import os
@@ -82,12 +88,174 @@ FALLBACK_READS = 1024
 RANK_BENCH_POSITIONS = 262144  # bench_rank.py's default batch
 SMEM_TEXT_MB = 0.1  # the largest random text whose occ table K4 takes
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and the
-# float32 rate outside the tensor cores, an upper bound on the card's
-# 32-bit integer operation rate
+# H100 SXM HBM3 bytes/s (NVIDIA data sheet).  The kernels' operations are
+# 32-bit integer ones.  An SM issues 4 warp instructions a clock (128
+# lanes); its ALU pipes, which run compares, min/max, logic and shifts, take
+# 64 lanes a clock (Hopper white paper), and an integer add may also go to
+# the FMA pipes as an IMAD.  So a kernel's least time for its operations is
+# the larger of its ALU-only operations over 64 lanes and all of them over
+# 128, times the card's SMs and maximum SM clock, read at run time.
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = 67e12
-DP_OPS_PER_CELL = 9
+ALU_LANES_PER_SM_CLOCK = 64
+ISSUE_LANES_PER_SM_CLOCK = 128
+# the edit DP's steady recurrence per cell: on the ALU, compare the chars,
+# min of up and left, two fused add-and-min (VIADDMNMX: +1 and min for a,
+# +1 and min for b); the substitution cost's add may run on either pipe
+DP_ALU_OPS_PER_CELL = 4
+DP_ADD_OPS_PER_CELL = 1
+FLUSH_BYTES = 128 << 20  # written between launches to evict the 50 MB L2
+
+# The first versions of the K3 (edit entry, k = 2) and K2 kernels, kept here
+# only to be timed beside their redesigns on the same inputs; nothing on a
+# path loads them.  Their C entries have the current ones' signatures, so
+# the current wrappers launch them (``first_version``).
+LEGACY_SOURCES = {
+    "verify_v1": r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+namespace {
+constexpr int kInf = 1 << 20;
+__device__ __forceinline__ int text_at(const int32_t* __restrict__ text4, int64_t n, int64_t pos) {
+    if (pos < 0 || pos >= n) return 0;
+    const uint32_t word = static_cast<uint32_t>(__ldg(text4 + (pos >> 3)));
+    return static_cast<int>((word >> (4 * (pos & 7))) & 0xFu);
+}
+template <int K>
+__global__ void edit_kernel(const int32_t* __restrict__ text4, int64_t n, const uint8_t* __restrict__ queries,
+                            int m, const int32_t* __restrict__ q_of, const int32_t* __restrict__ base,
+                            int64_t n_cands, int32_t* __restrict__ dist) {
+    constexpr int B = 2 * K + 1;
+    constexpr int S = 2 * K + 1;
+    const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (t >= n_cands * S) return;
+    const int64_t r = t / S;
+    const int d = static_cast<int>(t % S);
+    const uint8_t* q = queries + static_cast<int64_t>(q_of[r]) * m;
+    const int64_t p = static_cast<int64_t>(base[r]) + d;
+    int a[B], b[B], w[B];
+#pragma unroll
+    for (int c = 0; c < B; ++c) {
+        a[c] = (c == K) ? 0 : kInf;
+        b[c] = kInf;
+        w[c] = text_at(text4, n, p - K + c);
+    }
+    for (int i = 1; i <= m; ++i) {
+        if (i > 1) {
+#pragma unroll
+            for (int c = 0; c < B - 1; ++c) w[c] = w[c + 1];
+            w[B - 1] = text_at(text4, n, p + i + K - 1);
+        }
+        const int qc = q[i - 1];
+        int an[B], bn[B];
+#pragma unroll
+        for (int c = 0; c < B; ++c) {
+            const int j = i - K + c;
+            const int sub = (w[c] == 0) ? kInf : (w[c] != qc);
+            const int up_a = (c + 1 < B) ? a[c + 1] : kInf;
+            const int up_b = (c + 1 < B) ? b[c + 1] : kInf;
+            int cand = min(a[c] + sub, up_a + 1);
+            if (j == 0) cand = i;
+            if (j < 0) cand = kInf;
+            an[c] = cand;
+            bn[c] = (j <= 0) ? kInf : min(a[c] + sub, up_b + 1);
+        }
+#pragma unroll
+        for (int c = 1; c < B; ++c) {
+            const int j = i - K + c;
+            const int del = (j == 1 || w[c] == 0) ? kInf : 1;
+            an[c] = min(an[c], an[c - 1] + del);
+        }
+#pragma unroll
+        for (int c = 0; c < B; ++c) {
+            a[c] = min(an[c], kInf);
+            b[c] = min(bn[c], kInf);
+        }
+    }
+    int best = b[0];
+#pragma unroll
+    for (int c = 1; c < B; ++c) best = min(best, b[c]);
+    dist[t] = best;
+}
+}  // namespace
+extern "C" int sahara_verify(const void* text4, int64_t n, const void* queries, int m, const void* q_of,
+                             const void* base, int64_t n_cands, int k, int edit, void* dist, void* stream) {
+    if (k != 2 || !edit) return static_cast<int>(cudaErrorInvalidValue);
+    const int64_t blocks = (n_cands * 5 + 127) / 128;
+    edit_kernel<2><<<static_cast<unsigned>(blocks), 128, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(text4), n, static_cast<const uint8_t*>(queries), m,
+        static_cast<const int32_t*>(q_of), static_cast<const int32_t*>(base), n_cands, static_cast<int32_t*>(dist));
+    return static_cast<int>(cudaGetLastError());
+}
+""",
+    "seed_v1": r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+namespace {
+constexpr int kMaxParts = 16;
+struct Parts {
+    int32_t off[kMaxParts];
+    int32_t len[kMaxParts];
+};
+__device__ __forceinline__ int32_t rank_sym(const int32_t* __restrict__ occ16, int32_t pos, int sym, int sigma) {
+    const int32_t* row = occ16 + static_cast<int64_t>(pos >> 5) * 16;
+    const int32_t ckpt = __ldg(row + sym);
+    const uint32_t bits = static_cast<uint32_t>(__ldg(row + sigma + sym));
+    const uint32_t mask = (1u << (pos & 31)) - 1u;
+    return ckpt + __popc(bits & mask);
+}
+__global__ void seed_scan_kernel(const int32_t* __restrict__ occ16, const int32_t* __restrict__ c_arr,
+                                 const int32_t* __restrict__ lut, int lut_j,
+                                 const uint8_t* __restrict__ queries, int64_t nq, int m, Parts parts,
+                                 int n_parts, int sigma, int32_t n, int32_t* __restrict__ lo_out,
+                                 int32_t* __restrict__ sz_out) {
+    const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (t >= nq * n_parts) return;
+    const uint8_t* q = queries + (t / n_parts) * m;
+    const int p = static_cast<int>(t % n_parts);
+    const int off = parts.off[p];
+    const int len = parts.len[p];
+    int32_t lo = 0;
+    int32_t hi = n;
+    int start = 0;
+    if (lut != nullptr) {
+        int32_t code = 0;
+        for (int i = 0; i < lut_j; ++i) {
+            code += (static_cast<int32_t>(q[off + len - 1 - i]) - 1) * (1 << (2 * i));
+        }
+        const int32_t n_codes = 1 << (2 * lut_j);
+        code = min(max(code, 0), n_codes - 1);
+        lo = __ldg(lut + code);
+        hi = __ldg(lut + code + n_codes);
+        start = lut_j;
+    }
+    for (int s = start; s < len; ++s) {
+        const int c = min(static_cast<int>(q[off + len - 1 - s]), sigma - 1);
+        const int32_t base = __ldg(c_arr + c);
+        lo = base + rank_sym(occ16, lo, c, sigma);
+        hi = base + rank_sym(occ16, hi, c, sigma);
+    }
+    lo_out[t] = lo;
+    sz_out[t] = max(hi - lo, 0);
+}
+}  // namespace
+extern "C" int sahara_seed_scan(const void* occ16, const void* c_arr, const void* lut, int lut_j,
+                                 const void* queries, int64_t nq, int m, const int32_t* parts_host,
+                                 int n_parts, int sigma, int32_t n, void* lo, void* sz, void* stream) {
+    if (n_parts < 1 || n_parts > kMaxParts) return static_cast<int>(cudaErrorInvalidValue);
+    Parts parts{};
+    for (int p = 0; p < n_parts; ++p) {
+        parts.off[p] = parts_host[p];
+        parts.len[p] = parts_host[n_parts + p];
+    }
+    const int64_t blocks = (nq * n_parts + 255) / 256;
+    seed_scan_kernel<<<static_cast<unsigned>(blocks), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(occ16), static_cast<const int32_t*>(c_arr),
+        static_cast<const int32_t*>(lut), lut_j, static_cast<const uint8_t*>(queries), nq, m, parts,
+        n_parts, sigma, n, static_cast<int32_t*>(lo), static_cast<int32_t*>(sz));
+    return static_cast<int>(cudaGetLastError());
+}
+""",
+}
 
 
 def card_line() -> str:
@@ -96,6 +264,87 @@ def card_line() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_clocks_s() -> float:
+    """SM clocks a second over the card: SMs x maximum SM clock."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    )
+    mhz = float(out.stdout.strip().splitlines()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
+
+
+def write_first_versions() -> dict[str, str]:
+    """Write ``LEGACY_SOURCES`` into the git-ignored build directory; the
+    path of each, for ``build_all``."""
+    from sahara_tpu_torch.kernels._build import BUILD_DIR
+
+    out_dir = os.path.join(BUILD_DIR, "legacy")
+    os.makedirs(out_dir, exist_ok=True)
+    paths = {}
+    for name, src in LEGACY_SOURCES.items():
+        paths[name] = os.path.join(out_dir, f"{name}.cu")
+        with open(paths[name], "w") as fh:
+            fh.write(src)
+    return paths
+
+
+def first_version(module, src: str, call):
+    """``call()`` with ``module``'s wrapper (``kernels.seed`` or
+    ``kernels.verify``) launching the C entry of the library built from the
+    first version ``src`` in place of the current kernel."""
+    from sahara_tpu_torch.kernels._build import lib_path
+
+    cur = module._kernel()
+    fn = getattr(ctypes.CDLL(lib_path(src)), cur.__name__)
+    fn.restype, fn.argtypes = cur.restype, cur.argtypes
+    module._fn = fn
+    try:
+        return call()
+    finally:
+        module._fn = cur
+
+
+def steady_row_sass(src: str, entry: str, loads: int, rows: int) -> dict | None:
+    """SASS instructions per row of the steady loop of function ``entry`` in
+    the library of ``src`` (cuobjdump): the loop, closed by a backward
+    branch, that issues ``loads`` global loads for ``rows`` rows.  Counted by
+    pipe: IMAD and IMUL forms on the FMA pipe, loads, branches, and every
+    other instruction on the ALU.  None where cuobjdump is missing."""
+    from sahara_tpu_torch.kernels._build import lib_path, nvcc_path
+
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    dump = subprocess.run([tool, "-sass", lib_path(src)], capture_output=True, text=True, check=True).stdout
+    body = next(part for part in dump.split("Function : ")[1:] if entry in part.split()[0])
+    ins = [(int(a, 16), op) for a, op in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", body)]
+    at = {a: i for i, (a, _) in enumerate(ins)}
+    for i, (a, op) in enumerate(ins):
+        jump = re.search(r"\bBRA\s+0x([0-9a-f]+)", op)
+        if not jump or int(jump.group(1), 16) >= a:
+            continue
+        names = [re.sub(r"^@!?U?P\w+\s+", "", x).split()[0] for _, x in ins[at[int(jump.group(1), 16)]: i + 1]]
+        n_loads = sum(x.startswith("LDG") for x in names)
+        if n_loads != loads:
+            continue
+        fma = sum(x.startswith(("IMAD", "IMUL")) for x in names)
+        branch = sum(x.startswith("BRA") for x in names)
+        return dict(total=len(names) / rows, fma=fma / rows, alu=(len(names) - fma - n_loads - branch) / rows,
+                    loads=n_loads / rows, branch=branch / rows, loop_instructions=len(names), rows=rows)
+    raise AssertionError(f"no loop of {entry} with {loads} global loads")
+
+
+def register_row(ptxas: dict, source: str, entry: str) -> str:
+    """'N registers, S B spill stores' of the first entry of ``source``'s
+    ptxas report whose mangled name contains ``entry``."""
+    for row in registers(ptxas.get(source, "")):
+        if entry in row.split(":")[0]:
+            return row.split(": ", 1)[1]
+    return "not reported"
 
 
 def registers(report: str) -> list[str]:
@@ -125,8 +374,13 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S * 1e3, n_ops / PEAK_OPS_S * 1e3
+def bound(n_bytes: float, alu_ops: float, add_ops: float = 0) -> tuple[float, str]:
+    """Least ms for ``n_bytes`` of memory traffic and ``alu_ops`` integer
+    operations that only the ALU pipes run, plus ``add_ops`` that either
+    pipe runs."""
+    per_lane = 1e3 / (sm_clocks_s())
+    t_ops = max(alu_ops / ALU_LANES_PER_SM_CLOCK, (alu_ops + add_ops) / ISSUE_LANES_PER_SM_CLOCK) * per_lane
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -159,6 +413,34 @@ def seed_reads(index, queries: torch.Tensor, parts) -> tuple[int, int]:
         seen += [lo.reshape(-1) >> 5, (lo + sz).reshape(-1) >> 5]
     jmers = torch.cat([queries[:, off + ln - j : off + ln] for off, ln in parts]).long()
     return torch.unique(torch.cat(seen)).numel(), torch.unique(jmers, dim=0).shape[0]
+
+
+def shared_row_steps(index, queries: torch.Tensor, parts) -> float:
+    """Share of the seed scan's rank steps whose two interval ends fall in
+    one occ row (K2 then fetches one row, not two); the interval before
+    each step comes from the plain scan of the part suffixes."""
+    from sahara_tpu_torch.kernels.seed import seed_scan_plain
+
+    j, same, total = index.lut_j, 0, 0
+    for t in range(j, max(ln for _, ln in parts)):
+        suffixes = [(off + ln - t, t) for off, ln in parts if ln > t]
+        lo, sz = seed_scan_plain(index.occ16, index.c_arr, index.lut, j, queries, suffixes, index.sigma, index.n)
+        same += int(((lo >> 5) == ((lo + sz) >> 5)).sum())
+        total += lo.numel()
+    return same / total
+
+
+def clean_windows(index, base: torch.Tensor, m: int) -> float:
+    """Share of K3's (candidate, start) threads whose window text[p, p + m + k)
+    lies inside the text and holds no rank-0 char: they run the fast loop."""
+    from sahara_tpu_torch.kernels.verify import text_ranks
+
+    p = base.long()[:, None] + torch.arange(2 * K + 1, device=base.device)
+    span = torch.arange(m + K, device=base.device)
+    inside = (p >= 0) & (p + m + K <= index.n)
+    clean = torch.stack([(text_ranks(index.text4, index.n, p[:, d, None] + span) != 0).all(dim=1)
+                         for d in range(2 * K + 1)], dim=1)
+    return float((inside & clean).float().mean())
 
 
 def dev_ms(e) -> float:
@@ -197,16 +479,34 @@ def profile_pass(run) -> dict:
     return out
 
 
-def kernel_phases(index, queries: np.ndarray, rng: np.random.Generator, ref: np.ndarray) -> list[dict]:
-    """Each kernel against its plain version at the main path's shapes."""
+def redesign_times(new, old, name: str, flush) -> dict:
+    """Device ms per launch of kernel ``name`` through ``new`` and through
+    its first version ``old`` on the same inputs, warm (back to back) and
+    cold (L2 flushed before each launch), in the order new, old, old, new;
+    and the new wrapper's call time."""
+    out = dict(ms=kernel_device_ms(new, name, 20), old_ms=kernel_device_ms(old, name, 20))
+    out.update(old_cold_ms=kernel_device_ms(old, name, 20, before=flush),
+               cold_ms=kernel_device_ms(new, name, 20, before=flush), call_ms=time_ms(new, 20))
+    return out
+
+
+def kernel_phases(index, queries: np.ndarray, rng: np.random.Generator, ref: np.ndarray, legacy: dict,
+                  ptxas: dict) -> list[dict]:
+    """Each kernel against its plain version at the main path's shapes; K2
+    and K3 also against their first versions (``legacy``: name -> source)."""
     from sahara_tpu_torch.engine.locate import expand_intervals, lf_walk
     from sahara_tpu_torch.engine.seedverify import plan_parts, seed_parts
+    from sahara_tpu_torch.kernels import seed as seed_mod
+    from sahara_tpu_torch.kernels import verify as verify_mod
+    from sahara_tpu_torch.kernels._build import source
     from sahara_tpu_torch.kernels.rank import rank_all, rank_all_plain
     from sahara_tpu_torch.kernels.seed import seed_scan, seed_scan_plain
     from sahara_tpu_torch.kernels.verify import verify, verify_plain
 
     dev, sigma, n = index.device, index.sigma, index.n
     rows = []
+    flush_buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    flush = lambda: flush_buf.fill_(1)  # noqa: E731
 
     # K1 at 1M random positions over the whole occ table (larger than L2)
     idx = torch.from_numpy(rng.integers(0, n + 1, K1_POSITIONS).astype(np.int32)).to(dev)
@@ -235,14 +535,20 @@ def kernel_phases(index, queries: np.ndarray, rng: np.random.Generator, ref: np.
     lo, sz = seed_scan(*args)
     lo_p, sz_p = seed_scan_plain(*args)
     err = assert_equal("seed_scan lo", lo, lo_p) + assert_equal("seed_scan sz", sz, sz_p)
+    old = functools.partial(first_version, seed_mod, legacy["seed_v1"], lambda: seed_scan(*args))
+    lo_1, sz_1 = old()
+    assert_equal("first seed_scan lo", lo_1, lo_p) + assert_equal("first seed_scan sz", sz_1, sz_p)
     steps = sum(ln - index.lut_j for _, ln in parts)
     rows_read, codes_read = seed_reads(index, qd, parts)
     b, by = bound(rows_read * 64 + codes_read * 8 + CHUNK * (m + len(parts) * 8), CHUNK * 2 * steps * 4)
     rows.append(dict(
         name="seed_scan", route="cuda", source="sahara_tpu_torch/kernels/csrc/seed.cu",
         replaces="sahara_tpu/engine/seedverify.py:158", max_abs_err=err,
-        ms=time_ms(lambda: seed_scan(*args), 20), plain_ms=time_ms(lambda: seed_scan_plain(*args), 3),
-        bound_ms=b, bound_by=by, library_ms=None, shape=f"{CHUNK} reads x {len(parts)} parts",
+        **redesign_times(lambda: seed_scan(*args), old, "seed_scan_kernel", flush),
+        plain_ms=time_ms(lambda: seed_scan_plain(*args), 3), bound_ms=b, bound_by=by, library_ms=None,
+        registers=register_row(ptxas, "seed", "seed_scan_kernel"),
+        old_registers=register_row(ptxas, "seed_v1", "seed_scan_kernel"),
+        shape=f"{CHUNK} reads x {len(parts)} parts", shared_row_steps=shared_row_steps(index, qd, parts),
     ))
 
     # K3 on the real candidates of the workload's first chunk
@@ -265,16 +571,27 @@ def kernel_phases(index, queries: np.ndarray, rng: np.random.Generator, ref: np.
         cells = n_cands * s_cnt * m * (2 * K + 1) if edit else n_cands * m
         b, by = bound(
             words * 4 + torch.unique(q_of).numel() * m + n_cands * (8 + 4 * s_cnt),
-            cells * (DP_OPS_PER_CELL if edit else 3),
+            cells * (DP_ALU_OPS_PER_CELL if edit else 3), cells * DP_ADD_OPS_PER_CELL if edit else 0,
         )
-        rows.append(dict(
+        row = dict(
             name="verify" if edit else "verify_hamming", route="cuda",
             source="sahara_tpu_torch/kernels/csrc/verify.cu",
             replaces="sahara_tpu/engine/seedverify.py:330", max_abs_err=err,
-            ms=time_ms(lambda: verify(*vargs), 20), plain_ms=time_ms(lambda: verify_plain(*vargs), 2),
-            bound_ms=b, bound_by=by, library_ms=None,
+            plain_ms=time_ms(lambda: verify_plain(*vargs), 2), bound_ms=b, bound_by=by, library_ms=None,
             shape=f"{n_cands} candidates x {s_cnt} starts, m={m}, k={K}",
-        ))
+        )
+        if edit:
+            old = functools.partial(first_version, verify_mod, legacy["verify_v1"], lambda: verify(*vargs))
+            assert_equal("first verify", old(), verify_plain(*vargs))
+            row.update(redesign_times(lambda: verify(*vargs), old, "edit_kernel", flush),
+                       registers=register_row(ptxas, "verify", "edit_kernelILi2E"),
+                       old_registers=register_row(ptxas, "verify_v1", "edit_kernelILi2E"),
+                       fast_windows=clean_windows(index, base, m),
+                       # the steady loop loads one text and two query words per 8 rows
+                       steady_row_sass=steady_row_sass(source("verify"), "edit_kernelILi2E", 3, 8))
+        else:
+            row["ms"] = time_ms(lambda: verify(*vargs), 20)
+        rows.append(row)
     return rows
 
 
@@ -304,23 +621,30 @@ def smem_phase(dev) -> dict:
     )
 
 
-def kernel_device_ms(fn, name: str, reps: int) -> float:
+def kernel_device_ms(fn, name: str, reps: int, before=None) -> float:
     """Mean device time of kernel ``name`` per launch over ``reps`` calls
-    of ``fn`` (torch.profiler), after one warm call."""
+    of ``fn`` (torch.profiler), after one warm call; ``before`` runs ahead
+    of each call (an L2 flush for a cold time).  A session whose trace
+    lacks a launch (the profiler drops a record now and then) is run again,
+    up to three times; only a complete one counts."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
-    launches = sum(e.count for e in events)
-    if launches != reps:
-        raise AssertionError(f"the profiler saw {launches} launches of {name}, not {reps}")
-    return sum(dev_ms(e) for e in events) / launches
+    seen = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if before is not None:
+                    before()
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
+        seen.append(sum(e.count for e in events))
+        if seen[-1] == reps:
+            return sum(dev_ms(e) for e in events) / reps
+    raise AssertionError(f"the profiler saw {seen} launches of {name} in three sessions, not {reps}")
 
 
 def workq_step_phase(index, queries: np.ndarray) -> tuple[dict, dict]:
@@ -570,15 +894,17 @@ def main() -> int:
     from sahara_tpu_torch.engine.seedverify import StageTimer
     from sahara_tpu_torch.index.build import build_bifmindex
     from sahara_tpu_torch.kernels import LAUNCHES, reset_launches
-    from sahara_tpu_torch.kernels._build import build_all
+    from sahara_tpu_torch.kernels._build import KERNEL_SOURCES, build_all, source
     from sahara_tpu_torch.sim.workload import bench_workload
 
     report: dict = {}
     card = card_line()
     print(card, flush=True)
     t_start = t0 = time.perf_counter()
-    ptxas = build_all()
+    legacy = write_first_versions()
+    ptxas = build_all([source(name) for name in KERNEL_SOURCES] + list(legacy.values()))
     report["build_s"] = time.perf_counter() - t0
+    report["sm_clocks_s"] = sm_clocks_s()
     print(f"build: {report['build_s']:.1f} s", flush=True)
     for name, log in sorted(ptxas.items()):
         for row in registers(log):
@@ -594,7 +920,15 @@ def main() -> int:
           f"(n={host.n}, {len(queries)} strand queries)", flush=True)
 
     # K1-K3 vs plain, on an uploaded copy of the forward index
-    kernels = kernel_phases(DeviceIndex.from_host(host, include_rev=False), queries, np.random.default_rng(7), ref)
+    kernels = kernel_phases(DeviceIndex.from_host(host, include_rev=False), queries, np.random.default_rng(7), ref,
+                            legacy, ptxas)
+    for row in kernels:
+        if "old_ms" in row:
+            print(f"{row['name']} redesign: device warm {row['ms']:.4f} / cold {row['cold_ms']:.4f} ms, call "
+                  f"{row['call_ms']:.4f} ms, {row['registers']}; first version warm {row['old_ms']:.4f} / cold "
+                  f"{row['old_cold_ms']:.4f} ms, {row['old_registers']}", flush=True)
+    sass = next(row for row in kernels if row["name"] == "verify")["steady_row_sass"]
+    print(f"verify steady loop, SASS instructions a row by pipe: {sass or 'not measured'}", flush=True)
 
     # seed-and-verify path: upload + one search pass, with launch counts from zero
     kw = dict(k=K, edit=True, chunk=CHUNK)
@@ -685,7 +1019,9 @@ def main() -> int:
             "bound_ms", "bound_by", "library_ms")
     print(f"total {report['total_s']:.1f} s")
     print(card)
-    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))
+    # K2 and K3 also carry their cold time and their first version's times
+    extra = ("cold_ms", "old_ms", "old_cold_ms")
+    print(json.dumps({"kernels": [{k: row[k] for k in keys + extra if k in row} for row in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

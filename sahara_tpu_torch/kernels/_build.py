@@ -42,35 +42,50 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def lib_path(name: str) -> str:
+def source(name: str) -> str:
+    return os.path.join(CSRC, f"{name}.cu")
+
+
+def lib_path(src: str) -> str:
+    """The library of source file ``src``; its hash covers the source, the
+    headers beside it and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [os.path.join(CSRC, f"{name}.cu"), *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+    for path in [src, *sorted(glob.glob(os.path.join(os.path.dirname(src), "*.cuh")))]:
         with open(path, "rb") as fh:
             h.update(fh.read())
+    name = os.path.splitext(os.path.basename(src))[0]
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
-def build_all(names=KERNEL_SOURCES) -> dict[str, str]:
-    """Compile every missing library, all nvcc processes at once.
+def build_all(sources=None) -> dict[str, str]:
+    """Compile the library of every source file (default: the kernels of
+    ``KERNEL_SOURCES``) that is missing, all nvcc processes at once.
 
-    Returns each built source's ptxas report (registers, spills); empty for
-    a library that was already built.  Raises with nvcc's output on failure."""
+    Returns each source's ptxas report (registers, spills) by its file name
+    without ``.cu``, kept beside its library, so a library built earlier
+    reports too.  Raises with nvcc's output on failure."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = nvcc_path()
-    jobs = {}
-    for name in names:
-        out = lib_path(name)
+    jobs, reports = {}, {}
+    for src in sources or [source(name) for name in KERNEL_SOURCES]:
+        name, out = os.path.splitext(os.path.basename(src))[0], lib_path(src)
         if os.path.exists(out):
+            if os.path.exists(out + ".ptxas"):
+                with open(out + ".ptxas") as fh:
+                    reports[name] = fh.read()
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs[name] = (proc, tmp, out)
-    reports, failed = {}, []
+    failed = []
     for name, (proc, tmp, out) in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode == 0:
+            with open(tmp + ".ptxas", "w") as fh:
+                fh.write(log)
+            os.replace(tmp + ".ptxas", out + ".ptxas")
             os.replace(tmp, out)
             reports[name] = log
         else:
@@ -86,7 +101,7 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build_all([name])
-            lib = ctypes.CDLL(lib_path(name))
+            build_all([source(name)])
+            lib = ctypes.CDLL(lib_path(source(name)))
             _libs[name] = lib
         return lib

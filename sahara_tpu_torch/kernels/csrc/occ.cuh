@@ -15,14 +15,24 @@ namespace sahara {
 
 constexpr int kRowInts = 16;
 
-// Count of `sym` in bwt[0 : pos]: one checkpoint plus a masked popcount.
-__device__ __forceinline__ int32_t rank_sym(const int32_t* __restrict__ occ16, int32_t pos,
-                                            int sym, int sigma) {
-    const int32_t* row = occ16 + static_cast<int64_t>(pos >> 5) * kRowInts;
-    const int32_t ckpt = __ldg(row + sym);
-    const uint32_t bits = static_cast<uint32_t>(__ldg(row + sigma + sym));
-    const uint32_t mask = (1u << (pos & 31)) - 1u;
-    return ckpt + __popc(bits & mask);
+// Counts of `sym` in bwt[0 : lo] and bwt[0 : hi]: one checkpoint plus a
+// masked popcount each.  When both ends fall in one row, its two words are
+// fetched once and serve both (2 loads instead of 4).  Offsets are 32-bit:
+// positions are below 2^31, so (pos >> 5) * 16 < 2^30.
+__device__ __forceinline__ void rank_sym_pair(const int32_t* __restrict__ occ16, int32_t lo, int32_t hi, int sym,
+                                              int sigma, int32_t& rank_lo, int32_t& rank_hi) {
+    const int32_t* row = occ16 + (lo >> 5) * kRowInts;
+    const int32_t ckpt_lo = __ldg(row + sym);
+    const uint32_t bits_lo = static_cast<uint32_t>(__ldg(row + sigma + sym));
+    int32_t ckpt_hi = ckpt_lo;
+    uint32_t bits_hi = bits_lo;
+    if ((hi >> 5) != (lo >> 5)) {
+        const int32_t* row_hi = occ16 + (hi >> 5) * kRowInts;
+        ckpt_hi = __ldg(row_hi + sym);
+        bits_hi = static_cast<uint32_t>(__ldg(row_hi + sigma + sym));
+    }
+    rank_lo = ckpt_lo + __popc(bits_lo & ((1u << (lo & 31)) - 1u));
+    rank_hi = ckpt_hi + __popc(bits_hi & ((1u << (hi & 31)) - 1u));
 }
 
 // The whole 64 B row as four 16 B vector loads.

@@ -8,22 +8,34 @@
 // q_of[r] against text[p ...], or INF.  Text positions outside [0, n) and
 // sentinels (rank 0) can neither match, substitute nor be deleted.
 //
-// Bound on the H100: integer ALU work.  A thread runs m rows of a band of
-// B = 2k+1 cells (about 9 integer operations a cell); the bytes are small
-// (a window of m + 3k + 1 nibbles and the query per candidate).
+// Bound on the H100: the integer instruction rate of the SM's ALU pipes.  A
+// thread runs m dependent rows of a band of B = 2k+1 cells; the bytes are
+// small (a window of m + k nibbles and the query per candidate).
 //
-// Design: one thread per (candidate, start), the B-wide a/b band rows and
-// the B text chars under the band held in registers (k is a template
-// parameter, k <= 7), the deletion chain run left to right in registers.
-// The window is unpacked straight from the packed text as the band slides,
-// one nibble per row, so no [R, wlen] window matrix is materialised.  The
-// XLA version's Kogge-Stone prefix form of the chain (which capped it at
-// B <= 16) is not needed.  Cells are saturated at INF after each row, which
-// keeps every sum far below 2^31 and leaves every value < INF exact.
+// Design: one thread per (candidate, start), the 2k+1 starts of a candidate
+// on adjacent threads (their window loads coalesce), k a template parameter
+// (k <= 7), the a/b band rows and the B text chars under the band in
+// registers, the deletion chain run left to right in registers.  Each thread
+// first decides which loop it runs:
+//   - fast: its window text[p, p + m + k) lies inside [0, n) and holds no
+//     rank-0 nibble (nearly every candidate of a real reference).  Every
+//     substitution costs (w != q) and every deletion 1, so the steady rows
+//     carry no sentinel tests and no saturation, only the recurrence; the
+//     first 8 rows, which hold every cell with j <= 1, are peeled and fully
+//     unrolled, so the steady rows carry no j tests either.  The text comes
+//     as one 32-bit word of 8 nibbles per 8 rows (a funnel shift aligns it),
+//     the query as 4 chars per 32-bit load; 32-bit indices throughout.  The
+//     result is saturated once, at the end: min(., INF) commutes with min
+//     and with adding a non-negative constant, so it equals the per-row
+//     saturated value, and no sum exceeds 2^21 + 2m.
+//   - general: any other window runs a loop with per-position bounds and
+//     sentinel tests, cells saturated at INF after each row.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -35,20 +47,11 @@ __device__ __forceinline__ int text_at(const int32_t* __restrict__ text4, int64_
     return static_cast<int>((word >> (4 * (pos & 7))) & 0xFu);
 }
 
+// Any window, with per-position bounds and sentinel tests.
 template <int K>
-__global__ void edit_kernel(const int32_t* __restrict__ text4, int64_t n, const uint8_t* __restrict__ queries,
-                            int m, const int32_t* __restrict__ q_of, const int32_t* __restrict__ base,
-                            int64_t n_cands, int32_t* __restrict__ dist) {
+__device__ int edit_general(const int32_t* __restrict__ text4, int64_t n, const uint8_t* __restrict__ q, int m,
+                            int64_t p) {
     constexpr int B = 2 * K + 1;
-    constexpr int S = 2 * K + 1;
-    const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (t >= n_cands * S) return;
-    const int64_t r = t / S;
-    const int d = static_cast<int>(t % S);
-    const uint8_t* q = queries + static_cast<int64_t>(q_of[r]) * m;
-    // char of band cell c at row i is text[p + j - 1] with j = i - K + c
-    const int64_t p = static_cast<int64_t>(base[r]) + d;
-
     int a[B], b[B], w[B];
 #pragma unroll
     for (int c = 0; c < B; ++c) {
@@ -91,7 +94,182 @@ __global__ void edit_kernel(const int32_t* __restrict__ text4, int64_t n, const 
     int best = b[0];
 #pragma unroll
     for (int c = 1; c < B; ++c) best = min(best, b[c]);
-    dist[t] = best;
+    return best;
+}
+
+// True when text[p, p + len) lies inside [0, n) and holds no rank-0 nibble.
+__device__ __forceinline__ bool clean_window(const int32_t* __restrict__ text4, int n, int p, int len) {
+    if (p < 0 || static_cast<int64_t>(p) + len > n) return false;
+    const int last = p + len - 1;
+    uint32_t zero = 0;
+    for (int wi = p >> 3; wi <= (last >> 3); ++wi) {
+        uint32_t x = static_cast<uint32_t>(__ldg(text4 + wi));
+        const int lo = (wi == (p >> 3)) ? (p & 7) : 0;
+        const int hi = (wi == (last >> 3)) ? (last & 7) : 7;
+        const uint32_t keep = (0xFFFFFFFFu << (4 * lo)) & (0xFFFFFFFFu >> (28 - 4 * hi));
+        x |= ~keep & 0x11111111u;  // nibbles outside the window count as nonzero
+        zero |= (x - 0x11111111u) & ~x & 0x88888888u;  // nonzero iff some nibble is 0
+    }
+    return zero == 0;
+}
+
+// Consecutive chars of a row of uint8 queries, 8 per call, read as aligned
+// 32-bit words (each loaded once) and aligned by funnel shifts.  No word
+// past the one holding the row's last char is read.
+struct QueryStream {
+    const uint32_t* words;
+    int shift;  // 8 * (misalignment of the row start)
+    int next;   // index of the next word to load
+    int last;   // index of the word holding the row's last char
+    uint32_t carry;
+
+    __device__ __forceinline__ QueryStream(const uint8_t* q, int m) {
+        const uintptr_t a = reinterpret_cast<uintptr_t>(q);
+        const uintptr_t a0 = a & ~uintptr_t{3};
+        words = reinterpret_cast<const uint32_t*>(a0);
+        shift = 8 * static_cast<int>(a & 3);
+        last = static_cast<int>(((a + m - 1) & ~uintptr_t{3}) - a0) >> 2;
+        carry = __ldg(words);
+        next = 1;
+    }
+
+    // chars 8g .. 8g + 7 of the row (g counts calls): bytes of lo, then hi
+    __device__ __forceinline__ void take8(uint32_t& lo, uint32_t& hi) {
+        const uint32_t w1 = __ldg(words + min(next, last));
+        const uint32_t w2 = __ldg(words + min(next + 1, last));
+        lo = __funnelshift_r(carry, w1, shift);
+        hi = __funnelshift_r(w1, w2, shift);
+        carry = w2;
+        next += 2;
+    }
+};
+
+__device__ __forceinline__ int byte_of(uint32_t x, int b) {
+    return static_cast<int>(__byte_perm(x, 0u, 0x4440u | static_cast<unsigned>(b)));
+}
+
+// One row of the fast loop: shift the entering text char `tc` into the band
+// and advance a and b by query char `qc`.  EDGE rows (the peeled first 8,
+// i a compile-time constant once unrolled) apply the boundary cases of
+// j = i - K + c <= 1; steady rows have none.  No saturation: see the top.
+template <int K, bool EDGE>
+__device__ __forceinline__ void fast_row(int (&a)[2 * K + 1], int (&b)[2 * K + 1], int (&w)[2 * K + 1], int tc,
+                                         int qc, int i) {
+    constexpr int B = 2 * K + 1;
+#pragma unroll
+    for (int c = 0; c < B - 1; ++c) w[c] = w[c + 1];
+    w[B - 1] = tc;
+    int an[B], bn[B];
+#pragma unroll
+    for (int c = 0; c < B; ++c) {
+        const int t = a[c] + (w[c] != qc);
+        if (EDGE) {
+            const int j = i - K + c;
+            int cand = min(t, (c + 1 < B ? a[c + 1] : kInf) + 1);
+            if (c > 0) cand = min(cand, an[c - 1] + (j == 1 ? kInf : 1));
+            if (j == 0) cand = i;
+            if (j < 0) cand = kInf;
+            an[c] = cand;
+            bn[c] = (j <= 0) ? kInf : min(t, (c + 1 < B ? b[c + 1] : kInf) + 1);
+        } else {
+            // min(diagonal + sub, up + 1, left + 1)
+            if (c == 0 && B > 1) {
+                an[c] = min(t, a[c + 1] + 1);
+            } else if (c + 1 < B) {
+                an[c] = min(t, min(a[c + 1], an[c - 1]) + 1);
+            } else if (c > 0) {
+                an[c] = min(t, an[c - 1] + 1);
+            } else {
+                an[c] = t;
+            }
+            bn[c] = (c + 1 < B) ? min(t, b[c + 1] + 1) : t;
+        }
+    }
+#pragma unroll
+    for (int c = 0; c < B; ++c) {
+        a[c] = an[c];
+        b[c] = bn[c];
+    }
+}
+
+// The fast loop for a clean window (clean_window(text4, n, p, m + K)).
+template <int K>
+__device__ int edit_fast(const int32_t* __restrict__ text4, int n, const uint8_t* __restrict__ q, int m, int p) {
+    constexpr int B = 2 * K + 1;
+    const int last_word = (n - 1) >> 3;
+    int a[B], b[B], w[B];
+#pragma unroll
+    for (int c = 0; c < B; ++c) {
+        a[c] = (c == K) ? 0 : kInf;
+        b[c] = kInf;
+        w[c] = 0;  // cells with j <= 0 never read their char
+    }
+    // text[p + s] for s < K: the chars under cells j = 1 .. K of row 1
+    // (before its shift); row i then brings in text[p + K + i - 1]
+    const uint32_t head = __funnelshift_r(static_cast<uint32_t>(__ldg(text4 + (p >> 3))),
+                                          static_cast<uint32_t>(__ldg(text4 + min((p >> 3) + 1, last_word))),
+                                          4 * (p & 7));
+#pragma unroll
+    for (int s = 0; s < K; ++s) w[K + 1 + s] = static_cast<int>((head >> (4 * s)) & 0xFu);
+    const int e0 = p + K;
+    int tw = e0 >> 3;
+    const int tshift = 4 * (e0 & 7);
+    uint32_t tlo = static_cast<uint32_t>(__ldg(text4 + tw));
+    QueryStream qs(q, m);
+
+    // rows 8g + 1 .. 8g + 8 bring in the 8 chars from text[e0 + 8g] and read
+    // query chars 8g .. 8g + 7
+    uint32_t tx, qlo, qhi;
+    auto take8 = [&]() {
+        const uint32_t thi = static_cast<uint32_t>(__ldg(text4 + min(++tw, last_word)));
+        tx = __funnelshift_r(tlo, thi, tshift);
+        tlo = thi;
+        qs.take8(qlo, qhi);
+    };
+
+    take8();
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+        if (r + 1 > m) break;
+        fast_row<K, true>(a, b, w, static_cast<int>((tx >> (4 * r)) & 0xFu), byte_of(r < 4 ? qlo : qhi, r & 3),
+                          r + 1);
+    }
+    int i0 = 8;  // rows done
+    for (; i0 + 8 <= m; i0 += 8) {
+        take8();
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+            fast_row<K, false>(a, b, w, static_cast<int>((tx >> (4 * r)) & 0xFu), byte_of(r < 4 ? qlo : qhi, r & 3),
+                               0);
+        }
+    }
+    if (i0 < m) {
+        take8();
+#pragma unroll
+        for (int r = 0; r < 7; ++r) {
+            if (i0 + r + 1 > m) break;
+            fast_row<K, false>(a, b, w, static_cast<int>((tx >> (4 * r)) & 0xFu), byte_of(r < 4 ? qlo : qhi, r & 3),
+                               0);
+        }
+    }
+    int best = b[0];
+#pragma unroll
+    for (int c = 1; c < B; ++c) best = min(best, b[c]);
+    return min(best, kInf);
+}
+
+template <int K>
+__global__ void edit_kernel(const int32_t* __restrict__ text4, int n, const uint8_t* __restrict__ queries, int m,
+                            const int32_t* __restrict__ q_of, const int32_t* __restrict__ base, int threads,
+                            int32_t* __restrict__ dist) {
+    constexpr int S = 2 * K + 1;
+    const int t = blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= threads) return;
+    const int r = t / S;
+    const int p = base[r] + (t - r * S);
+    const uint8_t* q = queries + static_cast<int64_t>(q_of[r]) * m;
+    const bool fast = m > 0 && clean_window(text4, n, p, m + K);
+    dist[t] = fast ? edit_fast<K>(text4, n, q, m, p) : edit_general<K>(text4, n, q, m, p);
 }
 
 __global__ void hamming_kernel(const int32_t* __restrict__ text4, int64_t n, const uint8_t* __restrict__ queries,
@@ -112,13 +290,10 @@ __global__ void hamming_kernel(const int32_t* __restrict__ text4, int64_t n, con
 }
 
 template <int K>
-void launch_edit(const int32_t* text4, int64_t n, const uint8_t* q, int m, const int32_t* q_of,
-                 const int32_t* base, int64_t n_cands, int32_t* dist, cudaStream_t stream) {
-    constexpr int kThreads = 128;
-    const int64_t threads = n_cands * (2 * K + 1);
-    const int64_t blocks = (threads + kThreads - 1) / kThreads;
-    edit_kernel<K><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(text4, n, q, m, q_of, base,
-                                                                          n_cands, dist);
+void launch_edit(const int32_t* text4, int n, const uint8_t* q, int m, const int32_t* q_of, const int32_t* base,
+                 int threads, int32_t* dist, cudaStream_t stream) {
+    const int block = sahara::balanced_block(threads);
+    edit_kernel<K><<<(threads + block - 1) / block, block, 0, stream>>>(text4, n, q, m, q_of, base, threads, dist);
 }
 
 }  // namespace
@@ -140,15 +315,21 @@ extern "C" int sahara_verify(const void* text4, int64_t n, const void* queries, 
         hamming_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(tx, n, q, m, qo, ba, n_cands, out);
         return static_cast<int>(cudaGetLastError());
     }
+    // the edit kernel indexes in 32 bits
+    if (n >= (int64_t{1} << 31) || n_cands * (2 * k + 1) >= (int64_t{1} << 31)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int nn = static_cast<int>(n);
+    const int threads = static_cast<int>(n_cands * (2 * k + 1));
     switch (k) {
-        case 0: launch_edit<0>(tx, n, q, m, qo, ba, n_cands, out, s); break;
-        case 1: launch_edit<1>(tx, n, q, m, qo, ba, n_cands, out, s); break;
-        case 2: launch_edit<2>(tx, n, q, m, qo, ba, n_cands, out, s); break;
-        case 3: launch_edit<3>(tx, n, q, m, qo, ba, n_cands, out, s); break;
-        case 4: launch_edit<4>(tx, n, q, m, qo, ba, n_cands, out, s); break;
-        case 5: launch_edit<5>(tx, n, q, m, qo, ba, n_cands, out, s); break;
-        case 6: launch_edit<6>(tx, n, q, m, qo, ba, n_cands, out, s); break;
-        case 7: launch_edit<7>(tx, n, q, m, qo, ba, n_cands, out, s); break;
+        case 0: launch_edit<0>(tx, nn, q, m, qo, ba, threads, out, s); break;
+        case 1: launch_edit<1>(tx, nn, q, m, qo, ba, threads, out, s); break;
+        case 2: launch_edit<2>(tx, nn, q, m, qo, ba, threads, out, s); break;
+        case 3: launch_edit<3>(tx, nn, q, m, qo, ba, threads, out, s); break;
+        case 4: launch_edit<4>(tx, nn, q, m, qo, ba, threads, out, s); break;
+        case 5: launch_edit<5>(tx, nn, q, m, qo, ba, threads, out, s); break;
+        case 6: launch_edit<6>(tx, nn, q, m, qo, ba, threads, out, s); break;
+        case 7: launch_edit<7>(tx, nn, q, m, qo, ba, threads, out, s); break;
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
     return static_cast<int>(cudaGetLastError());

@@ -16,6 +16,7 @@ from sahara_tpu_torch.engine.driver import load_scheme, search_queries
 from sahara_tpu_torch.engine.seedverify import plan_parts
 from sahara_tpu_torch.engine.tape import compile_tape
 from sahara_tpu_torch.index.build import build_bifmindex, build_fmindex
+from sahara_tpu_torch.index.textstore import unpack_text4
 from sahara_tpu_torch.kernels import LAUNCHES
 from sahara_tpu_torch.kernels.rank import rank_all, rank_all_plain
 from sahara_tpu_torch.kernels.rank_smem import rank_all_smem, rank_all_smem_plain
@@ -83,22 +84,88 @@ def test_seed_scan_kernel_matches_plain(host, use_lut):
     assert (sz > 0).any()
 
 
-@pytest.mark.parametrize("edit,k", [(True, 0), (True, 1), (True, 3), (True, 7), (False, 2)])
-def test_verify_kernel_matches_plain(host, edit, k):
+def _windows(text, rng, case, m, k):
+    """Candidate starts whose windows text[p, p + m + k) (p = base + d) split
+    K3's two loops: ``mixed`` all over the text and beyond its ends,
+    ``sentinel`` with an inter-sequence sentinel in the window's middle,
+    ``edges`` starting before 0 or ending past n, ``clean`` inside [0, n)
+    with no sentinel (the fast loop for every start)."""
+    n = len(text)
+    if case == "mixed":
+        return np.r_[-m - 5, -3, n - 10, n + 3, rng.integers(-20, n, 3000)]
+    if case == "sentinel":
+        zeros = np.flatnonzero(text == 0)
+        return rng.choice(zeros, 2000) - m // 2 + rng.integers(-m // 3, m // 3 + 1, 2000)
+    if case == "edges":
+        return np.r_[rng.integers(-m - 3 * k - 5, 1, 1000), rng.integers(n - m - 3 * k - 5, n + 5, 1000)]
+    zero_before = np.r_[0, np.cumsum(text == 0)]
+    span = m + 3 * k  # every start p = base + d, d <= 2k, reads text[p, p + m + k)
+    ok = np.flatnonzero(zero_before[span:] == zero_before[:-span])
+    return rng.choice(ok, 2000)
+
+
+@pytest.mark.parametrize("case", ["mixed", "sentinel", "edges", "clean"])
+@pytest.mark.parametrize("edit,k", [(True, 0), (True, 1), (True, 2), (True, 3), (True, 4), (True, 5), (True, 6),
+                                    (True, 7), (False, 2)])
+def test_verify_kernel_matches_plain(host, edit, k, case):
     dev = _card()
     idx_host, seqs = host
     index = DeviceIndex.from_host(idx_host, device=dev)
     rng = np.random.default_rng(4 + k)
-    m = 40
-    q = torch.from_numpy(_reads(seqs, rng, 300, m, k)).to(dev)
-    # starts all over the text, its edges and beyond them
-    base = np.r_[-m - 5, -3, idx_host.n - 10, idx_host.n + 3, rng.integers(-20, idx_host.n, 3000)]
-    q_of = rng.integers(0, 300, len(base))
-    args = (index.text4, index.n, q, torch.from_numpy(q_of.astype(np.int32)).to(dev),
-            torch.from_numpy(base.astype(np.int32)).to(dev), k, edit)
-    got = verify(*args)
-    torch.cuda.synchronize()
-    assert torch.equal(got, verify_plain(*args))
+    text = unpack_text4(idx_host.text4, idx_host.n)
+    for m in (40, 37):  # 37: rows and query chars not a multiple of 4 or 8
+        base = _windows(text, rng, case, m, k)
+        # half the queries cut from the text at their candidate, with edits
+        q = _reads(seqs, rng, len(base), m, k)
+        shift = k if edit else 0  # the start d = k is the candidate's own
+        own = np.flatnonzero((base >= 0) & (base + shift + m <= idx_host.n))[::2]
+        q[own] = text[base[own, None] + shift + np.arange(m)]
+        q[own, rng.integers(0, m, len(own))] = rng.integers(1, 5, len(own))
+        q = q.clip(1, 5)
+        # an odd offset: query rows start off 4-byte alignment
+        flat = torch.zeros(q.size + 3, dtype=torch.uint8, device=dev)
+        qd = flat[3:].view(q.shape)
+        qd.copy_(torch.from_numpy(q))
+        args = (index.text4, index.n, qd, torch.arange(len(base), dtype=torch.int32, device=dev),
+                torch.from_numpy(base.astype(np.int32)).to(dev), k, edit)
+        got = verify(*args)
+        torch.cuda.synchronize()
+        want = verify_plain(*args)
+        assert torch.equal(got, want)
+        assert (want <= k).any() or case in ("sentinel", "edges")
+
+
+def test_seed_scan_kernel_shares_rows(host):
+    """Lanes whose interval ends share an occ row, lanes that straddle a row
+    boundary and empty lanes (lo == hi), at every step of the scan."""
+    dev = _card()
+    idx_host, seqs = host
+    index = DeviceIndex.from_host(idx_host, device=dev)
+    rng = np.random.default_rng(13)
+    m = 39  # 13-char parts: the first steps after the table keep wide intervals
+    q = _reads(seqs, rng, 3000, m, 2)
+    q[:300] = rng.integers(1, 5, (300, m))  # mostly empty
+    q[300:600, : m // 2] = q[300:600, m // 2 : 2 * (m // 2)]  # repeated halves
+    q[600:650, 5] = 5  # N: a clamped table code
+    q[650:660, -1] = 0  # a sentinel rank
+    parts = plan_parts(m, 2)
+    qd = torch.from_numpy(q).to(dev)
+    for lut, lut_j in ((index.lut, index.lut_j), (None, 0)):
+        args = (index.occ16, index.c_arr, lut, lut_j, qd, parts, index.sigma, index.n)
+        lo, sz = seed_scan(*args)
+        torch.cuda.synchronize()
+        lo_p, sz_p = seed_scan_plain(*args)
+        assert torch.equal(lo, lo_p) and torch.equal(sz, sz_p)
+        # the interval before each step: the plain scan of the part suffixes
+        same = straddle = empty = 0
+        for t in range(lut_j, min(ln for _, ln in parts)):
+            lo_t, sz_t = seed_scan_plain(index.occ16, index.c_arr, lut, lut_j, qd,
+                                         [(off + ln - t, t) for off, ln in parts], index.sigma, index.n)
+            one_row = (lo_t >> 5) == ((lo_t + sz_t) >> 5)
+            same += int((one_row & (sz_t > 0)).sum())
+            straddle += int((~one_row).sum())
+            empty += int((sz_t == 0).sum())
+        assert same > 0 and straddle > 0 and empty > 0
 
 
 @pytest.mark.parametrize("full_sa", [True, False])

@@ -138,8 +138,20 @@ def _candidates(host, rng, n_cands, m, k, offsets, edit=True):
 @pytest.mark.parametrize("edit", [True, False])
 @pytest.mark.parametrize("k", [0, 1, 2, 3])
 def test_verify_matches_jax(short_index, edit, k):
-    host, jdev, pdev = short_index
-    m, cap = 24, 512
+    _verify_vs_jax(short_index, edit, k, 24, at_text_start=True)
+
+
+@pytest.mark.parametrize("edit", [True, False])
+@pytest.mark.parametrize("k", [0, 1, 3])
+def test_verify_matches_jax_odd_m(long_index, edit, k):
+    """m = 37, not a multiple of 4 or 8: the kernel reads the query 4 chars
+    and the text 8 chars at a time and ends on a partial group."""
+    _verify_vs_jax(long_index, edit, k, 37, at_text_start=False)
+
+
+def _verify_vs_jax(index, edit, k, m, at_text_start):
+    host, jdev, pdev = index
+    cap = 512
     queries, rows, off = _candidates(host, np.random.default_rng(10 * k + edit), 400, m, k, [0, 8, 16], edit)
     r_cnt = len(rows)
     pad = cap - r_cnt
@@ -165,5 +177,6 @@ def test_verify_matches_jax(short_index, edit, k):
     got = set(zip(cand.tolist(), (base[cand] + delta).tolist(), dist[cand, delta].tolist()))
     assert got == want
     assert len(want) >= r_cnt // 4
-    assert (base < 0).any() or k == 0  # windows reach before the text start
+    if at_text_start:
+        assert (base < 0).any() or k == 0  # windows reach before the text start
 
