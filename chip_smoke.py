@@ -5,18 +5,22 @@
 Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
 
 1. prints the card's name and power limit, builds the five CUDA kernels
-   from ``sahara_tpu_torch/kernels/csrc`` and the first versions of the K2
-   and K3 kernels (``LEGACY_SOURCES``; all nvcc runs at once) and prints
-   each kernel's registers;
+   from ``sahara_tpu_torch/kernels/csrc``, the first versions of the K1
+   and K4 kernels (``LEGACY_SOURCES``) and their design variants
+   (``DESIGN_VARIANTS``), all nvcc runs at once, and prints each kernel's
+   registers;
 2. regenerates the ``bench.py`` workload from its seeds (40 MB reference,
    65,536 reads of 100 bp with 2 planted errors, both strands) and builds
    the bidirectional index with its full-SA sidecar;
 3. holds K1-K3 against their plain PyTorch versions on the card at the
    seed-and-verify path's shapes (exact equality: all integer), and times
-   both; K2 and K3 (edit) also by the profiler's device time, warm and
-   with L2 flushed before each launch (the pass meets them cold), beside
-   their first versions on the same inputs; counts K3's SASS instructions
-   per row of its steady loop by pipe (cuobjdump);
+   both: each kernel by the profiler's device time, warm and with L2
+   flushed before each launch (the pass meets them cold), beside the
+   wrapper's call time; K1 also beside its first version and its design
+   variants (positions per thread) on the same inputs, and by its device
+   time in one index upload (the j-mer table's ten levels, its path);
+   counts K3's SASS instructions per row of its steady loop by pipe
+   (cuobjdump);
 4. runs the seed-and-verify path — upload without the reversed table (the
    j-mer table build runs K1) and ``search_queries`` at e=2 edit distance —
    with the launch counts reset just before, checks every kernel was
@@ -29,11 +33,17 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
    reads, and runs Hamming seed-and-verify (K3's Hamming entry) on the
    first 8,192 reads, checking each hit's mismatches on the host;
 6. holds K4 (table in shared memory) and K1 against the plain rank on the
-   largest table K4 takes (a random text of 100,000 characters) at 262,144
-   positions, and K5 (the one-launch work-queue step) against the plain
-   step on three queues of the workload's first chunk: the queue after
-   phase 0, the largest queue, and a drain step of a search with the
-   in-search cap; records the chunk's queue size per step;
+   largest table K4 takes near 100,000 characters (a random text of that
+   length: 3,126 occ rows, 200,064 B) at 262,144 positions, times both by
+   device time, warm and cold, K4 also beside its first version and its
+   design variants (CTAs a cluster), and reports the bytes K4 stages from
+   L2 a launch (the table once per cluster of 2 CTAs: 13,204,224 B on 132
+   CTAs, against 26,408,448 B for the first version, once per SM) and
+   K4's device time with one warp of positions a CTA (its staging); holds
+   K5 (the one-launch work-queue step) against the plain step on three
+   queues of the workload's first chunk: the queue after phase 0, the
+   largest queue, and a drain step of a search with the in-search cap;
+   records the chunk's queue size per step;
 7. runs the work-queue path on the same workload with both occ tables on
    the card (``engine="workq"``, ``generator_name="optimum"``, as
    ``bench.py`` does): its hit set must equal the seed-and-verify path's
@@ -43,7 +53,7 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
    of every 8th read, ``auto`` against ``workq`` on all of them and against
    the seed-and-verify rows on the reads without N;
 9. runs the rank bench (``sahara_tpu_torch/bench_rank.py``: K1 and K4 at
-   100,000 characters, K1 alone at 4.6 million);
+   100,000 characters, K1 alone at 4.6 million; device time and call time);
 10. prints the kernels' JSON line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.  The full report goes to
    ``chiprun_out/chip_smoke.json``.
@@ -66,6 +76,8 @@ import warnings
 
 import numpy as np
 import torch
+
+from sahara_tpu_torch.timing import dev_ms, kernel_device_ms, kernel_device_total, time_ms
 
 # The JAX package's hit set for this workload, recorded on the CPU with
 # sahara_tpu: bench.load_workload() at its defaults (40 MB, 65,536 reads,
@@ -105,154 +117,133 @@ DP_ALU_OPS_PER_CELL = 4
 DP_ADD_OPS_PER_CELL = 1
 FLUSH_BYTES = 128 << 20  # written between launches to evict the 50 MB L2
 
-# The first versions of the K3 (edit entry, k = 2) and K2 kernels, kept here
-# only to be timed beside their redesigns on the same inputs; nothing on a
-# path loads them.  Their C entries have the current ones' signatures, so
-# the current wrappers launch them (``first_version``).
+# The first versions of the K1 and K4 kernels (``rank.cu`` and
+# ``rank_smem.cu`` before their redesign, ``occ.cuh``'s ``load_row``
+# inlined), kept here only to be timed beside their redesigns on the same
+# inputs; nothing on a path loads them.  Their C entries have the current
+# ones' signatures, so the current wrappers launch them (``first_version``).
 LEGACY_SOURCES = {
-    "verify_v1": r"""
+    "rank_v1": r"""
 #include <cstdint>
 #include <cuda_runtime.h>
 namespace {
-constexpr int kInf = 1 << 20;
-__device__ __forceinline__ int text_at(const int32_t* __restrict__ text4, int64_t n, int64_t pos) {
-    if (pos < 0 || pos >= n) return 0;
-    const uint32_t word = static_cast<uint32_t>(__ldg(text4 + (pos >> 3)));
-    return static_cast<int>((word >> (4 * (pos & 7))) & 0xFu);
-}
-template <int K>
-__global__ void edit_kernel(const int32_t* __restrict__ text4, int64_t n, const uint8_t* __restrict__ queries,
-                            int m, const int32_t* __restrict__ q_of, const int32_t* __restrict__ base,
-                            int64_t n_cands, int32_t* __restrict__ dist) {
-    constexpr int B = 2 * K + 1;
-    constexpr int S = 2 * K + 1;
+template <int SIGMA>
+__global__ void rank_all_kernel(const int32_t* __restrict__ occ16, const int32_t* __restrict__ idx,
+                                int64_t n, int32_t* __restrict__ out) {
     const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (t >= n_cands * S) return;
-    const int64_t r = t / S;
-    const int d = static_cast<int>(t % S);
-    const uint8_t* q = queries + static_cast<int64_t>(q_of[r]) * m;
-    const int64_t p = static_cast<int64_t>(base[r]) + d;
-    int a[B], b[B], w[B];
+    if (t >= n) return;
+    const int32_t i = idx[t];
+    int32_t row[16];
+    const int4* r4 = reinterpret_cast<const int4*>(occ16 + static_cast<int64_t>(i >> 5) * 16);
 #pragma unroll
-    for (int c = 0; c < B; ++c) {
-        a[c] = (c == K) ? 0 : kInf;
-        b[c] = kInf;
-        w[c] = text_at(text4, n, p - K + c);
+    for (int v = 0; v < 4; ++v) {
+        const int4 x = __ldg(r4 + v);
+        row[4 * v + 0] = x.x;
+        row[4 * v + 1] = x.y;
+        row[4 * v + 2] = x.z;
+        row[4 * v + 3] = x.w;
     }
-    for (int i = 1; i <= m; ++i) {
-        if (i > 1) {
+    const uint32_t mask = (1u << (i & 31)) - 1u;
 #pragma unroll
-            for (int c = 0; c < B - 1; ++c) w[c] = w[c + 1];
-            w[B - 1] = text_at(text4, n, p + i + K - 1);
-        }
-        const int qc = q[i - 1];
-        int an[B], bn[B];
-#pragma unroll
-        for (int c = 0; c < B; ++c) {
-            const int j = i - K + c;
-            const int sub = (w[c] == 0) ? kInf : (w[c] != qc);
-            const int up_a = (c + 1 < B) ? a[c + 1] : kInf;
-            const int up_b = (c + 1 < B) ? b[c + 1] : kInf;
-            int cand = min(a[c] + sub, up_a + 1);
-            if (j == 0) cand = i;
-            if (j < 0) cand = kInf;
-            an[c] = cand;
-            bn[c] = (j <= 0) ? kInf : min(a[c] + sub, up_b + 1);
-        }
-#pragma unroll
-        for (int c = 1; c < B; ++c) {
-            const int j = i - K + c;
-            const int del = (j == 1 || w[c] == 0) ? kInf : 1;
-            an[c] = min(an[c], an[c - 1] + del);
-        }
-#pragma unroll
-        for (int c = 0; c < B; ++c) {
-            a[c] = min(an[c], kInf);
-            b[c] = min(bn[c], kInf);
-        }
+    for (int s = 0; s < SIGMA; ++s) {
+        out[t * SIGMA + s] = row[s] + __popc(static_cast<uint32_t>(row[SIGMA + s]) & mask);
     }
-    int best = b[0];
-#pragma unroll
-    for (int c = 1; c < B; ++c) best = min(best, b[c]);
-    dist[t] = best;
+}
+template <int SIGMA>
+void launch(const int32_t* occ16, const int32_t* idx, int64_t n, int32_t* out, cudaStream_t stream) {
+    constexpr int kThreads = 256;
+    const int64_t blocks = (n + kThreads - 1) / kThreads;
+    rank_all_kernel<SIGMA><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(occ16, idx, n, out);
 }
 }  // namespace
-extern "C" int sahara_verify(const void* text4, int64_t n, const void* queries, int m, const void* q_of,
-                             const void* base, int64_t n_cands, int k, int edit, void* dist, void* stream) {
-    if (k != 2 || !edit) return static_cast<int>(cudaErrorInvalidValue);
-    const int64_t blocks = (n_cands * 5 + 127) / 128;
-    edit_kernel<2><<<static_cast<unsigned>(blocks), 128, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(text4), n, static_cast<const uint8_t*>(queries), m,
-        static_cast<const int32_t*>(q_of), static_cast<const int32_t*>(base), n_cands, static_cast<int32_t*>(dist));
+extern "C" int sahara_rank_all(const void* occ16, const void* idx, int64_t n, int sigma, void* out,
+                               void* stream) {
+    if (n <= 0) return 0;
+    const auto* o = static_cast<const int32_t*>(occ16);
+    const auto* x = static_cast<const int32_t*>(idx);
+    auto* y = static_cast<int32_t*>(out);
+    auto s = static_cast<cudaStream_t>(stream);
+    switch (sigma) {
+        case 2: launch<2>(o, x, n, y, s); break;
+        case 3: launch<3>(o, x, n, y, s); break;
+        case 4: launch<4>(o, x, n, y, s); break;
+        case 5: launch<5>(o, x, n, y, s); break;
+        case 6: launch<6>(o, x, n, y, s); break;
+        case 7: launch<7>(o, x, n, y, s); break;
+        case 8: launch<8>(o, x, n, y, s); break;
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
     return static_cast<int>(cudaGetLastError());
 }
 """,
-    "seed_v1": r"""
+    "rank_smem_v1": r"""
 #include <cstdint>
 #include <cuda_runtime.h>
 namespace {
-constexpr int kMaxParts = 16;
-struct Parts {
-    int32_t off[kMaxParts];
-    int32_t len[kMaxParts];
-};
-__device__ __forceinline__ int32_t rank_sym(const int32_t* __restrict__ occ16, int32_t pos, int sym, int sigma) {
-    const int32_t* row = occ16 + static_cast<int64_t>(pos >> 5) * 16;
-    const int32_t ckpt = __ldg(row + sym);
-    const uint32_t bits = static_cast<uint32_t>(__ldg(row + sigma + sym));
-    const uint32_t mask = (1u << (pos & 31)) - 1u;
-    return ckpt + __popc(bits & mask);
-}
-__global__ void seed_scan_kernel(const int32_t* __restrict__ occ16, const int32_t* __restrict__ c_arr,
-                                 const int32_t* __restrict__ lut, int lut_j,
-                                 const uint8_t* __restrict__ queries, int64_t nq, int m, Parts parts,
-                                 int n_parts, int sigma, int32_t n, int32_t* __restrict__ lo_out,
-                                 int32_t* __restrict__ sz_out) {
-    const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (t >= nq * n_parts) return;
-    const uint8_t* q = queries + (t / n_parts) * m;
-    const int p = static_cast<int>(t % n_parts);
-    const int off = parts.off[p];
-    const int len = parts.len[p];
-    int32_t lo = 0;
-    int32_t hi = n;
-    int start = 0;
-    if (lut != nullptr) {
-        int32_t code = 0;
-        for (int i = 0; i < lut_j; ++i) {
-            code += (static_cast<int32_t>(q[off + len - 1 - i]) - 1) * (1 << (2 * i));
+constexpr int kThreads = 1024;
+template <int SIGMA>
+__global__ void __launch_bounds__(kThreads) rank_smem_kernel(const int4* __restrict__ occ16, int32_t w_rows,
+                                                             const int32_t* __restrict__ idx, int64_t n,
+                                                             int32_t* __restrict__ out) {
+    extern __shared__ int4 table[];
+    const int32_t n_vec = w_rows * (16 / 4);
+    for (int32_t v = threadIdx.x; v < n_vec; v += blockDim.x) table[v] = __ldg(occ16 + v);
+    __syncthreads();
+    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+    for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; t < n; t += stride) {
+        const int32_t i = __ldg(idx + t);
+        const int4* row = table + static_cast<int64_t>(i >> 5) * (16 / 4);
+        int32_t r[16];
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+            const int4 x = row[v];
+            r[4 * v + 0] = x.x;
+            r[4 * v + 1] = x.y;
+            r[4 * v + 2] = x.z;
+            r[4 * v + 3] = x.w;
         }
-        const int32_t n_codes = 1 << (2 * lut_j);
-        code = min(max(code, 0), n_codes - 1);
-        lo = __ldg(lut + code);
-        hi = __ldg(lut + code + n_codes);
-        start = lut_j;
+        const uint32_t mask = (1u << (i & 31)) - 1u;
+#pragma unroll
+        for (int s = 0; s < SIGMA; ++s) {
+            out[t * SIGMA + s] = r[s] + __popc(static_cast<uint32_t>(r[SIGMA + s]) & mask);
+        }
     }
-    for (int s = start; s < len; ++s) {
-        const int c = min(static_cast<int>(q[off + len - 1 - s]), sigma - 1);
-        const int32_t base = __ldg(c_arr + c);
-        lo = base + rank_sym(occ16, lo, c, sigma);
-        hi = base + rank_sym(occ16, hi, c, sigma);
-    }
-    lo_out[t] = lo;
-    sz_out[t] = max(hi - lo, 0);
+}
+template <int SIGMA>
+int launch(const int4* occ16, int32_t w_rows, const int32_t* idx, int64_t n, int32_t* out, cudaStream_t stream) {
+    int dev = 0, sms = 0, smem_max = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int64_t smem = static_cast<int64_t>(w_rows) * 16 * 4;
+    if (smem > smem_max) return static_cast<int>(cudaErrorInvalidValue);
+    err = cudaFuncSetAttribute(rank_smem_kernel<SIGMA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int64_t needed = (n + kThreads - 1) / kThreads;
+    const int blocks = static_cast<int>(needed < sms ? needed : sms);
+    rank_smem_kernel<SIGMA><<<blocks, kThreads, static_cast<size_t>(smem), stream>>>(occ16, w_rows, idx, n, out);
+    return static_cast<int>(cudaGetLastError());
 }
 }  // namespace
-extern "C" int sahara_seed_scan(const void* occ16, const void* c_arr, const void* lut, int lut_j,
-                                 const void* queries, int64_t nq, int m, const int32_t* parts_host,
-                                 int n_parts, int sigma, int32_t n, void* lo, void* sz, void* stream) {
-    if (n_parts < 1 || n_parts > kMaxParts) return static_cast<int>(cudaErrorInvalidValue);
-    Parts parts{};
-    for (int p = 0; p < n_parts; ++p) {
-        parts.off[p] = parts_host[p];
-        parts.len[p] = parts_host[n_parts + p];
+extern "C" int sahara_rank_all_smem(const void* occ16, int32_t w_rows, const void* idx, int64_t n, int sigma,
+                                    void* out, void* stream) {
+    if (n <= 0) return 0;
+    const auto* o = static_cast<const int4*>(occ16);
+    const auto* x = static_cast<const int32_t*>(idx);
+    auto* y = static_cast<int32_t*>(out);
+    auto s = static_cast<cudaStream_t>(stream);
+    switch (sigma) {
+        case 2: return launch<2>(o, w_rows, x, n, y, s);
+        case 3: return launch<3>(o, w_rows, x, n, y, s);
+        case 4: return launch<4>(o, w_rows, x, n, y, s);
+        case 5: return launch<5>(o, w_rows, x, n, y, s);
+        case 6: return launch<6>(o, w_rows, x, n, y, s);
+        case 7: return launch<7>(o, w_rows, x, n, y, s);
+        case 8: return launch<8>(o, w_rows, x, n, y, s);
+        default: return static_cast<int>(cudaErrorInvalidValue);
     }
-    const int64_t blocks = (nq * n_parts + 255) / 256;
-    seed_scan_kernel<<<static_cast<unsigned>(blocks), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(occ16), static_cast<const int32_t*>(c_arr),
-        static_cast<const int32_t*>(lut), lut_j, static_cast<const uint8_t*>(queries), nq, m, parts,
-        n_parts, sigma, n, static_cast<int32_t*>(lo), static_cast<int32_t*>(sz));
-    return static_cast<int>(cudaGetLastError());
 }
 """,
 }
@@ -277,25 +268,71 @@ def sm_clocks_s() -> float:
     return torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
 
 
-def write_first_versions() -> dict[str, str]:
-    """Write ``LEGACY_SOURCES`` into the git-ignored build directory; the
-    path of each, for ``build_all``."""
-    from sahara_tpu_torch.kernels._build import BUILD_DIR
+# The design constants of the K1 and K4 redesigns, each measured on the card
+# beside the value kept: source -> (the constant's line, the value kept, the
+# other values tried).  A variant is the current source with that one line
+# changed and its headers inlined; it is built with the rest and launched
+# through the current wrapper (``first_version``), as the first versions are.
+DESIGN_VARIANTS = {
+    "rank": ("constexpr int kPer = {};", 2, (1, 4)),
+    "rank_smem": ("constexpr int kClusterCtas = {};", 2, (1, 4)),
+}
 
+
+def inline_headers(path: str, seen: set) -> str:
+    """The text of ``path`` with each local header it includes inlined once."""
+    out = []
+    with open(path) as fh:
+        for line in fh:
+            m = re.match(r'#include "(.+)"', line)
+            if m and m.group(1) not in seen:
+                seen.add(m.group(1))
+                out.append(inline_headers(os.path.join(os.path.dirname(path), m.group(1)), seen))
+            elif not m and line.strip() != "#pragma once":
+                out.append(line)
+    return "".join(out)
+
+
+def write_extra_sources() -> dict[str, str]:
+    """Write ``LEGACY_SOURCES`` and the ``DESIGN_VARIANTS`` (as
+    ``<source>_<value>``) into the git-ignored build directory; the path of
+    each, for ``build_all``."""
+    from sahara_tpu_torch.kernels._build import BUILD_DIR, source
+
+    texts = dict(LEGACY_SOURCES)
+    for name, (line, kept, tried) in DESIGN_VARIANTS.items():
+        text = inline_headers(source(name), set())
+        if text.count(line.format(kept)) != 1:
+            raise AssertionError(f"{name}.cu does not hold '{line.format(kept)}' once")
+        texts.update({f"{name}_{v}": text.replace(line.format(kept), line.format(v)) for v in tried})
     out_dir = os.path.join(BUILD_DIR, "legacy")
     os.makedirs(out_dir, exist_ok=True)
     paths = {}
-    for name, src in LEGACY_SOURCES.items():
+    for name, text in texts.items():
         paths[name] = os.path.join(out_dir, f"{name}.cu")
         with open(paths[name], "w") as fh:
-            fh.write(src)
+            fh.write(text)
     return paths
 
 
+def variant_times(module, extra: dict, source: str, call, name: str, flush, want) -> dict:
+    """Device ms per launch, warm and cold, of kernel ``name`` built from
+    each design variant of ``source``, each first held against ``want``."""
+    line, _, tried = DESIGN_VARIANTS[source]
+    out = {}
+    for v in tried:
+        run = functools.partial(first_version, module, extra[f"{source}_{v}"], call)
+        assert_equal(f"{name} with {line.format(v)}", run(), want)
+        out[line.format(v)] = dict(ms=kernel_device_ms(run, name, 20),
+                                   cold_ms=kernel_device_ms(run, name, 20, before=flush))
+    return out
+
+
 def first_version(module, src: str, call):
-    """``call()`` with ``module``'s wrapper (``kernels.seed`` or
-    ``kernels.verify``) launching the C entry of the library built from the
-    first version ``src`` in place of the current kernel."""
+    """``call()`` with ``module``'s wrapper (``kernels.rank`` or
+    ``kernels.rank_smem``) launching the C entry of the library built from
+    ``src`` (a first version or a design variant) in place of the current
+    kernel."""
     from sahara_tpu_torch.kernels._build import lib_path
 
     cur = module._kernel()
@@ -359,19 +396,6 @@ def registers(report: str) -> list[str]:
             rows.append(f"{entry}: {m.group(1)} registers, {spill} B spill stores")
             entry = None
     return rows
-
-
-def time_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call over ``reps`` calls, after one warm call."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def bound(n_bytes: float, alu_ops: float, add_ops: float = 0) -> tuple[float, str]:
@@ -443,11 +467,6 @@ def clean_windows(index, base: torch.Tensor, m: int) -> float:
     return float((inside & clean).float().mean())
 
 
-def dev_ms(e) -> float:
-    """Device milliseconds of one profiler event (key average)."""
-    return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
-
-
 def profile_pass(run) -> dict:
     """Device busy time and the heaviest ops of one pass (torch.profiler),
     and the heaviest host functions (cProfile, a second pass)."""
@@ -479,25 +498,37 @@ def profile_pass(run) -> dict:
     return out
 
 
-def redesign_times(new, old, name: str, flush) -> dict:
-    """Device ms per launch of kernel ``name`` through ``new`` and through
-    its first version ``old`` on the same inputs, warm (back to back) and
-    cold (L2 flushed before each launch), in the order new, old, old, new;
-    and the new wrapper's call time."""
-    out = dict(ms=kernel_device_ms(new, name, 20), old_ms=kernel_device_ms(old, name, 20))
-    out.update(old_cold_ms=kernel_device_ms(old, name, 20, before=flush),
-               cold_ms=kernel_device_ms(new, name, 20, before=flush), call_ms=time_ms(new, 20))
+def redesign_times(new, name: str, flush, old=None) -> dict:
+    """Device ms per launch of kernel ``name`` through ``new``, warm (back
+    to back) and cold (L2 flushed before each launch), and the wrapper's
+    call time; with ``old``, also through the kernel's first version on the
+    same inputs, in the order new, old, old, new."""
+    out = dict(ms=kernel_device_ms(new, name, 20))
+    if old is not None:
+        out.update(old_ms=kernel_device_ms(old, name, 20), old_cold_ms=kernel_device_ms(old, name, 20, before=flush))
+    out.update(cold_ms=kernel_device_ms(new, name, 20, before=flush), call_ms=time_ms(new, 20))
     return out
 
 
-def kernel_phases(index, queries: np.ndarray, rng: np.random.Generator, ref: np.ndarray, legacy: dict,
+def print_times(row: dict) -> None:
+    """A kernel's device times, its first version's and its variants'."""
+    print(f"{row['name']}: device warm {row['ms']:.4f} / cold {row['cold_ms']:.4f} ms, call "
+          f"{row['call_ms']:.4f} ms, {row.get('registers', '')}", flush=True)
+    if "old_ms" in row:
+        print(f"  first version: device warm {row['old_ms']:.4f} / cold {row['old_cold_ms']:.4f} ms "
+              f"{row.get('old_registers', '')}", flush=True)
+    for label, t in row.get("variants", {}).items():
+        print(f"  with {label} device warm {t['ms']:.4f} / cold {t['cold_ms']:.4f} ms", flush=True)
+
+
+def kernel_phases(index, queries: np.ndarray, rng: np.random.Generator, ref: np.ndarray, extra: dict,
                   ptxas: dict) -> list[dict]:
-    """Each kernel against its plain version at the main path's shapes; K2
-    and K3 also against their first versions (``legacy``: name -> source)."""
+    """Each kernel against its plain version at the main path's shapes; K1
+    also against its first version and its design variants (``extra``:
+    name -> source)."""
     from sahara_tpu_torch.engine.locate import expand_intervals, lf_walk
     from sahara_tpu_torch.engine.seedverify import plan_parts, seed_parts
-    from sahara_tpu_torch.kernels import seed as seed_mod
-    from sahara_tpu_torch.kernels import verify as verify_mod
+    from sahara_tpu_torch.kernels import rank as rank_mod
     from sahara_tpu_torch.kernels._build import source
     from sahara_tpu_torch.kernels.rank import rank_all, rank_all_plain
     from sahara_tpu_torch.kernels.seed import seed_scan, seed_scan_plain
@@ -510,15 +541,22 @@ def kernel_phases(index, queries: np.ndarray, rng: np.random.Generator, ref: np.
 
     # K1 at 1M random positions over the whole occ table (larger than L2)
     idx = torch.from_numpy(rng.integers(0, n + 1, K1_POSITIONS).astype(np.int32)).to(dev)
-    err = assert_equal("rank_all", rank_all(index.occ16, sigma, idx), rank_all_plain(index.occ16, sigma, idx))
+    want = rank_all_plain(index.occ16, sigma, idx)
+    err = assert_equal("rank_all", rank_all(index.occ16, sigma, idx), want)
+    call = lambda: rank_all(index.occ16, sigma, idx)  # noqa: E731
+    old = functools.partial(first_version, rank_mod, extra["rank_v1"], call)
+    assert_equal("first rank_all", old(), want)
     rows_read = torch.unique(idx >> 5).numel()
     b, by = bound(rows_read * 64 + K1_POSITIONS * (4 + 4 * sigma), K1_POSITIONS * sigma * 3)
     rows.append(dict(
         name="rank_all", route="cuda", source="sahara_tpu_torch/kernels/csrc/rank.cu",
         replaces="sahara_tpu/kernels/rank.py:218", max_abs_err=err,
-        ms=time_ms(lambda: rank_all(index.occ16, sigma, idx), 50),
+        **redesign_times(call, "rank_all_kernel", flush, old),
+        variants=variant_times(rank_mod, extra, "rank", call, "rank_all_kernel", flush, want),
         plain_ms=time_ms(lambda: rank_all_plain(index.occ16, sigma, idx), 5),
-        bound_ms=b, bound_by=by, library_ms=None, shape=f"{K1_POSITIONS} positions, sigma={sigma}",
+        bound_ms=b, bound_by=by, library_ms=None, registers=register_row(ptxas, "rank", "rank_all_kernelILi6E"),
+        old_registers=register_row(ptxas, "rank_v1", "rank_all_kernelILi6E"), occ_rows_read=rows_read,
+        shape=f"{K1_POSITIONS} positions, sigma={sigma}",
     ))
 
     # K2 on one chunk of reads cut from the reference at random, 2 random
@@ -535,19 +573,15 @@ def kernel_phases(index, queries: np.ndarray, rng: np.random.Generator, ref: np.
     lo, sz = seed_scan(*args)
     lo_p, sz_p = seed_scan_plain(*args)
     err = assert_equal("seed_scan lo", lo, lo_p) + assert_equal("seed_scan sz", sz, sz_p)
-    old = functools.partial(first_version, seed_mod, legacy["seed_v1"], lambda: seed_scan(*args))
-    lo_1, sz_1 = old()
-    assert_equal("first seed_scan lo", lo_1, lo_p) + assert_equal("first seed_scan sz", sz_1, sz_p)
     steps = sum(ln - index.lut_j for _, ln in parts)
     rows_read, codes_read = seed_reads(index, qd, parts)
     b, by = bound(rows_read * 64 + codes_read * 8 + CHUNK * (m + len(parts) * 8), CHUNK * 2 * steps * 4)
     rows.append(dict(
         name="seed_scan", route="cuda", source="sahara_tpu_torch/kernels/csrc/seed.cu",
         replaces="sahara_tpu/engine/seedverify.py:158", max_abs_err=err,
-        **redesign_times(lambda: seed_scan(*args), old, "seed_scan_kernel", flush),
+        **redesign_times(lambda: seed_scan(*args), "seed_scan_kernel", flush),
         plain_ms=time_ms(lambda: seed_scan_plain(*args), 3), bound_ms=b, bound_by=by, library_ms=None,
         registers=register_row(ptxas, "seed", "seed_scan_kernel"),
-        old_registers=register_row(ptxas, "seed_v1", "seed_scan_kernel"),
         shape=f"{CHUNK} reads x {len(parts)} parts", shared_row_steps=shared_row_steps(index, qd, parts),
     ))
 
@@ -580,71 +614,61 @@ def kernel_phases(index, queries: np.ndarray, rng: np.random.Generator, ref: np.
             plain_ms=time_ms(lambda: verify_plain(*vargs), 2), bound_ms=b, bound_by=by, library_ms=None,
             shape=f"{n_cands} candidates x {s_cnt} starts, m={m}, k={K}",
         )
+        row.update(redesign_times(lambda: verify(*vargs), "edit_kernel" if edit else "hamming_kernel", flush))
         if edit:
-            old = functools.partial(first_version, verify_mod, legacy["verify_v1"], lambda: verify(*vargs))
-            assert_equal("first verify", old(), verify_plain(*vargs))
-            row.update(redesign_times(lambda: verify(*vargs), old, "edit_kernel", flush),
-                       registers=register_row(ptxas, "verify", "edit_kernelILi2E"),
-                       old_registers=register_row(ptxas, "verify_v1", "edit_kernelILi2E"),
+            row.update(registers=register_row(ptxas, "verify", "edit_kernelILi2E"),
                        fast_windows=clean_windows(index, base, m),
                        # the steady loop loads one text and two query words per 8 rows
                        steady_row_sass=steady_row_sass(source("verify"), "edit_kernelILi2E", 3, 8))
         else:
-            row["ms"] = time_ms(lambda: verify(*vargs), 20)
+            row["registers"] = register_row(ptxas, "verify", "hamming_kernel")
         rows.append(row)
     return rows
 
 
-def smem_phase(dev) -> dict:
-    """K4 and K1 against the plain rank on the largest table K4 takes."""
+def smem_phase(dev, extra: dict) -> dict:
+    """K4 and K1 against the plain rank on the largest table K4 takes, K4
+    also against its first version and its design variants; all by device
+    time, warm and cold."""
     from sahara_tpu_torch.bench_rank import setup
+    from sahara_tpu_torch.kernels import rank_smem as smem_mod
     from sahara_tpu_torch.kernels.rank import rank_all, rank_all_plain
-    from sahara_tpu_torch.kernels.rank_smem import rank_all_smem
+    from sahara_tpu_torch.kernels.rank_smem import launch_shape, rank_all_smem
 
     occ16, sigma, idx = setup(SMEM_TEXT_MB, RANK_BENCH_POSITIONS, dev)
     want = rank_all_plain(occ16, sigma, idx)
     err = assert_equal("rank_all_smem", rank_all_smem(occ16, sigma, idx), want)
+    call = lambda: rank_all_smem(occ16, sigma, idx)  # noqa: E731
+    old = functools.partial(first_version, smem_mod, extra["rank_smem_v1"], call)
+    assert_equal("first rank_all_smem", old(), want)
     assert_equal("rank_all on K4's table", rank_all(occ16, sigma, idx), want)
-    n = idx.shape[0]
+    n, table = idx.shape[0], occ16.numel() * 4
     # each position read once, each rank written once, the table read once
-    b, by = bound(n * (4 + 4 * sigma) + occ16.numel() * 4, n * sigma * 3)
+    b, by = bound(n * (4 + 4 * sigma) + table, n * sigma * 3)
+    flush_buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    flush = lambda: flush_buf.fill_(1)  # noqa: E731
+    k1 = redesign_times(lambda: rank_all(occ16, sigma, idx), "rank_all_kernel", flush)
+    shape = launch_shape(n, sigma)
+    # one warp of positions per CTA: the launch is then its table staging
+    few = idx[: 32 * shape["ctas"]].contiguous()
+    staging = lambda: rank_all_smem(occ16, sigma, few)  # noqa: E731
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return dict(
         name="rank_all_smem", route="cuda", source="sahara_tpu_torch/kernels/csrc/rank_smem.cu",
         replaces="sahara_tpu/kernels/rank.py:108", max_abs_err=err,
-        ms=time_ms(lambda: rank_all_smem(occ16, sigma, idx), 50),
+        **redesign_times(call, "rank_smem_kernel", flush, old),
+        variants=variant_times(smem_mod, extra, "rank_smem", call, "rank_smem_kernel", flush, want),
         plain_ms=time_ms(lambda: rank_all_plain(occ16, sigma, idx), 5),
         bound_ms=b, bound_by=by, library_ms=None,
-        k1_ms_same_inputs=time_ms(lambda: rank_all(occ16, sigma, idx), 50),
-        l2_staging_bytes=occ16.numel() * 4 * sms,
-        shape=f"{n} positions, {occ16.shape[0]} occ rows ({occ16.numel() * 4} B), sigma={sigma}",
+        k1_ms_same_inputs=k1["ms"], k1_cold_ms_same_inputs=k1["cold_ms"], k1_call_ms_same_inputs=k1["call_ms"],
+        # the L2 serves the table once per cluster (the first version: once per block)
+        launch=shape, l2_staging_bytes=table * shape["ctas"] // shape["cluster_ctas"],
+        staging_ms=kernel_device_ms(staging, "rank_smem_kernel", 20),
+        old_staging_ms=kernel_device_ms(functools.partial(first_version, smem_mod, extra["rank_smem_v1"], staging),
+                                        "rank_smem_kernel", 20),
+        old_l2_staging_bytes=table * min(-(-n // 1024), sms),
+        shape=f"{n} positions, {occ16.shape[0]} occ rows ({table} B), sigma={sigma}",
     )
-
-
-def kernel_device_ms(fn, name: str, reps: int, before=None) -> float:
-    """Mean device time of kernel ``name`` per launch over ``reps`` calls
-    of ``fn`` (torch.profiler), after one warm call; ``before`` runs ahead
-    of each call (an L2 flush for a cold time).  A session whose trace
-    lacks a launch (the profiler drops a record now and then) is run again,
-    up to three times; only a complete one counts."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    seen = []
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                if before is not None:
-                    before()
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
-        seen.append(sum(e.count for e in events))
-        if seen[-1] == reps:
-            return sum(dev_ms(e) for e in events) / reps
-    raise AssertionError(f"the profiler saw {seen} launches of {name} in three sessions, not {reps}")
 
 
 def workq_step_phase(index, queries: np.ndarray) -> tuple[dict, dict]:
@@ -894,6 +918,7 @@ def main() -> int:
     from sahara_tpu_torch.engine.seedverify import StageTimer
     from sahara_tpu_torch.index.build import build_bifmindex
     from sahara_tpu_torch.kernels import LAUNCHES, reset_launches
+    from sahara_tpu_torch.kernels import rank as rank_mod
     from sahara_tpu_torch.kernels._build import KERNEL_SOURCES, build_all, source
     from sahara_tpu_torch.sim.workload import bench_workload
 
@@ -901,8 +926,8 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     t_start = t0 = time.perf_counter()
-    legacy = write_first_versions()
-    ptxas = build_all([source(name) for name in KERNEL_SOURCES] + list(legacy.values()))
+    extra = write_extra_sources()
+    ptxas = build_all([source(name) for name in KERNEL_SOURCES] + list(extra.values()))
     report["build_s"] = time.perf_counter() - t0
     report["sm_clocks_s"] = sm_clocks_s()
     print(f"build: {report['build_s']:.1f} s", flush=True)
@@ -921,12 +946,18 @@ def main() -> int:
 
     # K1-K3 vs plain, on an uploaded copy of the forward index
     kernels = kernel_phases(DeviceIndex.from_host(host, include_rev=False), queries, np.random.default_rng(7), ref,
-                            legacy, ptxas)
+                            extra, ptxas)
+    # K1 on its path: the j-mer table's levels at upload (2 to 524,288 positions)
+    upload = lambda: DeviceIndex.from_host(host, include_rev=False)  # noqa: E731
+    k1 = kernels[0]
+    upload()  # warm
+    k1["upload_ms"], k1["upload_launches"] = kernel_device_total(upload, "rank_all_kernel")
+    k1["old_upload_ms"], _ = kernel_device_total(
+        functools.partial(first_version, rank_mod, extra["rank_v1"], upload), "rank_all_kernel")
+    print(f"rank_all in one upload: {k1['upload_launches']} launches, device {k1['upload_ms']:.4f} ms (first version "
+          f"{k1['old_upload_ms']:.4f} ms)", flush=True)
     for row in kernels:
-        if "old_ms" in row:
-            print(f"{row['name']} redesign: device warm {row['ms']:.4f} / cold {row['cold_ms']:.4f} ms, call "
-                  f"{row['call_ms']:.4f} ms, {row['registers']}; first version warm {row['old_ms']:.4f} / cold "
-                  f"{row['old_cold_ms']:.4f} ms, {row['old_registers']}", flush=True)
+        print_times(row)
     sass = next(row for row in kernels if row["name"] == "verify")["steady_row_sass"]
     print(f"verify steady loop, SASS instructions a row by pipe: {sass or 'not measured'}", flush=True)
 
@@ -988,7 +1019,13 @@ def main() -> int:
     del index
 
     # K4 and K5 vs plain; then the work-queue path and the fallback
-    kernels.append(smem_phase(torch.device("cuda")))
+    kernels.append(smem_phase(torch.device("cuda"), extra))
+    k4 = kernels[-1]
+    print_times(k4)
+    print(f"  K1 on the same inputs: device warm {k4['k1_ms_same_inputs']:.4f} / cold "
+          f"{k4['k1_cold_ms_same_inputs']:.4f} ms; K4 stages {k4['l2_staging_bytes']} B from L2 a launch "
+          f"({k4['launch']}; first version {k4['old_l2_staging_bytes']} B); one warp of positions a CTA: device "
+          f"{k4['staging_ms']:.4f} ms (first version {k4['old_staging_ms']:.4f} ms)", flush=True)
     index_bi = DeviceIndex.from_host(host)
     step_row, report["workq_queue"] = workq_step_phase(index_bi, queries)
     kernels.append(step_row)
@@ -1019,9 +1056,9 @@ def main() -> int:
             "bound_ms", "bound_by", "library_ms")
     print(f"total {report['total_s']:.1f} s")
     print(card)
-    # K2 and K3 also carry their cold time and their first version's times
-    extra = ("cold_ms", "old_ms", "old_cold_ms")
-    print(json.dumps({"kernels": [{k: row[k] for k in keys + extra if k in row} for row in kernels]}))
+    # device times also cold and the call time; K1 and K4 their first version's
+    more = ("cold_ms", "call_ms", "old_ms", "old_cold_ms")
+    print(json.dumps({"kernels": [{k: row[k] for k in keys + more if k in row} for row in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -2,10 +2,11 @@
 (csrc/rank_smem.cu).
 
 The Hopper counterpart of ``sahara_tpu/kernels/rank.py::rank_all_vmem``: the
-same function as K1, for tables small enough to sit in one block's shared
-memory (``occ16_smem_bytes`` at most ``SMEM_LIMIT``).  Larger tables are
-refused, never handed to K1 behind the caller's back: the caller chooses,
-as ``sahara_tpu_torch/bench_rank.py`` does.
+same function as K1, for tables small enough to sit in one CTA's shared
+memory (``occ16_smem_bytes`` at most ``SMEM_LIMIT``), staged once per
+thread-block cluster.  Larger tables are refused, never handed to K1 behind
+the caller's back: the caller chooses, as ``sahara_tpu_torch/bench_rank.py``
+does.
 """
 
 from __future__ import annotations
@@ -19,8 +20,11 @@ from sahara_tpu_torch.kernels import LAUNCHES, check, on_cuda, raise_on_error, s
 from sahara_tpu_torch.kernels._build import load
 from sahara_tpu_torch.kernels.rank import rank_all_plain
 
-# opt-in dynamic shared memory of one block on the H100 (and H200)
-SMEM_LIMIT = 232_448
+# table bytes one CTA holds on the H100 (and H200): the opt-in 232,448 B of
+# shared memory less the kernel's mbarrier and the table's alignment,
+# rounded down to a 64 B row (3,631 rows); the kernel computes the same
+# budget on the card and refuses a larger table itself
+SMEM_LIMIT = 232_384
 
 _fn = None
 
@@ -34,6 +38,17 @@ def _kernel():
                        ctypes.c_void_p, ctypes.c_void_p]
         _fn = fn
     return _fn
+
+
+def launch_shape(n: int, sigma: int) -> dict:
+    """The kernel's launch for ``n`` positions on the current card: grid
+    CTAs, CTAs a cluster and the table bytes a CTA holds."""
+    fn = load("rank_smem").sahara_rank_all_smem_shape
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    out = (ctypes.c_int32 * 3)()
+    raise_on_error(fn(n, sigma, ctypes.addressof(out)), "rank_all_smem launch shape")
+    return dict(ctas=out[0], cluster_ctas=out[1], table_budget=out[2])
 
 
 def occ16_smem_bytes(w_rows: int) -> int:
@@ -54,7 +69,7 @@ def rank_all_smem(occ16: torch.Tensor, sigma: int, idx: torch.Tensor) -> torch.T
     if not smem_eligible(occ16.shape[0]):
         raise ValueError(
             f"occ16 table of {occ16.shape[0]} rows needs {occ16_smem_bytes(occ16.shape[0])} B of shared "
-            f"memory, over the {SMEM_LIMIT} B a block can hold; use kernels.rank.rank_all"
+            f"memory, over the {SMEM_LIMIT} B a CTA can hold beside its barrier; use kernels.rank.rank_all"
         )
     if not on_cuda(occ16, idx):
         return rank_all_smem_plain(occ16, sigma, idx)

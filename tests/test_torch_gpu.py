@@ -19,7 +19,9 @@ from sahara_tpu_torch.index.build import build_bifmindex, build_fmindex
 from sahara_tpu_torch.index.textstore import unpack_text4
 from sahara_tpu_torch.kernels import LAUNCHES
 from sahara_tpu_torch.kernels.rank import rank_all, rank_all_plain
-from sahara_tpu_torch.kernels.rank_smem import rank_all_smem, rank_all_smem_plain
+from sahara_tpu_torch.kernels.rank_smem import (
+    SMEM_LIMIT, launch_shape, occ16_smem_bytes, rank_all_smem, rank_all_smem_plain,
+)
 from sahara_tpu_torch.kernels.seed import seed_scan, seed_scan_plain
 from sahara_tpu_torch.kernels.verify import verify, verify_plain
 from sahara_tpu_torch.kernels.workq import EPOCHS, TILE, workq_step, workq_step_plain
@@ -207,6 +209,72 @@ def test_rank_all_smem_refuses_a_large_table():
     occ16 = torch.zeros((4000, 16), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         rank_all_smem(occ16, 6, torch.zeros(8, dtype=torch.int32, device=dev))
+
+
+# batch sizes around a warp, a K1 thread's and a K4 CTA's share, and past
+# one sweep of K4's whole grid ("grid+7": 1,024 x the grid's CTAs + 7)
+RANK_BATCHES = [1, 31, 33, 1023, 1025, "grid+7", 300_000]
+
+
+def _random_rank_inputs(rows, n, sigma, seed, dev):
+    """A random int32 occ16 table (the rank function is defined for any
+    table, so no index build is needed) and n positions in [0, 32 rows),
+    0 and 32 rows - 1 among them."""
+    rng = np.random.default_rng(seed)
+    occ16 = np.zeros((rows, 16), dtype=np.int32)
+    occ16[:, : 2 * sigma] = rng.integers(-(2**31), 2**31, size=(rows, 2 * sigma), dtype=np.int64)
+    if n == "grid+7":
+        n = 1024 * launch_shape(1 << 30, sigma)["ctas"] + 7
+    idx = rng.integers(0, 32 * rows, size=n).astype(np.int32)
+    idx[0], idx[-1] = 0, 32 * rows - 1
+    return torch.from_numpy(occ16).to(dev), torch.from_numpy(idx).to(dev)
+
+
+@pytest.mark.parametrize("sigma", range(2, 9))
+@pytest.mark.parametrize("n", RANK_BATCHES)
+def test_rank_all_kernel_on_random_tables(n, sigma):
+    dev = _card()
+    occ16, idx = _random_rank_inputs(40_000, n, sigma, 100 + sigma, dev)
+    got = rank_all(occ16, sigma, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rank_all_plain(occ16, sigma, idx))
+
+
+@pytest.mark.parametrize("sigma", range(2, 9))
+@pytest.mark.parametrize("n", RANK_BATCHES)
+def test_rank_all_smem_kernel_on_random_tables(n, sigma):
+    dev = _card()
+    occ16, idx = _random_rank_inputs(SMEM_LIMIT // occ16_smem_bytes(1), n, sigma, 200 + sigma, dev)
+    got = rank_all_smem(occ16, sigma, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rank_all_smem_plain(occ16, sigma, idx))
+
+
+# 1 row; 5 and 3,127 rows (odd: the cluster's slices of the table end
+# inside a row); the largest table K4 takes; one row more must be refused
+@pytest.mark.parametrize("rows", [1, 5, 3127, SMEM_LIMIT // 64, SMEM_LIMIT // 64 + 1])
+def test_rank_all_smem_kernel_table_sizes(rows):
+    dev = _card()
+    occ16, idx = _random_rank_inputs(rows, 5000, 6, rows, dev)
+    if occ16_smem_bytes(rows) > SMEM_LIMIT:
+        with pytest.raises(ValueError, match="shared memory"):
+            rank_all_smem(occ16, 6, idx)
+        return
+    got = rank_all_smem(occ16, 6, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rank_all_smem_plain(occ16, 6, idx))
+
+
+def test_rank_all_smem_launch_shape():
+    """The card's table budget is the wrapper's, and the grid is whole
+    clusters, at most one CTA per SM."""
+    _card()
+    shape = launch_shape(1 << 30, 6)
+    assert shape["table_budget"] == SMEM_LIMIT
+    assert shape["cluster_ctas"] in (2, 4)
+    assert shape["ctas"] % shape["cluster_ctas"] == 0
+    assert 0 < shape["ctas"] <= torch.cuda.get_device_properties(0).multi_processor_count
+    assert launch_shape(1, 6)["ctas"] == shape["cluster_ctas"]
 
 
 def _record_steps(index, queries, tape, *, edit, k, cap, monkeypatch, check=None):

@@ -103,6 +103,25 @@ def test_rank_all_smem_refuses_tables_over_shared_memory(occ_fixture):
         rank_all_smem(big, host.sigma, torch.from_numpy(idx[:4]))
 
 
+def test_rank_all_smem_largest_table_matches_pallas():
+    """The largest table K4 takes (a random one: the function is defined for
+    any table) through rank_all_smem's plain version on the CPU, against
+    both Pallas kernels in interpret mode; one row more is refused."""
+    rows, sigma = SMEM_LIMIT // occ16_smem_bytes(1), 6
+    rng = np.random.default_rng(11)
+    occ = rng.integers(-(2**31), 2**31, size=(rows, 2 * sigma), dtype=np.int64).astype(np.int32)
+    idx = np.r_[0, 32 * rows - 1, rng.integers(0, 32 * rows, size=254)].astype(np.int32)
+    occ16 = torch.from_numpy(rank.pack_occ16(occ))
+    assert occ16_smem_bytes(occ16.shape[0]) == SMEM_LIMIT
+    got = rank_all_smem(occ16, sigma, torch.from_numpy(idx)).numpy()
+    packed = jax_pack_occ16(occ)
+    np.testing.assert_array_equal(got, np.asarray(rank_all_vmem(packed, sigma, jnp.asarray(idx), interpret=True)))
+    np.testing.assert_array_equal(got, np.asarray(rank_all_hbm(packed, sigma, jnp.asarray(idx), interpret=True)))
+    bigger = torch.cat([occ16, occ16[:1]])
+    with pytest.raises(ValueError, match="shared memory"):
+        rank_all_smem(bigger, sigma, torch.from_numpy(idx))
+
+
 def test_rank_all_offset_matches_xla(occ_fixture):
     """rank-all against the stacked forward + reversed table."""
     host, _, idx = occ_fixture
