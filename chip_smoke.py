@@ -5,8 +5,8 @@
 Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
 
 1. prints the card's name and power limit, builds the five CUDA kernels
-   from ``sahara_tpu_torch/kernels/csrc``, the first versions of the K1
-   and K4 kernels (``LEGACY_SOURCES``) and their design variants
+   from ``sahara_tpu_torch/kernels/csrc``, the first versions of the K1, K4
+   and K3h kernels (``LEGACY_SOURCES``) and their design variants
    (``DESIGN_VARIANTS``), all nvcc runs at once, and prints each kernel's
    registers;
 2. regenerates the ``bench.py`` workload from its seeds (40 MB reference,
@@ -16,9 +16,10 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
    seed-and-verify path's shapes (exact equality: all integer), and times
    both: each kernel by the profiler's device time, warm and with L2
    flushed before each launch (the pass meets them cold), beside the
-   wrapper's call time; K1 also beside its first version and its design
-   variants (positions per thread) on the same inputs, and by its device
-   time in one index upload (the j-mer table's ten levels, its path);
+   wrapper's call time; K1 and K3h also beside their first versions and
+   their design variants (K1's positions per thread, K3h's lanes per
+   candidate) on the same inputs, K1 also by its device time in one index
+   upload (the j-mer table's ten levels, its path);
    counts K3's SASS instructions per row of its steady loop by pipe
    (cuobjdump);
 4. runs the seed-and-verify path — upload without the reversed table (the
@@ -52,9 +53,25 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
 8. runs the seed-and-verify fallback: 1,024 reads with an N in a seed part
    of every 8th read, ``auto`` against ``workq`` on all of them and against
    the seed-and-verify rows on the reads without N;
-9. runs the rank bench (``sahara_tpu_torch/bench_rank.py``: K1 and K4 at
+9. runs the short-read workload (phase ``sv_e1``: 32,768 reads of 36 bp
+   with 2 planted edits simulated from the same reference, both strands,
+   k=3) through ``auto``, which takes one-error seed-and-verify (seeds by
+   K5, verify by K3): the hit set against the JAX package's; K5 on that
+   run's largest seed-search step and largest drain step and K3 on its
+   largest verify call (m=36, k=3), each against its plain version and
+   timed; three timed passes, a profiled pass, syncs, peak memory and the
+   fallback share; the
+   work-queue engine on the first 4,096 reads against the JAX package's
+   work-queue rows there (7 hits fewer than seed-and-verify's, which a
+   brute-force check confirms) and against seed-and-verify's, both timed; the
+   same reads under Hamming distance against the JAX package's hit set
+   with every hit's mismatches recounted, and K3h timed on that run's
+   largest verify call like its 100 bp row;
+10. runs the rank bench (``sahara_tpu_torch/bench_rank.py``: K1 and K4 at
    100,000 characters, K1 alone at 4.6 million; device time and call time);
-10. prints the kernels' JSON line, the card line, and as the last line
+11. prints the kernels' JSON line (each kernel's figures at the sv_e1
+   path's shape as its ``e1_*`` keys, beside that path's launches), the
+   card line, and as the last line
    ``{"ok": true, "device": {...}}``.  The full report goes to
    ``chiprun_out/chip_smoke.json``.
 
@@ -63,6 +80,7 @@ Any failure raises, and the script exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -91,6 +109,30 @@ JAX_HITS = 80248
 JAX_SHA256 = "05a0ffc11e48aaecc4f5c0910bf8d6947aef16804e696903f291d3297e2d4f59"
 BENCH_R05_HITS = 80248  # hits printed by bench.py in BENCH_r05.json
 
+# The JAX package's hit sets for the short-read workload (the short36_e3
+# rows of tools/bench_variants.py), recorded on the CPU with sahara_tpu:
+# bench.make_reference(default_rng(1234), 40_000_000), simulate_reads(...,
+# num_reads=32768, read_length=36, random_errors=2, seed=7), reads
+# interleaved with their reverse complements, then search_queries(k=3,
+# generator_name="optimum", engine="auto", chunk=16384) on
+# DeviceIndex.from_host(build_bifmindex([ref], 6, "d_dna5", rate=16)): the
+# one-error seed-and-verify route.  Rows and sha256 as for JAX_HITS; the
+# whole workload under edit distance, its first 4,096 reads, and the whole
+# workload under Hamming distance.
+JAX_E1_HITS = 130503
+JAX_E1_SHA256 = "c0251cd360fc25402347e9630b07734f958c217bd6afe0cd9455c37956615989"
+JAX_E1_PREFIX_HITS = 16221
+JAX_E1_PREFIX_SHA256 = "e8ec623c627e8c071e389b130b414cb1e023af7828a2515c5dfffd5c8d915e72"
+JAX_E1_HAMMING_HITS = 13520
+JAX_E1_HAMMING_SHA256 = "63f0c61554da25b586c6b82d28af80b2aa2eb383416f3b45e5489775f7b72a99"
+# The JAX package's work-queue engine (engine="workq", the same call) on the
+# first 4,096 reads: 16,214 rows, not seed-and-verify's 16,221.  It misses 7
+# hits and gives one an error count above the least (3 for 2); a brute-force
+# minimal-span edit distance over the text confirms seed-and-verify's rows,
+# and the engine misses them with dedup off too.
+JAX_E1_WORKQ_PREFIX_HITS = 16214
+JAX_E1_WORKQ_PREFIX_SHA256 = "e44d9c07db5a3fd633346408031cc550cab5e95f41cedc8055858ce149cf4dff"
+
 K = 2
 CHUNK = 16384
 SAMPLED_READS = 8192
@@ -99,6 +141,11 @@ WORKQ_GENERATOR = "optimum"  # bench.py's generator for the work-queue engine
 FALLBACK_READS = 1024
 RANK_BENCH_POSITIONS = 262144  # bench_rank.py's default batch
 SMEM_TEXT_MB = 0.1  # the largest random text whose occ table K4 takes
+E1_K = 3  # the short-read workload's k: 36 // 4 < 10, so one-error seeds
+E1_PREFIX_READS = 4096  # the work-queue engine's share of the short-read workload
+# a kernel's figures at the sv_e1 path's shape, kept in its row as e1_<key>
+E1_KEYS = ("max_abs_err", "ms", "cold_ms", "call_ms", "old_ms", "old_cold_ms", "plain_ms", "bound_ms", "bound_by",
+           "lanes", "variants", "shape", "rows", "children", "hits", "candidates", "cases")
 
 # H100 SXM HBM3 bytes/s (NVIDIA data sheet).  The kernels' operations are
 # 32-bit integer ones.  An SM issues 4 warp instructions a clock (128
@@ -117,11 +164,12 @@ DP_ALU_OPS_PER_CELL = 4
 DP_ADD_OPS_PER_CELL = 1
 FLUSH_BYTES = 128 << 20  # written between launches to evict the 50 MB L2
 
-# The first versions of the K1 and K4 kernels (``rank.cu`` and
+# The first versions of the K1, K4 and K3h kernels (``rank.cu`` and
 # ``rank_smem.cu`` before their redesign, ``occ.cuh``'s ``load_row``
-# inlined), kept here only to be timed beside their redesigns on the same
-# inputs; nothing on a path loads them.  Their C entries have the current
-# ones' signatures, so the current wrappers launch them (``first_version``).
+# inlined; ``verify.cu``'s Hamming entry before its redesign, alone), kept
+# here only to be timed beside their redesigns on the same inputs; nothing on
+# a path loads them.  Their C entries have the current ones' signatures, so
+# the current wrappers launch them (``first_version``).
 LEGACY_SOURCES = {
     "rank_v1": r"""
 #include <cstdint>
@@ -246,6 +294,45 @@ extern "C" int sahara_rank_all_smem(const void* occ16, int32_t w_rows, const voi
     }
 }
 """,
+    "verify_hamming_v1": r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+namespace {
+constexpr int kInf = 1 << 20;
+__device__ __forceinline__ int text_at(const int32_t* __restrict__ text4, int64_t n, int64_t pos) {
+    if (pos < 0 || pos >= n) return 0;
+    const uint32_t word = static_cast<uint32_t>(__ldg(text4 + (pos >> 3)));
+    return static_cast<int>((word >> (4 * (pos & 7))) & 0xFu);
+}
+__global__ void hamming_kernel(const int32_t* __restrict__ text4, int64_t n, const uint8_t* __restrict__ queries,
+                               int m, const int32_t* __restrict__ q_of, const int32_t* __restrict__ base,
+                               int64_t n_cands, int32_t* __restrict__ dist) {
+    const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (r >= n_cands) return;
+    const uint8_t* q = queries + static_cast<int64_t>(q_of[r]) * m;
+    const int64_t p = base[r];
+    int mism = 0;
+    bool sentinel = false;
+    for (int i = 0; i < m; ++i) {
+        const int tc = text_at(text4, n, p + i);
+        sentinel |= (tc == 0);
+        mism += (tc != q[i]);
+    }
+    dist[r] = sentinel ? kInf : mism;
+}
+}  // namespace
+extern "C" int sahara_verify(const void* text4, int64_t n, const void* queries, int m, const void* q_of,
+                             const void* base, int64_t n_cands, int k, int edit, void* dist, void* stream) {
+    if (n_cands <= 0) return 0;
+    if (edit) return static_cast<int>(cudaErrorInvalidValue);  // the Hamming entry only
+    constexpr int kThreads = 128;
+    const int64_t blocks = (n_cands + kThreads - 1) / kThreads;
+    hamming_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(text4), n, static_cast<const uint8_t*>(queries), m,
+        static_cast<const int32_t*>(q_of), static_cast<const int32_t*>(base), n_cands, static_cast<int32_t*>(dist));
+    return static_cast<int>(cudaGetLastError());
+}
+""",
 }
 
 
@@ -268,14 +355,16 @@ def sm_clocks_s() -> float:
     return torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
 
 
-# The design constants of the K1 and K4 redesigns, each measured on the card
-# beside the value kept: source -> (the constant's line, the value kept, the
-# other values tried).  A variant is the current source with that one line
+# The design constants of the K1, K4 and K3h redesigns, each measured on the
+# card beside the value kept: source -> (the constant's line, the value kept,
+# the other values tried; K3h keeps 0, the launcher's pick, and forces each
+# lane count).  A variant is the current source with that one line
 # changed and its headers inlined; it is built with the rest and launched
 # through the current wrapper (``first_version``), as the first versions are.
 DESIGN_VARIANTS = {
     "rank": ("constexpr int kPer = {};", 2, (1, 4)),
     "rank_smem": ("constexpr int kClusterCtas = {};", 2, (1, 4)),
+    "verify": ("constexpr int kHammingLanes = {};", 0, (1, 2, 4, 8)),
 }
 
 
@@ -524,8 +613,8 @@ def print_times(row: dict) -> None:
 def kernel_phases(index, queries: np.ndarray, rng: np.random.Generator, ref: np.ndarray, extra: dict,
                   ptxas: dict) -> list[dict]:
     """Each kernel against its plain version at the main path's shapes; K1
-    also against its first version and its design variants (``extra``:
-    name -> source)."""
+    and K3h also against their first versions and their design variants
+    (``extra``: name -> source)."""
     from sahara_tpu_torch.engine.locate import expand_intervals, lf_walk
     from sahara_tpu_torch.engine.seedverify import plan_parts, seed_parts
     from sahara_tpu_torch.kernels import rank as rank_mod
@@ -594,36 +683,68 @@ def kernel_phases(index, queries: np.ndarray, rng: np.random.Generator, ref: np.
     offs = torch.tensor([off for off, _ in parts], device=dev)
     a0 = index.seq_starts[seq_id.long()].long() + pos.long() - offs[src % len(parts)]
     q_of = (src // len(parts)).to(torch.int32)
-    for edit in (True, False):
-        base = (a0 - (K if edit else 0)).to(torch.int32)
-        vargs = (index.text4, n, qc, q_of, base, K, edit)
-        err = assert_equal(f"verify edit={edit}", verify(*vargs), verify_plain(*vargs))
-        s_cnt = 2 * K + 1 if edit else 1
-        # chars read: base .. base + S - 1 + m + k - 1 (m under Hamming)
-        span = torch.arange(s_cnt + m + (K if edit else 0) - 1, device=dev)
-        words = torch.unique((base.long()[:, None] + span).clamp(0, n - 1) >> 3).numel()
-        cells = n_cands * s_cnt * m * (2 * K + 1) if edit else n_cands * m
-        b, by = bound(
-            words * 4 + torch.unique(q_of).numel() * m + n_cands * (8 + 4 * s_cnt),
-            cells * (DP_ALU_OPS_PER_CELL if edit else 3), cells * DP_ADD_OPS_PER_CELL if edit else 0,
-        )
-        row = dict(
-            name="verify" if edit else "verify_hamming", route="cuda",
-            source="sahara_tpu_torch/kernels/csrc/verify.cu",
-            replaces="sahara_tpu/engine/seedverify.py:330", max_abs_err=err,
-            plain_ms=time_ms(lambda: verify_plain(*vargs), 2), bound_ms=b, bound_by=by, library_ms=None,
-            shape=f"{n_cands} candidates x {s_cnt} starts, m={m}, k={K}",
-        )
-        row.update(redesign_times(lambda: verify(*vargs), "edit_kernel" if edit else "hamming_kernel", flush))
-        if edit:
-            row.update(registers=register_row(ptxas, "verify", "edit_kernelILi2E"),
-                       fast_windows=clean_windows(index, base, m),
-                       # the steady loop loads one text and two query words per 8 rows
-                       steady_row_sass=steady_row_sass(source("verify"), "edit_kernelILi2E", 3, 8))
-        else:
-            row["registers"] = register_row(ptxas, "verify", "hamming_kernel")
-        rows.append(row)
+    base = (a0 - K).to(torch.int32)
+    vargs = (index.text4, n, qc, q_of, base, K, True)
+    err = assert_equal("verify", verify(*vargs), verify_plain(*vargs))
+    s_cnt = 2 * K + 1
+    b, by = edit_bound(vargs)
+    rows.append(dict(
+        name="verify", route="cuda", source="sahara_tpu_torch/kernels/csrc/verify.cu",
+        replaces="sahara_tpu/engine/seedverify.py:330", max_abs_err=err,
+        plain_ms=time_ms(lambda: verify_plain(*vargs), 2), bound_ms=b, bound_by=by, library_ms=None,
+        shape=f"{n_cands} candidates x {s_cnt} starts, m={m}, k={K}",
+        **redesign_times(lambda: verify(*vargs), "edit_kernel", flush),
+        registers=register_row(ptxas, "verify", "edit_kernelILi2E"), fast_windows=clean_windows(index, base, m),
+        # the steady loop loads one text and two query words per 8 rows
+        steady_row_sass=steady_row_sass(source("verify"), "edit_kernelILi2E", 3, 8),
+    ))
+    rows.append(dict(
+        name="verify_hamming", route="cuda", source="sahara_tpu_torch/kernels/csrc/verify.cu",
+        replaces="sahara_tpu/engine/seedverify.py:330", library_ms=None,
+        registers={g: register_row(ptxas, "verify", f"hamming_kernelILi{g}E") for g in (1, 2, 4, 8)},
+        old_registers=register_row(ptxas, "verify_hamming_v1", "hamming_kernel"),
+        **hamming_times((index.text4, n, qc, q_of, a0.to(torch.int32), K, False), extra, flush),
+    ))
     return rows
+
+
+def edit_bound(vargs) -> tuple[float, str]:
+    """The bound of K3 (edit) on ``vargs`` (``verify``'s arguments)."""
+    _, n, queries, q_of, base, k, _ = vargs
+    n_cands, m, s_cnt = q_of.shape[0], queries.shape[1], 2 * k + 1
+    # chars read: base .. base + S - 1 + m + k - 1
+    span = torch.arange(s_cnt + m + k - 1, device=base.device)
+    words = torch.unique((base.long()[:, None] + span).clamp(0, n - 1) >> 3).numel()
+    cells = n_cands * s_cnt * m * (2 * k + 1)
+    return bound(words * 4 + torch.unique(q_of).numel() * m + n_cands * (8 + 4 * s_cnt),
+                 cells * DP_ALU_OPS_PER_CELL, cells * DP_ADD_OPS_PER_CELL)
+
+
+def hamming_times(vargs, extra: dict, flush) -> dict:
+    """K3h on ``vargs`` (``verify``'s arguments, Hamming): held against its
+    plain version, its first version and each forced lane count; its device
+    time warm and cold beside theirs, its call time, the plain version's
+    time and the bound."""
+    from sahara_tpu_torch.kernels import verify as verify_mod
+    from sahara_tpu_torch.kernels.verify import hamming_lanes, verify, verify_plain
+
+    text4, n, queries, q_of, base, _, _ = vargs
+    want = verify_plain(*vargs)
+    err = assert_equal("verify_hamming", verify(*vargs), want)
+    call = lambda: verify(*vargs)  # noqa: E731
+    old = functools.partial(first_version, verify_mod, extra["verify_hamming_v1"], call)
+    assert_equal("first verify_hamming", old(), want)
+    n_cands, m = q_of.shape[0], queries.shape[1]
+    words = torch.unique((base.long()[:, None] + torch.arange(m, device=base.device)).clamp(0, n - 1) >> 3).numel()
+    # each window word, each distinct query, q_of, base and dist once; a
+    # compare, a sentinel test and an add a char
+    b, by = bound(words * 4 + torch.unique(q_of).numel() * m + n_cands * 12, n_cands * m * 3)
+    return dict(
+        max_abs_err=err, **redesign_times(call, "hamming_kernel", flush, old),
+        variants=variant_times(verify_mod, extra, "verify", call, "hamming_kernel", flush, want),
+        lanes=hamming_lanes(n_cands, m), plain_ms=time_ms(lambda: verify_plain(*vargs), 2), bound_ms=b,
+        bound_by=by, shape=f"{n_cands} candidates, m={m}",
+    )
 
 
 def smem_phase(dev, extra: dict) -> dict:
@@ -671,6 +792,50 @@ def smem_phase(dev, extra: dict) -> dict:
     )
 
 
+def capped_rows(ctx, state) -> int:
+    """Live rows of ``state`` whose query has reached the in-search cap."""
+    q_id = ctx.layout.decode(state[3])[4]
+    return int(((ctx.hq_counts[q_id.long()] >= ctx.cap_per_query) & (state[2] > 0)).sum())
+
+
+def step_case(ctx, state, drain: bool, what: str) -> dict:
+    """K5 on one recorded step input against its plain step: its device and
+    call times, the plain step's time and the bound."""
+    from sahara_tpu_torch.kernels.workq import n_branches, workq_step, workq_step_plain
+
+    got = workq_step(ctx, *state, drain=drain)
+    want = workq_step_plain(ctx, *state, drain=drain)
+    err = sum(assert_equal(f"workq_step ({what}) {f}", a, b)
+              for f, a, b in zip(("lb", "lbr", "sz", "meta", "hits"), got, want))
+    lb, lbr, sz, meta = state
+    m, n, n_kids, n_hits = ctx.m, sz.shape[0], got[0].shape[0], got[4].shape[1]
+    _, _, d, s_id, q_id = ctx.layout.decode(meta)
+    alive = sz > 0
+    if drain:
+        alive &= d < m
+        if ctx.cap_per_query:
+            alive &= ctx.hq_counts[q_id.long()] < ctx.cap_per_query
+    side = ctx.tape[(q_id.long() * ctx.ns + s_id) * m + d.clamp(max=m - 1)] & 1
+    primary = torch.where(side == 1, lbr, lb).long()
+    woff = side.long() * ctx.rev_off
+    occ_rows = torch.unique(torch.cat([(primary >> 5) + woff, ((primary + sz) >> 5) + woff])[alive.repeat(2)])
+    e_used = n_branches(ctx.sl, ctx.edit)
+    # state and tape word per row, each distinct occ row, children and hits written
+    b, by = bound(n * 20 + occ_rows.numel() * 64 + (n_kids + n_hits) * 16,
+                  n * (6 * ctx.sigma + 4 * e_used) + n_kids * 8)
+    step = lambda: workq_step(ctx, *state, drain=drain)  # noqa: E731
+    out = dict(
+        what=what, drain=drain, cap_per_query=ctx.cap_per_query, m=m, rows=n, children=n_kids, hits=n_hits,
+        capped_rows=capped_rows(ctx, state) if ctx.cap_per_query else 0, max_abs_err=err,
+        ms=kernel_device_ms(step, "step_kernel", 20), call_ms=time_ms(step, 20),
+        plain_ms=time_ms(lambda: workq_step_plain(ctx, *state, drain=drain), 3), bound_ms=b, bound_by=by,
+        occ_rows=occ_rows.numel(),
+    )
+    print(f"workq_step ({what}): {n} rows, {n_kids} children, {n_hits} hits: device {out['ms']:.4f} ms, call "
+          f"{out['call_ms']:.4f} ms, plain {out['plain_ms']:.3f} ms, bound {b:.5f} ms by {by}", flush=True)
+    return out
+
+
 def workq_step_phase(index, queries: np.ndarray) -> tuple[dict, dict]:
     """K5 against its plain step on three queues of the first chunk's
     work-queue search (dedup on, as the path runs it): (a) after phase 0,
@@ -680,7 +845,6 @@ def workq_step_phase(index, queries: np.ndarray) -> tuple[dict, dict]:
     from sahara_tpu_torch.engine import workq
     from sahara_tpu_torch.engine.driver import load_scheme
     from sahara_tpu_torch.engine.tape import compile_tape
-    from sahara_tpu_torch.kernels.workq import n_branches, workq_step, workq_step_plain
 
     dev, m = index.device, queries.shape[1]
     tape = compile_tape(load_scheme(WORKQ_GENERATOR, 0, K, m, edit=True, sigma=index.sigma, n_text=index.n))
@@ -714,10 +878,6 @@ def workq_step_phase(index, queries: np.ndarray) -> tuple[dict, dict]:
         if "b" not in cases or state[2].shape[0] > cases["b"][2][2].shape[0]:
             cases["b"] = (g, ctx, state, drain, None)
 
-    def capped_rows(ctx, state) -> int:
-        q_id = ctx.layout.decode(state[3])[4]
-        return int(((ctx.hq_counts[q_id.long()] >= ctx.cap_per_query) & (state[2] > 0)).sum())
-
     most_capped = [0]
 
     def keep_capped(g, ctx, state, drain):
@@ -739,37 +899,7 @@ def workq_step_phase(index, queries: np.ndarray) -> tuple[dict, dict]:
         g, ctx, state, drain, counts = cases[label]
         if counts is not None:
             ctx.hq_counts.copy_(counts)
-        got = workq_step(ctx, *state, drain=drain)
-        want = workq_step_plain(ctx, *state, drain=drain)
-        err = sum(assert_equal(f"workq_step ({what}) {f}", a, b)
-                  for f, a, b in zip(("lb", "lbr", "sz", "meta", "hits"), got, want))
-        lb, lbr, sz, meta = state
-        n, n_kids, n_hits = sz.shape[0], got[0].shape[0], got[4].shape[1]
-        _, _, d, s_id, q_id = ctx.layout.decode(meta)
-        alive = sz > 0
-        if drain:
-            alive &= d < m
-            if ctx.cap_per_query:
-                alive &= ctx.hq_counts[q_id.long()] < ctx.cap_per_query
-        side = ctx.tape[(q_id.long() * ctx.ns + s_id) * m + d.clamp(max=m - 1)] & 1
-        primary = torch.where(side == 1, lbr, lb).long()
-        woff = side.long() * ctx.rev_off
-        occ_rows = torch.unique(torch.cat([(primary >> 5) + woff, ((primary + sz) >> 5) + woff])[alive.repeat(2)])
-        e_used = n_branches(ctx.sl, ctx.edit)
-        # state and tape word per row, each distinct occ row, children and hits written
-        b, by = bound(n * 20 + occ_rows.numel() * 64 + (n_kids + n_hits) * 16,
-                      n * (6 * ctx.sigma + 4 * e_used) + n_kids * 8)
-        step = lambda: workq_step(ctx, *state, drain=drain)  # noqa: E731
-        out.append(dict(
-            case=label, what=what, step=g, drain=drain, cap_per_query=ctx.cap_per_query, rows=n, children=n_kids,
-            hits=n_hits, capped_rows=capped_rows(ctx, state) if ctx.cap_per_query else 0, max_abs_err=err,
-            ms=kernel_device_ms(step, "step_kernel", 20), call_ms=time_ms(step, 20),
-            plain_ms=time_ms(lambda: workq_step_plain(ctx, *state, drain=drain), 3), bound_ms=b, bound_by=by,
-            occ_rows=occ_rows.numel(),
-        ))
-        print(f"workq_step ({what}, step {g}): {n} rows, {n_kids} children, {n_hits} hits: device "
-              f"{out[-1]['ms']:.4f} ms, call {out[-1]['call_ms']:.4f} ms, plain {out[-1]['plain_ms']:.3f} ms, "
-              f"bound {b:.5f} ms by {by}", flush=True)
+        out.append(dict(case=label, step=g, **step_case(ctx, state, drain, f"{what}, step {g}")))
     a = out[0]
     row = dict(
         name="workq_step", route="cuda", source="sahara_tpu_torch/kernels/csrc/workq.cu",
@@ -908,6 +1038,163 @@ def fallback_phase(index, queries: np.ndarray, sv_rows: np.ndarray) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def recorded(module, name: str, size=None):
+    """``module.name`` wrapped for the block; yields the list that gets each
+    call's (positional arguments, keyword arguments, result), or with
+    ``size`` only the call of the largest ``size(args, kw)``."""
+    fn, calls = getattr(module, name), []
+
+    def wrapped(*args, **kw):
+        out = fn(*args, **kw)
+        if size is None:
+            calls.append((args, kw, out))
+        elif not calls or size(args, kw) > size(*calls[0][:2]):
+            calls[:] = [(args, kw, out)]
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def rows_sha(rows: np.ndarray) -> str:
+    return hashlib.sha256(rows.tobytes()).hexdigest()
+
+
+def sv_e1_phase(index, ref: np.ndarray, extra: dict) -> dict:
+    """The short-read workload (36 bp, k=3) through ``auto``, which takes
+    one-error seed-and-verify: its hit set against the JAX package's, three
+    timed passes after the first, a profiled pass, its syncs, peak memory and
+    the share of queries that fell back to the work-queue engine; then the
+    work-queue engine on the first reads against the JAX package's rows for
+    it and against seed-and-verify's, which hold every position it finds;
+    then the same reads
+    under Hamming distance, each hit's mismatches recounted on the host, and
+    K3h timed on that run's largest verify call.  K5 (its largest seed-search
+    step) and K3 (its largest verify call) are held against their plain
+    versions on the edit run's own inputs."""
+    from sahara_tpu_torch.engine import driver, seedverify, workq
+    from sahara_tpu_torch.engine.driver import search_queries
+    from sahara_tpu_torch.engine.seedverify import plan_parts
+    from sahara_tpu_torch.kernels import LAUNCHES, reset_launches
+    from sahara_tpu_torch.kernels.verify import verify, verify_plain
+    from sahara_tpu_torch.sim.workload import short_reads
+
+    queries = short_reads(ref)
+    n_reads, m = len(queries) // 2, queries.shape[1]
+    kw = dict(k=E1_K, edit=True, chunk=CHUNK, generator_name=WORKQ_GENERATOR)
+    run = lambda: search_queries(index, queries, **kw)  # noqa: E731
+    reset_launches()
+    queue = lambda args, kw: args[1][2].shape[0]  # noqa: E731
+    drain_queue = lambda args, kw: queue(args, kw) if kw.get("drain") else -1  # noqa: E731
+    with (recorded(driver, "_run_sv_chunks") as plans, recorded(seedverify, "verify") as edit_calls,
+          recorded(workq, "expand_step", size=queue) as largest,
+          recorded(workq, "expand_step", size=drain_queue) as drains):
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    require_launches(launches, ("workq_step", "verify"), "one-error seed-and-verify")
+    # exact parts would be found by seed_scan; one-error parts are searched by K5
+    if plan_parts(m, E1_K) is not None or len(plans) != 1 or launches.get("seed_scan", 0):
+        raise AssertionError("the short reads did not take the one-error seed-and-verify plan")
+    fallback = int(plans[0][2][1].sum())
+    rows = sorted_rows(res)
+    out = dict(reads=n_reads, m=m, k=E1_K, hits=len(rows), sha256=rows_sha(rows), launches=launches,
+               first_pass_s=first_s, fallback_queries=fallback, fallback_share=fallback / len(queries))
+    print(f"sv_e1: hits {len(rows)} (JAX package {JAX_E1_HITS}) sha256 {out['sha256']}", flush=True)
+    if len(rows) != JAX_E1_HITS or out["sha256"] != JAX_E1_SHA256:
+        raise AssertionError("one-error seed-and-verify hit set differs from the JAX package's")
+    prefix = rows[rows[:, 0] < 2 * E1_PREFIX_READS]
+    if len(prefix) != JAX_E1_PREFIX_HITS or rows_sha(prefix) != JAX_E1_PREFIX_SHA256:
+        raise AssertionError("the first reads' hit set differs from the JAX package's")
+
+    # K5 and K3 (edit) on this run's inputs: its seed search's largest step
+    # and largest drain step (k=1 tape, dedup on), its largest verify call
+    if not drains[0][1].get("drain"):
+        raise AssertionError("the one-error seed search made no drain step")
+    cases = [step_case(*call[0], call[1].get("drain", False), f"sv_e1 seed search, {what}")
+             for call, what in ((largest[0], "largest queue"), (drains[0], "largest drain step"))]
+    out["workq_step"] = dict(cases[0], max_abs_err=sum(c["max_abs_err"] for c in cases), cases=cases)
+    vargs = max((args for args, _, _ in edit_calls), key=lambda a: a[3].shape[0])
+    b, by = edit_bound(vargs)
+    call = lambda: verify(*vargs)  # noqa: E731
+    out["verify"] = dict(
+        max_abs_err=assert_equal("verify (sv_e1)", call(), verify_plain(*vargs)),
+        ms=kernel_device_ms(call, "edit_kernel", 20), call_ms=time_ms(call, 20),
+        plain_ms=time_ms(lambda: verify_plain(*vargs), 2), bound_ms=b, bound_by=by,
+        candidates=sum(args[3].shape[0] for args, _, _ in edit_calls),
+        shape=f"{vargs[3].shape[0]} candidates x {2 * E1_K + 1} starts, m={m}, k={E1_K}",
+    )
+    print(f"verify (sv_e1, {out['verify']['shape']}): equal to plain, device {out['verify']['ms']:.4f} ms, call "
+          f"{out['verify']['call_ms']:.4f} ms, plain {out['verify']['plain_ms']:.3f} ms, bound {b:.5f} ms by {by}",
+          flush=True)
+    del largest, drains, edit_calls, vargs, call  # the recorded inputs would count in the passes' peak memory
+
+    torch.cuda.reset_peak_memory_stats()
+    passes = timed_passes(run, rows, "one-error seed-and-verify")
+    dt = sorted(passes)[1]
+    out.update(passes_s=passes, pass_s=dt, reads_per_s=n_reads / dt,
+               max_memory_allocated=torch.cuda.max_memory_allocated(), syncs_per_pass=count_syncs(run),
+               profile=profile_pass(run))
+    busy = out["profile"]["device_busy_ms"]
+    print(f"sv_e1 path: {out['reads_per_s']:.1f} reads/s (median of 3: {dt * 1e3:.1f} ms for {n_reads} reads, "
+          f"both strands; first pass {first_s:.2f} s), device busy {busy:.1f} ms ({busy / (dt * 1e3) * 100:.1f}%), "
+          f"{out['syncs_per_pass']} syncs a pass, max_memory_allocated {out['max_memory_allocated']} B, "
+          f"{fallback} of {len(queries)} strand queries fell back ({out['fallback_share'] * 100:.3f}%)", flush=True)
+
+    # the work-queue engine on the first reads: the JAX package's rows for
+    # that engine, every one of them a seed-and-verify position at no fewer
+    # errors (seed-and-verify finds a superset, see JAX_E1_WORKQ_PREFIX_HITS)
+    sub = queries[: 2 * E1_PREFIX_READS]
+    wq_run = lambda: search_queries(index, sub, engine="workq", **kw)  # noqa: E731
+    wq_rows = sorted_rows(wq_run())
+    sv_err = {(q, p): e for q, _, p, e in prefix.tolist()}
+    only_sv = {tuple(r) for r in prefix.tolist()} - {tuple(r) for r in wq_rows.tolist()}
+    print(f"sv_e1 vs workq on the first {E1_PREFIX_READS} reads: workq {len(wq_rows)} hits (JAX package's workq "
+          f"{JAX_E1_WORKQ_PREFIX_HITS}), sv_e1 {len(prefix)}; rows only sv_e1 gives: {sorted(only_sv)}", flush=True)
+    if len(wq_rows) != JAX_E1_WORKQ_PREFIX_HITS or rows_sha(wq_rows) != JAX_E1_WORKQ_PREFIX_SHA256:
+        raise AssertionError("the short-read work-queue hit set differs from the JAX package's")
+    if any(sv_err.get((q, p), e + 1) > e for q, _, p, e in wq_rows.tolist()):
+        raise AssertionError("the work-queue engine found a hit that one-error seed-and-verify did not")
+    wq_passes = timed_passes(wq_run, wq_rows, "short-read work-queue")
+    sv_passes = timed_passes(lambda: search_queries(index, sub, **kw), prefix, "short-read seed-and-verify")
+    out["workq_prefix"] = dict(
+        reads=E1_PREFIX_READS, hits=len(wq_rows), sv_hits=len(prefix), rows_only_sv=sorted(only_sv),
+        workq_passes_s=wq_passes, sv_passes_s=sv_passes, workq_reads_per_s=E1_PREFIX_READS / sorted(wq_passes)[1],
+        sv_reads_per_s=E1_PREFIX_READS / sorted(sv_passes)[1],
+    )
+    print(f"  seed-and-verify {out['workq_prefix']['sv_reads_per_s']:.1f} reads/s, work-queue "
+          f"{out['workq_prefix']['workq_reads_per_s']:.1f} reads/s (medians of 3)", flush=True)
+
+    # Hamming: every hit's mismatches recounted; K3h on the largest verify call
+    reset_launches()
+    with recorded(seedverify, "verify") as calls:
+        ham = search_queries(index, queries, **{**kw, "edit": False})
+    ham_launches = dict(LAUNCHES)
+    require_launches(ham_launches, ("workq_step", "verify"), "one-error Hamming")
+    ham_rows = sorted_rows(ham)
+    window = ref[ham.pos[:, None] + np.arange(m)]
+    if (ham.seq_id != 0).any() or not np.array_equal((window != queries[ham.query_id]).sum(axis=1), ham.errors):
+        raise AssertionError("one-error Hamming hits disagree with their recounted mismatches")
+    if len(ham_rows) != JAX_E1_HAMMING_HITS or rows_sha(ham_rows) != JAX_E1_HAMMING_SHA256:
+        raise AssertionError("one-error Hamming hit set differs from the JAX package's")
+    flush_buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=index.device)
+    largest = max((args for args, _, _ in calls), key=lambda a: a[3].shape[0])
+    out["hamming"] = dict(
+        hits=len(ham_rows), sha256=rows_sha(ham_rows), launches=ham_launches, verify_launches=ham_launches["verify"],
+        candidates=sum(args[3].shape[0] for args, _, _ in calls),
+        k3h=hamming_times(largest, extra, lambda: flush_buf.fill_(1)),
+    )
+    print(f"sv_e1 Hamming: {len(ham_rows)} hits (JAX package {JAX_E1_HAMMING_HITS}, same sha256), mismatches "
+          f"recounted; K3h {ham_launches['verify']} launches over {out['hamming']['candidates']} candidates", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1035,7 +1322,21 @@ def main() -> int:
               f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}) at {row['shape']}", flush=True)
     index_bi, report["workq"] = workq_path(host, queries, rows)
     report["fallback"] = fallback_phase(index_bi, queries, rows)
+    report["sv_e1"] = sv_e1_phase(index_bi, ref, extra)
     del index_bi
+    # each kernel of the sv_e1 path: its figures there beside that path's launches
+    e1_path, e1 = report["sv_e1"], report["sv_e1"]["hamming"]["k3h"]
+    e1_rows = {
+        "workq_step": (e1_path["workq_step"], e1_path["launches"]["workq_step"]),
+        "verify": (e1_path["verify"], e1_path["launches"]["verify"]),
+        "verify_hamming": (e1, e1_path["hamming"]["verify_launches"]),
+    }
+    for row in kernels:
+        if row["name"] in e1_rows:
+            fig, n_launches = e1_rows[row["name"]]
+            row.update({f"e1_{key}": val for key, val in fig.items() if key in E1_KEYS}, e1_launches=n_launches)
+    print_times(dict(e1, name=f"verify_hamming at the sv_e1 path's {e1['shape']} ({e1['lanes']} lanes a candidate)"))
+    print(f"  bound {e1['bound_ms']:.5f} ms by {e1['bound_by']}, plain {e1['plain_ms']:.3f} ms", flush=True)
 
     # the rank bench: the path that runs K4
     reset_launches()
@@ -1056,8 +1357,11 @@ def main() -> int:
             "bound_ms", "bound_by", "library_ms")
     print(f"total {report['total_s']:.1f} s")
     print(card)
-    # device times also cold and the call time; K1 and K4 their first version's
-    more = ("cold_ms", "call_ms", "old_ms", "old_cold_ms")
+    # device times also cold and the call time; K1, K4 and K3h their first
+    # version's; K5, K3 and K3h also at the sv_e1 path's shapes, beside that
+    # path's launches
+    more = ("cold_ms", "call_ms", "old_ms", "old_cold_ms", "e1_launches", "e1_max_abs_err", "e1_ms", "e1_cold_ms",
+            "e1_call_ms", "e1_old_ms", "e1_old_cold_ms", "e1_plain_ms", "e1_bound_ms", "e1_bound_by")
     print(json.dumps({"kernels": [{k: row[k] for k in keys + more if k in row} for row in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

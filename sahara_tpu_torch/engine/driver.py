@@ -4,16 +4,15 @@ return canonical (queryId, seqId, pos, errors) rows.
 The counterpart of ``sahara_tpu/engine/driver.py::search_queries`` on one
 device.  Engines:
 
-- ``sv`` (seed-and-verify, ``engine/seedverify.py``) where exact parts
-  filter (``sv_eligible``).  Queries it cannot search exactly on its own —
-  ranks the j-mer table cannot encode (N) and seeds over ``PART_CAP`` — are
-  re-searched through the work-queue engine and merged, as the reference
-  does.
+- ``sv`` (seed-and-verify, ``engine/seedverify.py``) where its parts filter
+  (``sv_eligible`` with one-error seeds): exact k+1 parts where they are at
+  least ``MIN_PART`` long, else (k+2)//2 one-error parts found by a k=1
+  work-queue search (short reads).  Queries it cannot search exactly on its
+  own — seeds over ``PART_CAP``, and under exact parts ranks the j-mer table
+  cannot encode (N) — are re-searched through the work-queue engine and
+  merged, as the reference does.
 - ``workq`` (the scheme engine, ``engine/workq.py``) for every other bucket
-  under ``auto``, and for every bucket under ``engine="workq"``.  The
-  reference's ``auto`` routes short reads through one-error SV seeds
-  (ROADMAP.md queue 1 item 10, not ported yet); the port sends them to the
-  work-queue engine, whose hit set is the same.
+  under ``auto``, and for every bucket under ``engine="workq"``.
 
 What is not ported raises ``NotImplementedError`` naming its ROADMAP.md
 item: the frontier engine (item 14) and meshes (item 15).  Interval-sharded
@@ -33,7 +32,11 @@ from sahara_tpu_torch.engine.locate import expand_intervals, lf_walk
 from sahara_tpu_torch.engine.seedverify import (
     StageTimer,
     plan_parts,
+    plan_parts_e1,
     seed_bad_mask,
+    seed_tape,
+    stage_of,
+    sv_e1,
     sv_eligible,
     sv_fused,
 )
@@ -128,7 +131,7 @@ def _sv_hits_to_result(seq_starts: np.ndarray, q_idx, abs_pos, err, qids: np.nda
     )
 
 
-def _run_sv_fused(
+def _run_sv_chunks(
     index: DeviceIndex,
     qarr: np.ndarray,
     qids: np.ndarray,
@@ -136,23 +139,46 @@ def _run_sv_fused(
     k: int,
     edit: bool,
     chunk: int,
+    run,
     parts,
     timer: StageTimer | None = None,
 ) -> tuple[SearchResult, np.ndarray]:
-    """Upload the query matrix once as uint8, then run ``sv_fused`` on each
-    chunk of it.  The chunks' rows are concatenated, not merged.  Returns
-    the rows and bool[nq]: queries with a part interval over ``PART_CAP``,
+    """Upload the query matrix once as uint8, then run each chunk of it
+    through ``run`` with ``parts``: ``sv_fused`` (exact parts) or
+    ``_sv_e1_chunk`` (one-error parts).  The chunks' rows are concatenated,
+    not merged.  Returns the rows and bool[nq]: queries over ``PART_CAP``,
     which gave no rows here."""
     qfull = torch.from_numpy(np.ascontiguousarray(qarr, dtype=np.uint8)).to(index.device)
     seq_starts = index.seq_starts.cpu().numpy().astype(np.int64)
     results, over_all = [], []
     for start in range(0, qarr.shape[0], chunk):
-        q_idx, abs_pos, err, over = sv_fused(
-            index, qfull[start : start + chunk], parts, k=k, edit=edit, timer=timer
-        )
+        q_idx, abs_pos, err, over = run(index, qfull[start : start + chunk], parts, k=k, edit=edit, timer=timer)
         over_all.append(over)
         results.append(_sv_hits_to_result(seq_starts, start + q_idx, abs_pos, err, qids))
     return _concat(results), np.concatenate(over_all) if over_all else np.zeros(0, dtype=bool)
+
+
+def _sv_e1_chunk(index: DeviceIndex, queries: torch.Tensor, parts, *, k: int, edit: bool,
+                 timer: StageTimer | None = None):
+    """One chunk of the one-error plan: the seed search, one work-queue
+    search (k=1, dedup on) per part length over the parts' slices stacked
+    query-major, then ``sv_e1``."""
+    groups: dict[int, list[int]] = {}  # part length -> part indices
+    for pi, (_, ln) in enumerate(parts):
+        groups.setdefault(ln, []).append(pi)
+    lb, sz, qp = [], [], []
+    with stage_of(timer)("seed"):
+        for ln, pidx in sorted(groups.items()):
+            pq = torch.stack([queries[:, parts[pi][0] : parts[pi][0] + ln] for pi in pidx], dim=1).reshape(-1, ln)
+            part_of = np.asarray(pidx, dtype=np.int64)
+            for start, ns, hits in _workq_hits(index, pq, seed_tape(ln, edit), edit=edit,
+                                               active=np.ones(pq.shape[0], dtype=bool), chunk=pq.shape[0]):
+                row = start + hits.lane.astype(np.int64) // ns  # row of pq
+                lb.append(hits.lb.astype(np.int64))
+                sz.append(hits.sz.astype(np.int64))
+                qp.append(row // len(pidx) * len(parts) + part_of[row % len(pidx)])
+    seeds = tuple(np.concatenate(a) if a else np.zeros(0, dtype=np.int64) for a in (lb, sz, qp))
+    return sv_e1(index, queries, parts, seeds, k=k, edit=edit, timer=timer)
 
 
 def load_scheme(
@@ -187,20 +213,21 @@ def _locate_flat_hits(index: DeviceIndex, hits: workq.FlatHits, ns: int, query_i
     )
 
 
-def _run_workq_grouped(
+def _workq_hits(
     index: DeviceIndex,
-    qarr: np.ndarray,
+    queries: torch.Tensor,
     tape: SchemeTape,
-    qids: np.ndarray,
     *,
     edit: bool,
-    active: np.ndarray | None,
-    max_hits: int,
+    active: np.ndarray,
     chunk: int,
-) -> SearchResult:
-    """Work-queue engine driver: split schemes with more than ``MAX_NS``
-    searches into tape groups, chunk the queries to the meta-packing limit,
-    search each (chunk, group) with dedup on, locate, merge and cap.
+    cap_per_query: int = 0,
+) -> list[tuple[int, int, workq.FlatHits]]:
+    """Work-queue search of uint8 ``queries`` on the index's device: split
+    schemes with more than ``MAX_NS`` searches into tape groups, chunk the
+    queries to the meta-packing limit and search each (chunk, group) with
+    dedup on.  Returns (first query of the chunk, searches of the group,
+    unlocated hits) per search.
 
     A step that passes ``workq.HARD_CAP`` halves the chunk's active queries
     and searches the halves, recursing until each fits; one query alone
@@ -213,17 +240,13 @@ def _run_workq_grouped(
     dev = index.device
     group_tapes = [workq.upload_tape(g, dev) for g in groups]
     chunk = min(chunk, *(workq.max_chunk_queries(g.length, g.num_searches, g.max_errors, edit) for g in groups))
-    nq = qarr.shape[0]
-    act_all = np.ones(nq, dtype=bool) if active is None else np.asarray(active, dtype=bool)
-    qfull = torch.from_numpy(np.ascontiguousarray(qarr, dtype=np.uint8)).to(dev)
-    cap_per_query = 4 * max_hits if max_hits > 0 else 0
-    results: list[SearchResult] = []
+    out: list[tuple[int, int, workq.FlatHits]] = []
 
-    def search(q, act: np.ndarray, ids, gt: SchemeTape, dt) -> None:
+    def search(start: int, act: np.ndarray, gt: SchemeTape, dt) -> None:
         try:
             hits = workq.workq_search(
-                index, q, dt, torch.from_numpy(act).to(dev), edit=edit, k=gt.max_errors,
-                ph0=workq.phase0_length(gt, edit), dedup_every=workq.DEDUP_EVERY,
+                index, queries[start : start + chunk], dt, torch.from_numpy(act).to(dev), edit=edit,
+                k=gt.max_errors, ph0=workq.phase0_length(gt, edit), dedup_every=workq.DEDUP_EVERY,
                 cap_per_query=cap_per_query,
             )
         except workq.QueueOverflow:
@@ -235,15 +258,36 @@ def _run_workq_grouped(
             for half in np.array_split(act_idx, 2):
                 sub = np.zeros_like(act)
                 sub[half] = True
-                search(q, sub, ids, gt, dt)
+                search(start, sub, gt, dt)
             return
-        results.append(_locate_flat_hits(index, hits, gt.num_searches, ids))
+        out.append((start, gt.num_searches, hits))
 
-    for start in range(0, nq, chunk):
-        act = act_all[start : start + chunk]
+    for start in range(0, queries.shape[0], chunk):
+        act = active[start : start + chunk]
         if act.any():
             for gt, dt in zip(groups, group_tapes):
-                search(qfull[start : start + chunk], act, qids[start : start + chunk], gt, dt)
+                search(start, act, gt, dt)
+    return out
+
+
+def _run_workq_grouped(
+    index: DeviceIndex,
+    qarr: np.ndarray,
+    tape: SchemeTape,
+    qids: np.ndarray,
+    *,
+    edit: bool,
+    active: np.ndarray | None,
+    max_hits: int,
+    chunk: int,
+) -> SearchResult:
+    """Work-queue engine driver: search the queries (``_workq_hits``),
+    locate, merge and cap."""
+    act = np.ones(qarr.shape[0], dtype=bool) if active is None else np.asarray(active, dtype=bool)
+    qfull = torch.from_numpy(np.ascontiguousarray(qarr, dtype=np.uint8)).to(index.device)
+    found = _workq_hits(index, qfull, tape, edit=edit, active=act, chunk=chunk,
+                        cap_per_query=4 * max_hits if max_hits > 0 else 0)
+    results = [_locate_flat_hits(index, hits, ns, qids[start:]) for start, ns, hits in found]
     return _cap_hits_per_query(_merge_results(results), max_hits)
 
 
@@ -251,16 +295,25 @@ def _run_sv_with_fallback(
     index: DeviceIndex, qarr: np.ndarray, qids: np.ndarray, *, k: int, edit: bool, chunk: int, scheme_kw: dict,
     timer: StageTimer | None,
 ) -> SearchResult:
-    """Seed-and-verify over the bucket; queries it cannot search exactly
-    alone (N in a table-covered seed, a seed over ``PART_CAP``) go through
-    the work-queue engine instead, and the two row sets are concatenated."""
-    parts = plan_parts(qarr.shape[1], k)
-    bad = seed_bad_mask(index, qarr, parts)
-    fallback = np.zeros(qarr.shape[0], dtype=bool) if bad is None else bad.copy()
-    keep = np.flatnonzero(~fallback)
-    sv_q, sv_ids = (qarr, qids) if bad is None else (qarr[keep], qids[keep])
-    res, over = _run_sv_fused(index, sv_q, sv_ids, k=k, edit=edit, chunk=chunk, parts=parts, timer=timer)
-    fallback[keep[over]] = True
+    """Seed-and-verify over the bucket, with exact parts where they are
+    long enough and one-error parts otherwise; queries it cannot search
+    exactly alone (a seed over ``PART_CAP``; under exact parts also N in a
+    table-covered seed, which the one-error plan's work-queue seeds search)
+    go through the work-queue engine instead, and the row sets are
+    concatenated."""
+    m = qarr.shape[1]
+    parts = plan_parts(m, k)
+    if parts is None:
+        res, fallback = _run_sv_chunks(index, qarr, qids, k=k, edit=edit, chunk=chunk, run=_sv_e1_chunk,
+                                       parts=plan_parts_e1(m, k), timer=timer)
+    else:
+        bad = seed_bad_mask(index, qarr, parts)
+        fallback = np.zeros(qarr.shape[0], dtype=bool) if bad is None else bad.copy()
+        keep = np.flatnonzero(~fallback)
+        sv_q, sv_ids = (qarr, qids) if bad is None else (qarr[keep], qids[keep])
+        res, over = _run_sv_chunks(index, sv_q, sv_ids, k=k, edit=edit, chunk=chunk, run=sv_fused, parts=parts,
+                                   timer=timer)
+        fallback[keep[over]] = True
     if not fallback.any():
         return res
     tape = compile_tape(load_scheme(min_k=0, max_k=k, length=qarr.shape[1], edit=edit, **scheme_kw))
@@ -330,7 +383,7 @@ def search_queries(
         if query_ids is not None:
             qids = np.asarray(query_ids, dtype=np.int64)[qids]
         scheme_kw = dict(generator_name=generator_name, sigma=index.sigma, n_text=index.n, dynamic=dynamic)
-        use_sv = engine in ("auto", "sv") and sv_eligible(index, length, k)
+        use_sv = engine in ("auto", "sv") and sv_eligible(index, length, k, seed_errors=1)
         if engine == "sv" and not use_sv:
             raise ValueError(
                 "seed-verify engine not applicable (index lacks a text store, "

@@ -1,17 +1,26 @@
-"""Seed-and-verify search: pigeonhole exact seeding + banded verify.
+"""Seed-and-verify search: pigeonhole seeding + banded verify.
 
-The counterpart of ``sahara_tpu/engine/seedverify.py`` for the exact-parts
-plan.  Each query is split into k+1 parts; any occurrence with <= k errors
-aligns at least one part exactly, so exact backward search of every part
-finds a witness for every hit.  One chunk (``sv_fused``) runs five stages:
+The counterpart of ``sahara_tpu/engine/seedverify.py``, with its two seed
+plans.  Exact parts (``plan_parts``): each query is split into k+1 parts;
+any occurrence with <= k errors aligns at least one part exactly, so exact
+backward search of every part finds a witness for every hit.  One-error
+parts (``plan_parts_e1``), for reads too short for that: (k+2)//2 parts,
+one of which aligns with at most one error, found by a k=1 work-queue
+search of the part slices (the driver runs it, ``seed_tape``).  One chunk
+(``sv_fused``, or ``sv_e1`` after the seed search) runs five stages:
 
-1. seed    — K2 seed_scan: part intervals (lo, sz);
-2. expand  — ragged part intervals to candidate SA rows (cumsum/searchsorted);
+1. seed    — K2 seed_scan: part intervals (lo, sz); or the one-error seed
+             search (K5 workq_step);
+2. expand  — ragged part intervals to candidate SA rows (cumsum/searchsorted;
+             one-error seeds also drop duplicate (query, part, row) keys);
 3. locate  — SA row to text position (full-SA gather, or the sampled LF-walk
              through K1 rank_all);
 4. verify  — K3 verify: banded minimal-span edit DP (or Hamming count) of
              the full query around each anchor;
 5. emit    — (candidate, start) pairs with distance <= k, one D2H.
+
+Both plans share stages 3-5 (``verify_candidates``); under edit distance
+the 2k+1 starts around the anchor absorb a one-error seed's shift.
 
 Hit contract: every (query, seqId, pos) whose minimal-span edit (or Hamming)
 distance is <= k, with the minimal error count per position after the
@@ -22,6 +31,7 @@ candidate count once and allocates exactly: no capacity memory, no retries.
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
 
 import numpy as np
@@ -29,13 +39,16 @@ import torch
 
 from sahara_tpu_torch.engine.device import DeviceIndex
 from sahara_tpu_torch.engine.locate import expand_intervals, lf_walk
+from sahara_tpu_torch.engine.tape import SchemeTape, compile_tape
 from sahara_tpu_torch.kernels.seed import seed_scan
 from sahara_tpu_torch.kernels.verify import MAX_K, verify
+from sahara_tpu_torch.schemes import expand, get_generator, limit_to_hamming
 
 MIN_PART = 10  # shortest exact part worth seeding with (else candidate blowup)
 
-# Per-part occurrence budget: a query with any part interval larger than this
-# is not expanded; seed-and-verify cannot search it exactly on its own.
+# Per-part occurrence budget: a query with any part interval (one-error
+# seeds: any part's seed intervals together) larger than this is not
+# expanded; seed-and-verify cannot search it exactly on its own.
 PART_CAP = 1 << 16
 
 STAGES = ("seed", "expand", "locate", "verify", "emit")
@@ -60,6 +73,19 @@ def plan_parts(m: int, k: int) -> tuple[tuple[int, int], ...] | None:
     return _balanced_split(m, k + 1)
 
 
+def plan_parts_e1(m: int, k: int) -> tuple[tuple[int, int], ...] | None:
+    """Parts for one error per seed: with P = (k+2)//2 disjoint parts, any
+    alignment with <= k errors leaves a part with <= 1 error (P parts of
+    >= 2 each would make >= k+1).  None for k < 2 or parts shorter than
+    ``MIN_PART``."""
+    if k < 2:
+        return None
+    p = (k + 2) // 2
+    if m // p < MIN_PART:
+        return None
+    return _balanced_split(m, p)
+
+
 def seed_bad_mask(index: DeviceIndex, queries: np.ndarray, parts) -> np.ndarray | None:
     """Queries whose table-covered part suffixes carry ranks the j-mer table
     cannot encode (anything outside 1..4); None when there are none or the
@@ -73,10 +99,21 @@ def seed_bad_mask(index: DeviceIndex, queries: np.ndarray, parts) -> np.ndarray 
     return bad if bad.any() else None
 
 
-def sv_eligible(index: DeviceIndex, m: int, k: int) -> bool:
-    return index.text4 is not None and index.seq_starts is not None and k <= MAX_K and (
-        plan_parts(m, k) is not None
-    )
+def sv_eligible(index: DeviceIndex, m: int, k: int, seed_errors: int = 0) -> bool:
+    """``seed_errors=1`` also admits the one-error plan where exact parts
+    are too short."""
+    if not (index.text4 is not None and index.seq_starts is not None and k <= MAX_K):
+        return False
+    if plan_parts(m, k) is not None:
+        return True
+    return seed_errors >= 1 and plan_parts_e1(m, k) is not None
+
+
+@functools.lru_cache(maxsize=None)
+def seed_tape(ln: int, edit: bool) -> SchemeTape:
+    """The k=1 scheme tape (optimum generator) for ln-char seed parts."""
+    ess = expand(get_generator("optimum").generator(0, 1, 0, 0), ln)
+    return compile_tape(ess if edit else limit_to_hamming(ess))
 
 
 def seed_parts(index: DeviceIndex, queries: torch.Tensor, parts) -> tuple[torch.Tensor, torch.Tensor]:
@@ -122,40 +159,21 @@ class StageTimer:
         return dict(self._ms)
 
 
-def sv_fused(
-    index: DeviceIndex,
-    queries: torch.Tensor,
-    parts,
-    *,
-    k: int,
-    edit: bool,
-    timer: StageTimer | None = None,
-) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-    """One chunk: seed -> expand -> locate -> verify -> emit.
+def stage_of(timer: StageTimer | None):
+    """``timer.stage``, or a context that times nothing."""
+    return timer.stage if timer is not None else (lambda _name: contextlib.nullcontext())
 
-    ``queries`` uint8[nq, m] on the index's device.  Returns host arrays
-    (q_idx int64[H] local query index, abs_pos int64[H] padded-text start,
-    err int64[H], over bool[nq] — queries with a part interval larger than
-    ``PART_CAP``, which contribute no hits here)."""
-    stage = timer.stage if timer is not None else (lambda _name: contextlib.nullcontext())
-    dev = queries.device
-    p_cnt = len(parts)
-    with stage("seed"):
-        lo, sz = seed_parts(index, queries, parts)
-        over = (sz > PART_CAP).any(dim=1)
-        sz = torch.where(over[:, None], 0, sz)
-        n_cands, n_over = torch.stack([sz.sum(dtype=torch.int64), over.sum()]).tolist()
-    over_host = over.cpu().numpy() if n_over else np.zeros(queries.shape[0], dtype=bool)
-    if n_cands == 0:
-        z = np.zeros(0, dtype=np.int64)
-        return z, z, z, over_host
-    with stage("expand"):
-        rows, src, valid, _ = expand_intervals(lo.reshape(-1), sz.reshape(-1), n_cands)
-        q_of = src // p_cnt
-        offs = torch.tensor([off for off, _ in parts], dtype=torch.int64, device=dev)
-        off_of = offs[src % p_cnt]
+
+def verify_candidates(
+    index: DeviceIndex, queries: torch.Tensor, rows: torch.Tensor, q_of: torch.Tensor, off_of: torch.Tensor, *,
+    k: int, edit: bool, stage,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Stages 3-5 of a chunk: locate each candidate SA row (int32), verify
+    query ``q_of`` (int64) around its anchor, the row's text position less
+    the part's offset ``off_of`` (int64), and emit host arrays (q_idx,
+    abs_pos, err) int64 of the (candidate, start) pairs within k."""
     with stage("locate"):
-        seq_id, pos = lf_walk(index, rows, valid)
+        seq_id, pos = lf_walk(index, rows, torch.ones_like(rows, dtype=torch.bool))
         abs_pos = index.seq_starts[seq_id.clamp(min=0).long()].long() + pos.long()
     with stage("verify"):
         base = abs_pos - off_of - (k if edit else 0)  # earliest candidate start
@@ -165,4 +183,86 @@ def sv_fused(
     with stage("emit"):
         cand, delta = torch.nonzero(dist <= k, as_tuple=True)
         hits = torch.stack([q_of[cand], base[cand] + delta, dist[cand, delta].long()]).cpu().numpy()
-    return hits[0], hits[1], hits[2], over_host
+    return hits[0], hits[1], hits[2]
+
+
+def _over_host(over: torch.Tensor, n_over: int) -> np.ndarray:
+    return over.cpu().numpy() if n_over else np.zeros(over.shape[0], dtype=bool)
+
+
+_NO_HITS = (np.zeros(0, dtype=np.int64),) * 3
+
+
+def sv_fused(
+    index: DeviceIndex,
+    queries: torch.Tensor,
+    parts,
+    *,
+    k: int,
+    edit: bool,
+    timer: StageTimer | None = None,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """One chunk of the exact-parts plan: seed -> expand -> locate -> verify
+    -> emit.
+
+    ``queries`` uint8[nq, m] on the index's device.  Returns host arrays
+    (q_idx int64[H] local query index, abs_pos int64[H] padded-text start,
+    err int64[H], over bool[nq] — queries with a part interval larger than
+    ``PART_CAP``, which contribute no hits here)."""
+    stage = stage_of(timer)
+    dev = queries.device
+    p_cnt = len(parts)
+    with stage("seed"):
+        lo, sz = seed_parts(index, queries, parts)
+        over = (sz > PART_CAP).any(dim=1)
+        sz = torch.where(over[:, None], 0, sz)
+        n_cands, n_over = torch.stack([sz.sum(dtype=torch.int64), over.sum()]).tolist()
+    over_host = _over_host(over, n_over)
+    if n_cands == 0:
+        return (*_NO_HITS, over_host)
+    with stage("expand"):
+        rows, src, _, _ = expand_intervals(lo.reshape(-1), sz.reshape(-1), n_cands)
+        offs = torch.tensor([off for off, _ in parts], dtype=torch.int64, device=dev)
+        off_of = offs[src % p_cnt]
+    return (*verify_candidates(index, queries, rows, src // p_cnt, off_of, k=k, edit=edit, stage=stage), over_host)
+
+
+def sv_e1(
+    index: DeviceIndex,
+    queries: torch.Tensor,
+    parts,
+    seeds: tuple[np.ndarray, np.ndarray, np.ndarray],
+    *,
+    k: int,
+    edit: bool,
+    timer: StageTimer | None = None,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """One chunk of the one-error plan after its seed search: expand ->
+    locate -> verify -> emit.
+
+    ``seeds`` are the seed search's hit intervals as host int64 arrays (lb,
+    sz, qp = query * P + part).  A query whose part's intervals sum past
+    ``PART_CAP`` (a row counted once per interval that holds it) is flagged
+    in ``over`` and expanded no further; the rest expand to distinct
+    (query, part, row) candidates.  Returns what ``sv_fused`` returns."""
+    stage = stage_of(timer)
+    nq, p_cnt = queries.shape[0], len(parts)
+    if len(seeds[0]) == 0:
+        return (*_NO_HITS, np.zeros(nq, dtype=bool))
+    dev = queries.device
+    with stage("expand"):
+        lb, sz, qp = (torch.from_numpy(a).to(dev) for a in seeds)
+        tot = torch.zeros(nq * p_cnt, dtype=torch.int64, device=dev).index_add_(0, qp, sz)
+        over = (tot.view(nq, p_cnt) > PART_CAP).any(dim=1)
+        sz = torch.where(over[qp // p_cnt], 0, sz)
+        n_rows, n_over = torch.stack([sz.sum(), over.sum()]).tolist()
+        over_host = _over_host(over, n_over)
+        if n_rows == 0:
+            return (*_NO_HITS, over_host)
+        rows, src, _, _ = expand_intervals(lb, sz, n_rows)
+        key = torch.unique((qp[src] << 32) | rows.long())  # rows < 2^31
+        qp_u = key >> 32
+        offs = torch.tensor([off for off, _ in parts], dtype=torch.int64, device=dev)
+        off_of = offs[qp_u % p_cnt]
+    rows = (key & 0xFFFFFFFF).to(torch.int32)
+    return (*verify_candidates(index, queries, rows, qp_u // p_cnt, off_of, k=k, edit=edit, stage=stage), over_host)

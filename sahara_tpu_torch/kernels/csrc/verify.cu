@@ -8,11 +8,12 @@
 // q_of[r] against text[p ...], or INF.  Text positions outside [0, n) and
 // sentinels (rank 0) can neither match, substitute nor be deleted.
 //
-// Bound on the H100: the integer instruction rate of the SM's ALU pipes.  A
-// thread runs m dependent rows of a band of B = 2k+1 cells; the bytes are
-// small (a window of m + k nibbles and the query per candidate).
+// Bound on the H100 under edit distance: the integer instruction rate of the
+// SM's ALU pipes.  A thread runs m dependent rows of a band of B = 2k+1
+// cells; the bytes are small (a window of m + k nibbles and the query per
+// candidate).  The Hamming entry (K3h) is described above its kernel.
 //
-// Design: one thread per (candidate, start), the 2k+1 starts of a candidate
+// Edit design: one thread per (candidate, start), the 2k+1 starts of a candidate
 // on adjacent threads (their window loads coalesce), k a template parameter
 // (k <= 7), the a/b band rows and the B text chars under the band in
 // registers, the deletion chain run left to right in registers.  Each thread
@@ -272,21 +273,124 @@ __global__ void edit_kernel(const int32_t* __restrict__ text4, int n, const uint
     dist[t] = fast ? edit_fast<K>(text4, n, q, m, p) : edit_general<K>(text4, n, q, m, p);
 }
 
-__global__ void hamming_kernel(const int32_t* __restrict__ text4, int64_t n, const uint8_t* __restrict__ queries,
-                               int m, const int32_t* __restrict__ q_of, const int32_t* __restrict__ base,
-                               int64_t n_cands, int32_t* __restrict__ dist) {
-    const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (r >= n_cands) return;
-    const uint8_t* q = queries + static_cast<int64_t>(q_of[r]) * m;
-    const int64_t p = base[r];
+// K3h, the Hamming entry.  Bound on the H100: bytes (a window of m nibbles
+// and m query bytes a candidate); what held the first version back was
+// latency, one thread a candidate with m dependent byte loads.  Design: G
+// adjacent lanes a candidate (G = 1, 2, 4 or 8, by hamming_lanes: the most
+// that keep the launch within kHammingThreadsPerSm threads an SM, at most
+// twice the window's words), each taking a run of whole 8-char words of the
+// window and summing by shuffles; blocks of kHammingBlock threads.
+// A lane whose run lies inside [0, n) takes the fast loop: per 8 chars one
+// funnel-shifted text word of 8 nibbles and two query words (QueryStream),
+// the query bytes repacked to nibbles (exact while every byte is < 16, as
+// ranks are; a lane that meets a larger byte reruns the general loop), one
+// XOR and a popc of the nibble-nonzero mask for the mismatches, and a
+// nibble-zero test for the sentinels, both masked to the window's last
+// partial word.  Any other run takes a per-position loop like the first
+// version's.
+
+// Lanes a candidate under Hamming distance: 0 lets hamming_lanes pick them
+// from the candidate count and m; 1, 2, 4 or 8 forces them.
+constexpr int kHammingLanes = 0;
+constexpr int kHammingThreadsPerSm = 1024;  // enough warps to hide the loads' latency
+constexpr int kHammingBlock = 128;
+constexpr int kSentinel = 1 << 16;          // a lane's sentinel flag above its mismatch count (<= 150)
+
+// 8 query chars (bytes of lo, then hi, each < 16) as 8 nibbles, char i in nibble i.
+__device__ __forceinline__ uint32_t nibbles8(uint32_t lo, uint32_t hi) {
+    return __byte_perm(lo | (lo >> 4), hi | (hi >> 4), 0x6420u);
+}
+
+// Mismatches of query chars q[0, len) against text[pos, pos + len), which
+// lies inside [0, n), plus kSentinel if a text char there is rank 0.  Sets
+// `exact` false if a query byte is 16 or more (the repacking drops it).
+__device__ int hamming_fast(const int32_t* __restrict__ text4, int n, const uint8_t* __restrict__ q, int pos,
+                            int len, bool& exact) {
+    const int last_word = (n - 1) >> 3;
+    int tw = pos >> 3;
+    const int tshift = 4 * (pos & 7);
+    uint32_t tlo = static_cast<uint32_t>(__ldg(text4 + tw));
+    QueryStream qs(q, len);
+    int mism = 0;
+    uint32_t zero = 0, high = 0;
+    for (int c = 0; c < len; c += 8) {
+        const uint32_t thi = static_cast<uint32_t>(__ldg(text4 + min(++tw, last_word)));
+        uint32_t t = __funnelshift_r(tlo, thi, tshift);
+        tlo = thi;
+        uint32_t qlo, qhi;
+        qs.take8(qlo, qhi);
+        uint32_t keep = 0xFFFFFFFFu;
+        const int rem = len - c;
+        if (rem < 8) {  // the last partial word: chars past the run count for nothing
+            keep = (1u << (4 * rem)) - 1u;
+            qlo &= rem >= 4 ? 0xFFFFFFFFu : (1u << (8 * rem)) - 1u;
+            qhi &= rem <= 4 ? 0u : (1u << (8 * (rem - 4))) - 1u;
+        }
+        high |= qlo | qhi;
+        const uint32_t x = t ^ nibbles8(qlo, qhi);
+        const uint32_t y = x | (x >> 2);
+        mism += __popc((y | (y >> 1)) & 0x11111111u & keep);  // nibbles that differ
+        t |= ~keep & 0x11111111u;
+        zero |= (t - 0x11111111u) & ~t & 0x88888888u;  // nonzero iff some nibble is 0
+    }
+    exact = (high & 0xF0F0F0F0u) == 0;
+    return mism | (zero ? kSentinel : 0);
+}
+
+// The same for query chars q[c0, c1) against text[p + c0, p + c1), any p.
+__device__ int hamming_general(const int32_t* __restrict__ text4, int64_t n, const uint8_t* __restrict__ q,
+                               int64_t p, int c0, int c1) {
     int mism = 0;
     bool sentinel = false;
-    for (int i = 0; i < m; ++i) {
+    for (int i = c0; i < c1; ++i) {
         const int tc = text_at(text4, n, p + i);
         sentinel |= (tc == 0);
         mism += (tc != q[i]);
     }
-    dist[r] = sentinel ? kInf : mism;
+    return mism | (sentinel ? kSentinel : 0);
+}
+
+template <int G>
+__global__ void hamming_kernel(const int32_t* __restrict__ text4, int n, const uint8_t* __restrict__ queries, int m,
+                               const int32_t* __restrict__ q_of, const int32_t* __restrict__ base, int n_cands,
+                               int32_t* __restrict__ dist) {
+    const int t = blockIdx.x * blockDim.x + threadIdx.x;
+    const int r = t / G;
+    if (r >= n_cands) return;  // whole groups leave: G divides 32
+    const int lane = t % G;
+    const int per = 8 * (((m + 7) / 8 + G - 1) / G);  // chars a lane
+    const int c0 = min(per * lane, m), c1 = min(per * (lane + 1), m);
+    const uint8_t* q = queries + static_cast<int64_t>(q_of[r]) * m;
+    const int64_t p = base[r];
+    int v = 0;
+    if (c0 < c1) {
+        bool exact = false;
+        if (p + c0 >= 0 && p + c1 <= n) v = hamming_fast(text4, n, q + c0, static_cast<int>(p + c0), c1 - c0, exact);
+        if (!exact) v = hamming_general(text4, n, q, p, c0, c1);
+    }
+    if (G > 1) {
+        const unsigned group = ((1u << G) - 1u) << (threadIdx.x & 31 & ~(G - 1));
+#pragma unroll
+        for (int s = G / 2; s > 0; s >>= 1) v += __shfl_xor_sync(group, v, s);
+    }
+    if (lane == 0) dist[r] = v >= kSentinel ? kInf : v;
+}
+
+int hamming_lanes(int64_t n_cands, int m) {
+    if (kHammingLanes) return kHammingLanes;
+    const int words = (m + 7) / 8;
+    const int64_t target = int64_t{sahara::sm_count()} * kHammingThreadsPerSm;
+    int g = 1;
+    while (g < 8 && g < words && n_cands * 2 * g <= target) g *= 2;
+    return g;
+}
+
+template <int G>
+void launch_hamming(const int32_t* text4, int n, const uint8_t* q, int m, const int32_t* q_of, const int32_t* base,
+                    int n_cands, int32_t* dist, cudaStream_t stream) {
+    const int threads = n_cands * G;
+    hamming_kernel<G><<<(threads + kHammingBlock - 1) / kHammingBlock, kHammingBlock, 0, stream>>>(
+        text4, n, q, m, q_of, base, n_cands, dist);
 }
 
 template <int K>
@@ -297,6 +401,10 @@ void launch_edit(const int32_t* text4, int n, const uint8_t* q, int m, const int
 }
 
 }  // namespace
+
+// The lanes a candidate that a Hamming launch of n_cands candidates of m
+// chars takes.
+extern "C" int sahara_verify_hamming_lanes(int64_t n_cands, int m) { return hamming_lanes(n_cands, m); }
 
 // dist: int32[n_cands, 2k+1] under edit distance, int32[n_cands] under Hamming.
 extern "C" int sahara_verify(const void* text4, int64_t n, const void* queries, int m, const void* q_of,
@@ -309,17 +417,23 @@ extern "C" int sahara_verify(const void* text4, int64_t n, const void* queries, 
     const auto* ba = static_cast<const int32_t*>(base);
     auto* out = static_cast<int32_t*>(dist);
     auto s = static_cast<cudaStream_t>(stream);
+    // both entries index the text, their threads and candidates in 32 bits
+    if (n >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
+    const int nn = static_cast<int>(n);
     if (!edit) {
-        constexpr int kThreads = 128;
-        const int64_t blocks = (n_cands + kThreads - 1) / kThreads;
-        hamming_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(tx, n, q, m, qo, ba, n_cands, out);
+        const int g = hamming_lanes(n_cands, m);
+        if (n_cands * g >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
+        const int nc = static_cast<int>(n_cands);
+        switch (g) {
+            case 1: launch_hamming<1>(tx, nn, q, m, qo, ba, nc, out, s); break;
+            case 2: launch_hamming<2>(tx, nn, q, m, qo, ba, nc, out, s); break;
+            case 4: launch_hamming<4>(tx, nn, q, m, qo, ba, nc, out, s); break;
+            case 8: launch_hamming<8>(tx, nn, q, m, qo, ba, nc, out, s); break;
+            default: return static_cast<int>(cudaErrorInvalidValue);
+        }
         return static_cast<int>(cudaGetLastError());
     }
-    // the edit kernel indexes in 32 bits
-    if (n >= (int64_t{1} << 31) || n_cands * (2 * k + 1) >= (int64_t{1} << 31)) {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    const int nn = static_cast<int>(n);
+    if (n_cands * (2 * k + 1) >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidValue);
     const int threads = static_cast<int>(n_cands * (2 * k + 1));
     switch (k) {
         case 0: launch_edit<0>(tx, nn, q, m, qo, ba, threads, out, s); break;

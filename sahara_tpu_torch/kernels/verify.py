@@ -9,7 +9,8 @@ cell (i, c) stands for column j = i - k + c, whose text char is
 text[start + j - 1].  Rank-0 chars (sentinels, and positions outside the
 text) can neither match, substitute nor be deleted.  Cells are saturated at
 INF after each row: values below INF are exactly the reference's, values at
-or above it never become hits.
+or above it never become hits.  Under Hamming distance (K3h) the span is
+text[base[r], base[r] + m), and a rank-0 char in it gives INF.
 """
 
 from __future__ import annotations
@@ -39,6 +40,15 @@ def _kernel():
         ]
         _fn = fn
     return _fn
+
+
+def hamming_lanes(n_cands: int, m: int) -> int:
+    """Lanes a candidate that the Hamming launch of ``n_cands`` candidates
+    of ``m`` chars takes on the current card (1, 2, 4 or 8)."""
+    fn = load("verify").sahara_verify_hamming_lanes
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int]
+    return fn(n_cands, m)
 
 
 def text_ranks(text4: torch.Tensor, n: int, pos: torch.Tensor) -> torch.Tensor:

@@ -5,6 +5,8 @@ at 1.5% divergence over ~35% of the text) and 65,536 100 bp reads with
 exactly 2 planted errors each, drawn uniformly from substitution, insertion
 and deletion; every read is searched on both strands.  Reference seed 1234,
 read seed 99.  ``make_reference`` is a copy of ``bench.py::make_reference``.
+``short_reads`` gives the short-read rows of ``tools/bench_variants.py``
+(32,768 reads of 36 bp, 2 planted errors, seed 7) on the same reference.
 """
 
 from __future__ import annotations
@@ -41,13 +43,20 @@ def bench_workload(
     """(reference uint8[n], strand queries uint8[2 * n_reads, read_len]):
     each read followed by its reverse complement, as ``bench.py`` searches."""
     ref = make_reference(np.random.default_rng(1234), int(ref_mb * 1_000_000))
+    return ref, short_reads(ref, n_reads, read_len, errors, seed=99)
+
+
+def short_reads(ref: np.ndarray, n_reads: int = 32768, read_len: int = 36, errors: int = 2,
+                seed: int = 7) -> np.ndarray:
+    """Strand queries uint8[2 * n_reads, read_len] of reads simulated from
+    ``ref``, each followed by its reverse complement."""
     records = simulate_reads(
         [_RANK_TO_CHAR[ref].tobytes()], num_reads=n_reads, read_length=read_len,
-        random_errors=errors, seed=99,
+        random_errors=errors, seed=seed,
     )
     out = np.empty((2 * n_reads, read_len), dtype=np.uint8)
     for i, r in enumerate(records):
         q = D_DNA5.char_to_rank(r.seq)
         out[2 * i] = q
         out[2 * i + 1] = D_DNA5.reverse_complement_rank(q)
-    return ref, out
+    return out

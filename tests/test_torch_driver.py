@@ -104,18 +104,22 @@ def test_part_cap_overflow_raises(indexes, monkeypatch):
 @pytest.mark.parametrize("route", ["frontier", "mesh", "sv_short"])
 def test_unported_routes_raise(indexes, route):
     """The frontier engine and meshes are not ported; seed-and-verify
-    refuses reads too short for exact parts, as the reference does."""
-    seqs, _, _, pdev = indexes
+    refuses reads too short even for one-error parts (16 chars at k=2: two
+    parts of 8), as the reference does."""
+    seqs, jdev, _, pdev = indexes
     kw = dict(k=2, device="cpu")
     if route == "frontier":
         kw["engine"] = "frontier"
     elif route == "mesh":
         kw["mesh"] = object()
     else:
-        kw.update(k=3, engine="sv")
-    queries = [np.asarray(seqs[0][: 30 if route == "sv_short" else M], dtype=np.uint8)]
+        kw["engine"] = "sv"
+    queries = [np.asarray(seqs[0][: 16 if route == "sv_short" else M], dtype=np.uint8)]
     with pytest.raises(ValueError if route == "sv_short" else NotImplementedError):
         search_queries(pdev, queries, **kw)
+    if route == "sv_short":
+        with pytest.raises(ValueError, match="seed-verify engine not applicable"):
+            jax_search_queries(jdev, queries, k=2, engine="sv")
 
 
 def test_search_needs_a_card_by_default(indexes):

@@ -23,7 +23,7 @@ from sahara_tpu_torch.kernels.rank_smem import (
     SMEM_LIMIT, launch_shape, occ16_smem_bytes, rank_all_smem, rank_all_smem_plain,
 )
 from sahara_tpu_torch.kernels.seed import seed_scan, seed_scan_plain
-from sahara_tpu_torch.kernels.verify import verify, verify_plain
+from sahara_tpu_torch.kernels.verify import hamming_lanes, verify, verify_plain
 from sahara_tpu_torch.kernels.workq import EPOCHS, TILE, workq_step, workq_step_plain
 
 pytestmark = pytest.mark.gpu
@@ -135,6 +135,88 @@ def test_verify_kernel_matches_plain(host, edit, k, case):
         want = verify_plain(*args)
         assert torch.equal(got, want)
         assert (want <= k).any() or case in ("sentinel", "edges")
+
+
+def _hamming_case(text, rng, case, m, cnt):
+    """(starts int64[cnt], queries uint8[cnt, m]) for K3h: ``clean``
+    windows inside the text, ``edges`` past either end, ``tail`` with a
+    sentinel in the window's last partial word of 8, ``n`` queries with N
+    and ``wide`` queries with bytes of 16 and more (the fast loop hands
+    those to the general one).  Half the queries are cut from the text at
+    their window, with a substitution."""
+    n = len(text)
+    if case == "edges":
+        base = np.r_[rng.integers(-m - 5, 1, cnt // 2), rng.integers(n - m - 5, n + 5, cnt - cnt // 2)]
+    elif case == "tail":
+        last = 8 * ((m - 1) // 8)  # the first char of the window's last word
+        base = rng.choice(np.flatnonzero(text == 0), cnt) - rng.integers(last, m, cnt)
+    else:
+        base = rng.integers(0, n - m + 1, cnt)
+    q = rng.integers(1, 5, (cnt, m)).astype(np.uint8)
+    own = np.flatnonzero((base >= 0) & (base + m <= n))[::2]
+    q[own] = text[base[own, None] + np.arange(m)]
+    q[own, rng.integers(0, m, len(own))] = rng.integers(1, 5, len(own))
+    if case == "n":
+        q[rng.integers(0, cnt, cnt), rng.integers(0, m, cnt)] = 5
+    elif case == "wide":
+        q[rng.integers(0, cnt, cnt // 8), rng.integers(0, m, cnt // 8)] = rng.integers(16, 256, cnt // 8)
+    return base, q
+
+
+def _hamming_check(index, base, q):
+    """K3h against its plain version, the queries' rows off 4-byte alignment."""
+    dev = index.device
+    flat = torch.zeros(q.size + 3, dtype=torch.uint8, device=dev)
+    qd = flat[3:].view(q.shape)
+    qd.copy_(torch.from_numpy(q))
+    args = (index.text4, index.n, qd, torch.arange(len(base), dtype=torch.int32, device=dev),
+            torch.from_numpy(base.astype(np.int32)).to(dev), 0, False)
+    before = LAUNCHES["verify"]
+    got = verify(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["verify"] == before + 1
+    want = verify_plain(*args)
+    assert torch.equal(got, want)
+    return want
+
+
+@pytest.mark.parametrize("case", ["clean", "edges", "tail", "n", "wide"])
+def test_hamming_kernel_matches_plain_every_m(host, case):
+    """K3h for every m from 1 to 150 on 600 candidates: the launch takes 1
+    lane a candidate up to m = 8 and 8 from m = 33, so every lane count
+    runs."""
+    dev = _card()
+    idx_host, _ = host
+    index = DeviceIndex.from_host(idx_host, device=dev)
+    text = unpack_text4(idx_host.text4, idx_host.n)
+    rng = np.random.default_rng(21 + len(case))
+    lanes, hits = set(), 0
+    for m in range(1, 151):
+        base, q = _hamming_case(text, rng, case, m, 600)
+        want = _hamming_check(index, base, q)
+        lanes.add(hamming_lanes(len(base), m))
+        hits += int((want[:, 0] <= 2).sum())
+    assert lanes == {1, 2, 4, 8}
+    assert hits > 0 or case in ("edges", "tail")
+
+
+def test_hamming_kernel_every_lane_count_at_m150(host):
+    """K3h at m = 150 on batches from 64 to 262,144 candidates, one for
+    each lane count the launch picks, windows all over the text and past
+    its ends."""
+    dev = _card()
+    idx_host, _ = host
+    index = DeviceIndex.from_host(idx_host, device=dev)
+    text = unpack_text4(idx_host.text4, idx_host.n)
+    rng = np.random.default_rng(22)
+    m, by_lanes = 150, {}
+    for cnt in (1 << e for e in range(6, 19)):
+        by_lanes.setdefault(hamming_lanes(cnt, m), cnt)
+    assert set(by_lanes) == {1, 2, 4, 8}
+    for cnt in by_lanes.values():
+        base, q = _hamming_case(text, rng, "clean", m, cnt)
+        base[::7] = rng.integers(-m, len(text) + 1, len(base[::7]))
+        _hamming_check(index, base, q)
 
 
 def test_seed_scan_kernel_shares_rows(host):

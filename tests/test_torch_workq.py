@@ -157,8 +157,9 @@ def test_workq_hamming_and_max_hits_rows_equal_jax(sv_workload):
 
 
 def test_auto_routes_short_reads_to_workq(sv_workload):
-    """Too short for exact parts: the port's auto takes the work-queue
-    engine where the reference takes one-error seeds; same rows."""
+    """Too short for exact parts (20 chars at k=2): both packages' auto
+    take one-error seeds, whose seed search is the work-queue engine's; same
+    rows."""
     jdev, _, pdev, queries = sv_workload
     short = [q[:20] for q in queries[:6]]
     want = jax_search_queries(jdev, short, k=2, edit=True, chunk=8)
