@@ -10,8 +10,12 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
    (``DESIGN_VARIANTS``), all nvcc runs at once, and prints each kernel's
    registers;
 2. regenerates the ``bench.py`` workload from its seeds (40 MB reference,
-   65,536 reads of 100 bp with 2 planted errors, both strands) and builds
-   the bidirectional index with its full-SA sidecar;
+   65,536 reads of 100 bp with 2 planted errors, both strands); phase
+   ``cli`` begins: the reference goes into a one-record FASTA in a
+   temporary directory, the port's CLI ``read_simulator`` writes the reads
+   (they must equal the workload's) and its ``index`` builds the
+   bidirectional index with its full-SA sidecar, which every later phase
+   loads (``load_index``);
 3. holds K1-K3 against their plain PyTorch versions on the card at the
    seed-and-verify path's shapes (exact equality: all integer), and times
    both: each kernel by the profiler's device time, warm and with L2
@@ -67,9 +71,21 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
    same reads under Hamming distance against the JAX package's hit set
    with every hit's mismatches recounted, and K3h timed on that run's
    largest verify call like its 100 bp row;
-10. runs the rank bench (``sahara_tpu_torch/bench_rank.py``: K1 and K4 at
+10. phase ``cli`` goes on, the CLI run in this process (``run_cli``) so
+   that the launch counts can be read: ``search -e 2 -d lev`` of the
+   workload's reads on the card, its output byte-equal to the JAX
+   package's CLI output (sha256 and line count recorded on the CPU,
+   ``JAX_CLI_*``) and to the rows of step 4, with K1, K2 and K3 launched
+   in it, timed end to end and by its stats block; the same with
+   ``SAHARA_STREAM=1`` (the streaming path), byte-identical; then the
+   conformance corpus through the port's ``read_simulator``, ``index``,
+   ``rbi-index`` and ``rbi-index-dna4``, the 9 ``search`` and 2 ``rbi``
+   golden cases with ``--device cuda``, each byte-equal to
+   ``tests/goldens/``, and r2 with ``--engine workq`` on the card and on
+   the CPU, byte-equal (K5 through the CLI);
+11. runs the rank bench (``sahara_tpu_torch/bench_rank.py``: K1 and K4 at
    100,000 characters, K1 alone at 4.6 million; device time and call time);
-11. prints the kernels' JSON line (each kernel's figures at the sv_e1
+12. prints the kernels' JSON line (each kernel's figures at the sv_e1
    path's shape as its ``e1_*`` keys, beside that path's launches), the
    card line, and as the last line
    ``{"ok": true, "device": {...}}``.  The full report goes to
@@ -84,11 +100,13 @@ import contextlib
 import ctypes
 import functools
 import hashlib
+import io
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -132,6 +150,41 @@ JAX_E1_HAMMING_SHA256 = "63f0c61554da25b586c6b82d28af80b2aa2eb383416f3b45e548977
 # and the engine misses them with dedup off too.
 JAX_E1_WORKQ_PREFIX_HITS = 16214
 JAX_E1_WORKQ_PREFIX_SHA256 = "e44d9c07db5a3fd633346408031cc550cab5e95f41cedc8055858ce149cf4dff"
+
+# The JAX package's CLI output for the bench.py workload, recorded on the CPU
+# with sahara_tpu, from the repository's root, HOME pointed at a scratch
+# directory and JAX_PLATFORMS=cpu:
+#   ref.fasta: one record ">ref", one sequence line (line_length=0), the ranks
+#     of make_reference(default_rng(1234), 40_000_000) as ACGT
+#   python -m sahara_tpu read_simulator -i ref.fasta -o reads.fasta -n 65536 \
+#       -l 100 -e 2 --seed 99 --fasta_line_length 0
+#   python -m sahara_tpu index ref.fasta
+#   python -m sahara_tpu search -q reads.fasta -i ref.fasta.idx -o out.txt -e 2 -d lev
+# sha256 of out.txt's bytes and its line count.
+JAX_CLI_SHA256 = "e6ba548efad46fc5065aa50ea7e50e7224722d532033ec92cd8b2c45e5ee1325"
+JAX_CLI_LINES = 80248
+
+# The conformance corpus and cases of tests/test_conformance.py (which
+# imports the JAX package, so they are copied here; tests/test_torch_cli.py
+# holds the copies equal): reads (count, length, errors, seed) simulated from
+# a three-record reference, the 9 search cases and the 2 rbi cases, each
+# byte-compared with its golden in tests/goldens/.
+GOLDEN_SEQ_LENS = (700, 400, 250)
+GOLDEN_SEED = 20260817
+GOLDEN_READS = {"r0": (10, 50, 0, 1), "r1": (10, 60, 1, 2), "r2": (12, 80, 2, 3)}
+GOLDEN_CASES = [
+    ("e0_exact_ham.txt", "r0", ["-e", "0", "-d", "ham", "-g", "optimum"]),
+    ("e1_lev_optimum.txt", "r1", ["-e", "1", "-d", "lev", "-g", "optimum"]),
+    ("e2_lev_h2k2.txt", "r2", ["-e", "2", "-d", "lev", "-g", "h2-k2"]),
+    ("e2_ham_pigeonopt.txt", "r2", ["-e", "2", "-d", "ham", "-g", "pigeon_opt"]),
+    ("e2_lev_besthits.txt", "r2", ["-e", "2", "-d", "lev", "-g", "optimum", "-m", "besthits"]),
+    ("besthits_ham.txt", "r2", ["-e", "2", "-d", "ham", "-g", "optimum", "-m", "besthits"]),
+    ("e2_lev_maxhits2.txt", "r2", ["-e", "2", "-d", "lev", "-g", "optimum", "--max_hits", "2"]),
+    ("e2_lev_dynamic.txt", "r2", ["-e", "2", "-d", "lev", "-g", "h2-k2", "--dynamic_generator"]),
+    ("e1_lev_noreverse.txt", "r1", ["-e", "1", "-d", "lev", "-g", "optimum", "--no-reverse"]),
+]
+GOLDEN_RBI_CASES = [("rbi_e1.txt", "rbi-search", ".rbi.idx"), ("rbi4_e1.txt", "rbi-search-dna4", ".rbi4.idx")]
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens")
 
 K = 2
 CHUNK = 16384
@@ -1195,6 +1248,142 @@ def sv_e1_phase(index, ref: np.ndarray, extra: dict) -> dict:
     return out
 
 
+def run_cli(argv: list[str]) -> tuple[float, str]:
+    """One subcommand of the port's CLI, in this process (so that its
+    launches count): its wall seconds and its standard output."""
+    from sahara_tpu_torch.cli.main import main as cli_main
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{' '.join(argv[:1])} exited {rc}: {buf.getvalue()[-2000:]}")
+    return wall, buf.getvalue()
+
+
+def stats_block(log: str) -> dict:
+    """The seconds of each phase of a subcommand's ``stats:`` block."""
+    return {m.group(1): float(m.group(2)) for m in re.finditer(r"^  (.+?) time: +([\d.]+)s$", log, re.M)}
+
+
+def cli_index_phase(tmp: str, ref: np.ndarray, queries: np.ndarray) -> tuple[dict, str, str]:
+    """The ``bench.py`` workload's files through the CLI: the reference as a
+    one-record FASTA, ``read_simulator`` (its reads must be the workload's
+    forward reads) and ``index`` (the bidirectional index with its full-SA
+    sidecar, which the other phases load)."""
+    from sahara_tpu_torch.alphabet import D_DNA5
+    from sahara_tpu_torch.io.fasta import FastaRecord, read_fasta_seq_matrix, write_fasta
+
+    fasta, reads = os.path.join(tmp, "ref.fasta"), os.path.join(tmp, "reads.fasta")
+    write_fasta(fasta, [FastaRecord("ref", D_DNA5.rank_to_char(ref))], line_length=0)
+    n_reads, m = len(queries) // 2, queries.shape[1]
+    sim_s, _ = run_cli(["read_simulator", "-i", fasta, "-o", reads, "-n", str(n_reads), "-l", str(m), "-e", str(K),
+                        "--seed", "99", "--fasta_line_length", "0"])
+    mat = read_fasta_seq_matrix(reads)
+    if mat is None or not np.array_equal(D_DNA5.char_to_rank_table[mat], queries[0::2]):
+        raise AssertionError("read_simulator's reads differ from the bench.py workload's")
+    index_s, log = run_cli(["index", fasta])
+    out = dict(read_simulator_s=sim_s, index_s=index_s, index_stats=stats_block(log))
+    print(f"cli: read_simulator {sim_s:.1f} s ({n_reads} reads equal the workload's), index {index_s:.1f} s "
+          f"(stats {json.dumps(out['index_stats'])})", flush=True)
+    return out, fasta, reads
+
+
+def cli_search_phase(tmp: str, fasta: str, reads: str, n_reads: int, sv_rows: np.ndarray, card: str) -> dict:
+    """``search`` of the workload's reads through the CLI on the card:
+    buffered, then streamed (``SAHARA_STREAM=1``), both files byte-equal to
+    the JAX package's CLI output and to the seed-and-verify path's rows."""
+    from sahara_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    outs = [os.path.join(tmp, "out.txt"), os.path.join(tmp, "out_stream.txt")]
+    argv = ["search", "-q", reads, "-i", fasta + ".idx", "-e", str(K), "-d", "lev"]
+    reset_launches()
+    wall, log = run_cli(argv + ["-o", outs[0]])
+    launches = dict(LAUNCHES)
+    require_launches(launches, ("rank_all", "seed_scan", "verify"), "CLI search")
+    with open(outs[0], "rb") as fh:
+        data = fh.read()
+    sha, lines = hashlib.sha256(data).hexdigest(), data.count(b"\n")
+    print(f"cli search: {lines} lines, sha256 {sha} (JAX package's CLI: {JAX_CLI_LINES}, {JAX_CLI_SHA256})",
+          flush=True)
+    if sha != JAX_CLI_SHA256 or lines != JAX_CLI_LINES:
+        raise AssertionError("the CLI's output differs from the JAX package's CLI output")
+    got = np.array(data.decode().split(), dtype=np.int64).reshape(-1, 3)
+    if not np.array_equal(got[np.lexsort(got.T[::-1])], sv_rows[:, :3]):
+        raise AssertionError("the CLI's hits differ from the seed-and-verify path's rows")
+    os.environ["SAHARA_STREAM"] = "1"
+    try:
+        stream_wall, stream_log = run_cli(argv + ["-o", outs[1]])
+    finally:
+        del os.environ["SAHARA_STREAM"]
+    with open(outs[1], "rb") as fh:
+        if "streaming:           True" not in stream_log or fh.read() != data:
+            raise AssertionError("the streamed search is not byte-identical to the buffered one")
+    out = dict(wall_s=wall, reads_per_s=n_reads / wall, stats=stats_block(log), launches=launches,
+               stream_wall_s=stream_wall, stream_reads_per_s=n_reads / stream_wall,
+               stream_stats=stats_block(stream_log), lines=lines, sha256=sha, card=card)
+    for label, key in (("buffered", ""), ("streamed", "stream_")):
+        print(f"cli search {label}: wall {out[key + 'wall_s']:.2f} s, {out[key + 'reads_per_s']:.1f} reads/s end to "
+              f"end ({n_reads} reads, both strands); stats block s {json.dumps(out[key + 'stats'])}; {card}",
+              flush=True)
+    print(f"cli search launches: {json.dumps(launches)}; streamed output byte-identical", flush=True)
+    return out
+
+
+def cli_golden_phase(tmp: str) -> dict:
+    """The conformance corpus through the port's ``read_simulator`` and
+    index subcommands, the 9 ``search`` and 2 ``rbi`` cases on the card,
+    each byte-equal to its golden; r2 through ``--engine workq`` on the
+    card and on the CPU, byte-equal."""
+    from sahara_tpu_torch.io.fasta import FastaRecord, write_fasta
+    from sahara_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    gdir = os.path.join(tmp, "goldens")
+    os.makedirs(gdir)
+    rng = np.random.default_rng(GOLDEN_SEED)
+    ref = os.path.join(gdir, "ref.fasta")
+    write_fasta(ref, [FastaRecord(id=f"chr{i}", seq=bytes(b"ACGT"[j] for j in rng.integers(0, 4, size=n)))
+                      for i, n in enumerate(GOLDEN_SEQ_LENS)])
+    for name, (n, m, e, seed) in GOLDEN_READS.items():
+        run_cli(["read_simulator", "-i", ref, "-o", os.path.join(gdir, f"{name}.fasta"), "-n", str(n), "-l", str(m),
+                 "-e", str(e), "--seed", str(seed)])
+    for cmd in ("index", "rbi-index", "rbi-index-dna4"):
+        run_cli([cmd, ref])
+    runs = [(name, ["search", "-q", os.path.join(gdir, f"{reads}.fasta"), "-i", ref + ".idx"] + flags)
+            for name, reads, flags in GOLDEN_CASES]
+    runs += [(name, [cmd, "-q", os.path.join(gdir, "r1.fasta"), "-i", ref + suffix, "-e", "1", "-g", "optimum"])
+             for name, cmd, suffix in GOLDEN_RBI_CASES]
+    reset_launches()
+    for name, argv in runs:
+        out = os.path.join(gdir, name)
+        run_cli(argv + ["-o", out, "--device", "cuda"])
+        with open(out) as a, open(os.path.join(GOLDEN_DIR, name)) as b:
+            if a.read() != b.read():
+                raise AssertionError(f"{name} on the card differs from its golden")
+    launches = dict(LAUNCHES)
+    require_launches(launches, ("rank_all", "seed_scan", "verify"), "goldens")
+    reset_launches()
+    workq = {}
+    for device in ("cuda", "cpu"):
+        workq[device] = os.path.join(gdir, f"r2_workq_{device}.txt")
+        run_cli(["search", "-q", os.path.join(gdir, "r2.fasta"), "-i", ref + ".idx", "-o", workq[device], "-e", "2",
+                 "-d", "lev", "-g", "optimum", "--engine", "workq", "--device", device])
+    workq_launches = dict(LAUNCHES)
+    require_launches(workq_launches, ("workq_step",), "CLI work-queue")
+    with open(workq["cuda"]) as a, open(workq["cpu"]) as b:
+        text = a.read()
+        if text != b.read() or not text:
+            raise AssertionError("--engine workq on the card differs from the CPU")
+    out = dict(cases=[name for name, _ in runs], launches=launches, workq_launches=workq_launches,
+               workq_lines=text.count("\n"))
+    print(f"cli goldens: {len(runs)} byte-identical on the card (launches {json.dumps(launches)}); r2 --engine workq "
+          f"card == CPU ({out['workq_lines']} lines, {workq_launches['workq_step']} workq_step launches)", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1203,7 +1392,7 @@ def main() -> int:
     from sahara_tpu_torch.engine.device import DeviceIndex
     from sahara_tpu_torch.engine.driver import search_queries
     from sahara_tpu_torch.engine.seedverify import StageTimer
-    from sahara_tpu_torch.index.build import build_bifmindex
+    from sahara_tpu_torch.index.fmindex import load_index
     from sahara_tpu_torch.kernels import LAUNCHES, reset_launches
     from sahara_tpu_torch.kernels import rank as rank_mod
     from sahara_tpu_torch.kernels._build import KERNEL_SOURCES, build_all, source
@@ -1225,10 +1414,11 @@ def main() -> int:
     t0 = time.perf_counter()
     ref, queries = bench_workload()
     report["workload_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    host = build_bifmindex([ref], 6, "d_dna5", rate=16)
-    report["index_build_s"] = time.perf_counter() - t0
-    print(f"workload {report['workload_s']:.1f} s, bidirectional index build {report['index_build_s']:.1f} s "
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    report["cli"], fasta, reads = cli_index_phase(tmp.name, ref, queries)
+    host = load_index(fasta + ".idx")
+    report["index_build_s"] = report["cli"]["index_s"]
+    print(f"workload {report['workload_s']:.1f} s, bidirectional index through the CLI {report['index_build_s']:.1f} s "
           f"(n={host.n}, {len(queries)} strand queries)", flush=True)
 
     # K1-K3 vs plain, on an uploaded copy of the forward index
@@ -1337,6 +1527,11 @@ def main() -> int:
             row.update({f"e1_{key}": val for key, val in fig.items() if key in E1_KEYS}, e1_launches=n_launches)
     print_times(dict(e1, name=f"verify_hamming at the sv_e1 path's {e1['shape']} ({e1['lanes']} lanes a candidate)"))
     print(f"  bound {e1['bound_ms']:.5f} ms by {e1['bound_by']}, plain {e1['plain_ms']:.3f} ms", flush=True)
+
+    # phase cli: the search through the CLI, then the goldens
+    report["cli"].update(search=cli_search_phase(tmp.name, fasta, reads, len(queries) // 2, rows, card),
+                         goldens=cli_golden_phase(tmp.name))
+    tmp.cleanup()
 
     # the rank bench: the path that runs K4
     reset_launches()

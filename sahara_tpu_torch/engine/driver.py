@@ -42,7 +42,7 @@ from sahara_tpu_torch.engine.seedverify import (
 )
 from sahara_tpu_torch.engine.tape import SchemeTape, compile_tape
 from sahara_tpu_torch.schemes import expand, get_generator, limit_to_hamming
-from sahara_tpu_torch.schemes.costs import optimize_by_wnc_topdown
+from sahara_tpu_torch.schemes.costs import node_count, optimize_by_wnc_topdown, weighted_node_count
 from sahara_tpu_torch.schemes.types import Scheme
 
 
@@ -183,15 +183,23 @@ def _sv_e1_chunk(index: DeviceIndex, queries: torch.Tensor, parts, *, k: int, ed
 
 def load_scheme(
     generator_name: str, min_k: int, max_k: int, length: int, *, edit: bool, sigma: int, n_text: int,
-    dynamic: bool = False,
+    dynamic: bool = False, verbose_cb=None,
 ) -> Scheme:
     """Generate and expand a scheme for one query length; ``dynamic`` picks
-    the part sizes with the top-down weighted-node-count optimiser."""
+    the part sizes with the top-down weighted-node-count optimiser.
+    ``verbose_cb`` gets the partition (if dynamic) and the expanded
+    scheme's node counts as lines."""
     oss = get_generator(generator_name).generator(min_k, max_k, 0, 0)
     if dynamic:
-        ess = expand(oss, optimize_by_wnc_topdown(oss, length, sigma, n_text, edit))
+        partition = optimize_by_wnc_topdown(oss, length, sigma, n_text, edit)
+        if verbose_cb:
+            verbose_cb(f"partition: {partition}")
+        ess = expand(oss, partition)
     else:
         ess = expand(oss, length)
+    if verbose_cb:
+        verbose_cb(f"node count: {node_count(ess, sigma, edit)}")
+        verbose_cb(f"weighted node count: {weighted_node_count(ess, sigma, n_text, edit)}")
     return ess if edit else limit_to_hamming(ess)
 
 
@@ -293,7 +301,7 @@ def _run_workq_grouped(
 
 def _run_sv_with_fallback(
     index: DeviceIndex, qarr: np.ndarray, qids: np.ndarray, *, k: int, edit: bool, chunk: int, scheme_kw: dict,
-    timer: StageTimer | None,
+    timer: StageTimer | None, verbose_cb=None,
 ) -> SearchResult:
     """Seed-and-verify over the bucket, with exact parts where they are
     long enough and one-error parts otherwise; queries it cannot search
@@ -316,6 +324,8 @@ def _run_sv_with_fallback(
         fallback[keep[over]] = True
     if not fallback.any():
         return res
+    if verbose_cb:
+        verbose_cb(f"seed-verify: {int(fallback.sum())} repeat-saturated queries re-searched via the scheme engine")
     tape = compile_tape(load_scheme(min_k=0, max_k=k, length=qarr.shape[1], edit=edit, **scheme_kw))
     res_fb = _run_workq_grouped(index, qarr[fallback], tape, qids[fallback], edit=edit, active=None,
                                 max_hits=0, chunk=chunk)
@@ -338,6 +348,7 @@ def search_queries(
     mesh=None,
     device=None,
     timer: StageTimer | None = None,
+    verbose_cb=None,
 ) -> SearchResult:
     """Approximate search of rank-array queries (a list of 1-D arrays, or
     one 2-D array of equal-length queries) against a device index.
@@ -346,8 +357,9 @@ def search_queries(
     work-queue engine), ``sv`` or ``workq``.  ``generator_name`` and
     ``dynamic`` choose the work-queue engine's search scheme.  ``device``
     (default: the CUDA card) must be the index's device.  ``timer``
-    collects the seed-and-verify stages' milliseconds.  Returns located
-    hits over all queries in canonical order."""
+    collects the seed-and-verify stages' milliseconds.  ``verbose_cb``
+    gets a line per bucket (its engine) and the schemes' node counts.
+    Returns located hits over all queries in canonical order."""
     dev = resolve_device(device)
     if index.device.type != dev.type:
         raise ValueError(f"index lies on {index.device}, search asked for {dev}")
@@ -389,9 +401,12 @@ def search_queries(
                 "seed-verify engine not applicable (index lacks a text store, "
                 f"or parts too short for m={length}, k={k})"
             )
+        if verbose_cb:
+            verbose_cb(f"engine: {'seed-verify' if use_sv else 'workq'} (single-device, m={length}, "
+                       f"{len(qarr)} queries)")
         if use_sv:
             res = _run_sv_with_fallback(index, qarr, qids, k=k, edit=edit, chunk=chunk, scheme_kw=scheme_kw,
-                                        timer=timer)
+                                        timer=timer, verbose_cb=verbose_cb)
             # the filter keeps each row whose error is its query's least,
             # which commutes with the merge; the cap counts merged rows in order
             if mode == "besthits":
@@ -400,7 +415,8 @@ def search_queries(
                 res = _cap_hits_per_query(_merge_results([res]), max_hits)
             results.append(res)
         elif mode == "all":
-            tape = compile_tape(load_scheme(min_k=0, max_k=k, length=length, edit=edit, **scheme_kw))
+            tape = compile_tape(load_scheme(min_k=0, max_k=k, length=length, edit=edit, verbose_cb=verbose_cb,
+                                            **scheme_kw))
             results.append(_run_workq_grouped(index, qarr, tape, qids, edit=edit, active=None,
                                               max_hits=max_hits, chunk=chunk))
         else:
@@ -409,7 +425,8 @@ def search_queries(
             for j in range(k + 1):
                 if not active.any():
                     break
-                tape = compile_tape(load_scheme(min_k=j, max_k=j, length=length, edit=edit, **scheme_kw))
+                tape = compile_tape(load_scheme(min_k=j, max_k=j, length=length, edit=edit, verbose_cb=verbose_cb,
+                                                **scheme_kw))
                 res = _run_workq_grouped(index, qarr, tape, qids, edit=edit, active=active,
                                          max_hits=max_hits, chunk=chunk)
                 results.append(res)

@@ -6,6 +6,8 @@ Gives the same arrays as ``sahara_tpu.index.build`` for the same input.
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 
 from sahara_tpu_torch.index.fmindex import BiFMIndex, FMIndex
@@ -70,24 +72,44 @@ def _rev_occ(text: np.ndarray, sigma: int) -> np.ndarray:
     return build_occ(bwt_r, sigma)
 
 
-def _build(seqs: list[np.ndarray], sigma: int, alphabet_name: str, rate: int):
-    """(padded text, the FMIndex fields) of a sequence collection."""
+def _layout(seqs: list[np.ndarray], sigma: int, alphabet_name: str, rate: int):
+    """(padded text, sequence starts, the FMIndex fields other than the
+    suffix-array ones) of a sequence collection."""
     seqs = [np.asarray(s, dtype=np.uint8) for s in seqs]
     text, starts = build_text(seqs, rate)
-    fields = _build_core(text, sigma, rate, starts)
-    fields.update(
+    fields = dict(
         sigma=sigma, alphabet_name=alphabet_name, rate=rate, n=len(text),
         seq_lens=np.array([len(s) for s in seqs], dtype=np.int64),
         text4=pack_text4(text) if sigma <= 15 else None,
     )
-    return text, fields
+    return text, starts, fields
 
 
 def build_fmindex(seqs: list[np.ndarray], sigma: int, alphabet_name: str, rate: int = 16) -> FMIndex:
-    return FMIndex(**_build(seqs, sigma, alphabet_name, rate)[1])
+    text, starts, fields = _layout(seqs, sigma, alphabet_name, rate)
+    return FMIndex(**fields, **_build_core(text, sigma, rate, starts))
 
 
-def build_bifmindex(seqs: list[np.ndarray], sigma: int, alphabet_name: str, rate: int = 16) -> BiFMIndex:
-    """The forward index plus the reversed-text occ table."""
-    text, fields = _build(seqs, sigma, alphabet_name, rate)
-    return BiFMIndex(**fields, occ_rev=_rev_occ(text, sigma))
+def build_bifmindex(
+    seqs: list[np.ndarray], sigma: int, alphabet_name: str, rate: int = 16, threads: int = 1,
+    mirrored: bool = False,
+) -> BiFMIndex:
+    """The forward index plus the reversed-text occ table.
+
+    ``threads`` >= 2 builds the two suffix arrays concurrently for texts of
+    4 Mi characters and more (SA-IS releases the GIL).  ``mirrored=True``
+    says the collection is closed under reversal (each sequence's reverse
+    is in it, as ``rbi-index`` builds it): right extensions then rank the
+    forward table, so the reversed-text table is not built (``occ_rev`` is
+    None)."""
+    text, starts, fields = _layout(seqs, sigma, alphabet_name, rate)
+    if mirrored:
+        return BiFMIndex(**fields, **_build_core(text, sigma, rate, starts), occ_rev=None, mirrored=True)
+    if threads >= 2 and len(text) >= 1 << 22:
+        with ThreadPoolExecutor(2) as ex:
+            fwd = ex.submit(_build_core, text, sigma, rate, starts)
+            rev = ex.submit(_rev_occ, text, sigma)
+            core, occ_rev = fwd.result(), rev.result()
+    else:
+        core, occ_rev = _build_core(text, sigma, rate, starts), _rev_occ(text, sigma)
+    return BiFMIndex(**fields, **core, occ_rev=occ_rev)

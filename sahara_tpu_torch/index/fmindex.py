@@ -177,6 +177,17 @@ def from_arrays(arrays, meta: dict) -> FMIndex:
     return FMIndex(**common)
 
 
+def read_meta(path) -> dict:
+    """The JSON metadata member of an index file, read alone."""
+    with FastNpz(path) as data:
+        return json.loads(bytes(data["meta"]).decode())
+
+
+def peek_sigma(path) -> int:
+    """The alphabet size of an index file, without loading its arrays."""
+    return int(read_meta(path)["sigma"])
+
+
 def load_index(path) -> FMIndex:
     with FastNpz(path) as data:
         meta = json.loads(bytes(data["meta"]).decode())

@@ -1,9 +1,9 @@
 """Read simulator: sample reads from a reference and plant an exact number
 of substitution/insertion/deletion errors via an explicit edit transcript.
 
-A copy of ``sahara_tpu/sim/read_simulator.py::simulate_reads``: for the same
-seed it gives the same reads, so a workload made here equals the JAX
-package's.
+A copy of ``sahara_tpu/sim/read_simulator.py`` (``simulate_reads``,
+``random_reads``): for the same seed it gives the same reads, so a
+workload made here equals the JAX package's.
 
 - the transcript starts as ``M`` * read_length; substitutions and insertions
   replace a random ``M`` (the read length stays read_length); deletions are
@@ -20,14 +20,9 @@ import dataclasses
 import numpy as np
 
 from sahara_tpu_torch.alphabet import INVALID_RANK, dna4_char_to_rank, dna4_rank_to_char
+from sahara_tpu_torch.io.fasta import FastaRecord
 
 _ACGT = b"ACGT"
-
-
-@dataclasses.dataclass
-class FastaRecord:
-    id: str
-    seq: bytes
 
 
 @dataclasses.dataclass
@@ -153,3 +148,12 @@ def simulate_reads(
             FastaRecord(id=f"simulated-{i} (seqid:{seq_id}, pos:{pos}, trans:{tr.ops})", seq=read)
         )
     return records
+
+
+def random_reads(num_reads: int, read_length: int, seed: int = 0) -> list[FastaRecord]:
+    """Reads of uniformly random ACGT, for a simulator run without a reference."""
+    rng = np.random.default_rng(seed)
+    return [
+        FastaRecord(id=f"simulated-{i}", seq=bytes(_ACGT[j] for j in rng.integers(0, 4, size=read_length)))
+        for i in range(num_reads)
+    ]

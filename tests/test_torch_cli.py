@@ -1,0 +1,338 @@
+"""The port's CLI (``python -m sahara_tpu_torch``) on the CPU.
+
+The conformance corpus of ``tests/test_conformance.py`` is built through
+the port's own ``write_fasta``, ``read_simulator`` and index subcommands;
+the 9 ``search`` and 2 ``rbi`` goldens must come out byte-identical with
+``--device cpu``.  The index files, the simulated reads and the
+``search_scheme`` / ``columba_prepare`` outputs are held against the JAX
+package's CLI on the same inputs (its index and host-only commands compile
+nothing)."""
+
+from __future__ import annotations
+
+import contextlib
+import filecmp
+import functools
+import io
+import json
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+from test_conformance import CASES, GOLDEN_DIR
+
+import chip_smoke
+from sahara_tpu.cli.main import main as jax_main
+from sahara_tpu.index.shard import build_sharded_bifmindex, save_sharded
+from sahara_tpu_torch.cli import search_cmd
+from sahara_tpu_torch.cli.main import main
+from sahara_tpu_torch.index.fmindex import FastNpz
+from sahara_tpu_torch.io.fasta import FastaRecord, iter_fasta_seq_matrix_blocks, read_fasta, write_fasta
+
+# chip_smoke.py's copy of the conformance corpus, which it runs on the card:
+# the goldens below hold it right
+READS = chip_smoke.GOLDEN_READS
+RBI_CASES = chip_smoke.GOLDEN_RBI_CASES
+INDEX_COMMANDS = ("index", "uni-index", "rbi-index", "rbi-index-dna4")
+
+
+def _quiet(fn, argv) -> tuple[int, str]:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = fn(argv)
+    return rc, out.getvalue()
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("torch_cli")
+    rng = np.random.default_rng(chip_smoke.GOLDEN_SEED)
+    seqs = [
+        FastaRecord(id=f"chr{i}", seq=bytes(b"ACGT"[j] for j in rng.integers(0, 4, size=n)))
+        for i, n in enumerate(chip_smoke.GOLDEN_SEQ_LENS)
+    ]
+    ref = str(tmp / "ref.fasta")
+    write_fasta(ref, seqs)
+    for name, (n, length, e, seed) in READS.items():
+        assert _quiet(main, ["read_simulator", "-i", ref, "-o", str(tmp / f"{name}.fasta"), "-n", str(n),
+                             "-l", str(length), "-e", str(e), "--seed", str(seed)])[0] == 0
+    for cmd in INDEX_COMMANDS:
+        assert _quiet(main, [cmd, ref])[0] == 0
+    return tmp, ref
+
+
+def _golden(name: str) -> str:
+    with open(os.path.join(GOLDEN_DIR, name)) as fh:
+        return fh.read()
+
+
+def test_chip_smoke_cases_are_the_conformance_cases():
+    assert chip_smoke.GOLDEN_CASES == CASES
+    assert chip_smoke.GOLDEN_DIR == os.path.abspath(GOLDEN_DIR)
+
+
+@pytest.mark.parametrize("name,reads,flags", CASES, ids=[c[0] for c in CASES])
+def test_search_goldens(corpus, tmp_path, name, reads, flags):
+    tmp, ref = corpus
+    out = tmp_path / "out.txt"
+    rc, _ = _quiet(main, ["search", "-q", str(tmp / f"{reads}.fasta"), "-i", ref + ".idx", "-o", str(out),
+                          "--device", "cpu"] + flags)
+    assert rc == 0
+    assert out.read_text() == _golden(name)
+
+
+@pytest.mark.parametrize("name,cmd,suffix", RBI_CASES, ids=[c[0] for c in RBI_CASES])
+def test_rbi_search_goldens(corpus, tmp_path, name, cmd, suffix):
+    tmp, ref = corpus
+    out = tmp_path / "rbi.txt"
+    rc, _ = _quiet(main, [cmd, "-q", str(tmp / "r1.fasta"), "-i", ref + suffix, "-o", str(out), "-e", "1",
+                          "-g", "optimum", "--device", "cpu"])
+    assert rc == 0
+    assert out.read_text() == _golden(name)
+
+
+def test_rbi_orig_coords_maps_mirror_hits(corpus, tmp_path):
+    """A reverse-complement read hits a mirror copy (seqId in [m, 2m));
+    ``--orig_coords`` moves each such hit to its original sequence at
+    L - 1 - pos and leaves forward hits alone."""
+    tmp, ref = corpus
+    chroms = [r.seq for r in read_fasta(ref)]
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    recs = []
+    for i, seq in enumerate(chroms):
+        fwd = seq[40 * i + 30 : 40 * i + 70]
+        recs += [FastaRecord(id=f"f{i}", seq=fwd), FastaRecord(id=f"r{i}", seq=fwd.translate(comp)[::-1])]
+    reads = tmp_path / "strands.fasta"
+    write_fasta(reads, recs)
+    runs = {}
+    for flags in ([], ["--orig_coords"]):
+        out = tmp_path / f"rbi{len(flags)}.txt"
+        assert _quiet(main, ["rbi-search", "-q", str(reads), "-i", ref + ".rbi.idx", "-o", str(out), "-e", "1",
+                             "-g", "optimum", "--device", "cpu"] + flags)[0] == 0
+        runs[len(flags)] = [tuple(map(int, ln.split())) for ln in out.read_text().splitlines()]
+    m = len(chroms)
+    for i, seq in enumerate(chroms):
+        assert (2 * i, i, 40 * i + 30) in runs[0]
+        assert (2 * i + 1, m + i, len(seq) - (40 * i + 70)) in runs[0]
+        assert (2 * i + 1, i, 40 * i + 69) in runs[1]
+    lens = [len(seq) for seq in chroms]
+    want = sorted({(q, s - m, lens[s - m] - 1 - p) if s >= m else (q, s, p) for q, s, p in runs[0]})
+    assert sorted(set(runs[1])) == want and len(runs[1]) == len(want)
+
+
+def test_read_simulator_matches_jax(corpus, tmp_path):
+    tmp, ref = corpus
+    for name, (n, length, e, seed) in READS.items():
+        want = tmp_path / f"{name}.fasta"
+        assert _quiet(jax_main, ["read_simulator", "-i", ref, "-o", str(want), "-n", str(n), "-l", str(length),
+                                 "-e", str(e), "--seed", str(seed)])[0] == 0
+        assert filecmp.cmp(tmp / f"{name}.fasta", want, shallow=False)
+    # no reference: uniformly random reads
+    for fn, out in ((main, tmp_path / "a.fasta"), (jax_main, tmp_path / "b.fasta")):
+        assert _quiet(fn, ["read_simulator", "-o", str(out), "-n", "7", "-l", "33", "--seed", "4"])[0] == 0
+    assert filecmp.cmp(tmp_path / "a.fasta", tmp_path / "b.fasta", shallow=False)
+
+
+def _idx_members(path) -> dict:
+    with FastNpz(path) as data:
+        members = {name: np.array(data[name]) for name in data.files}
+    members["meta"] = json.loads(bytes(members["meta"]).decode())
+    return members
+
+
+@pytest.mark.parametrize("cmd,flags,suffix", [
+    ("index", ["--ignore_unknown"], ".idx"),
+    ("index", ["--dna4", "--ignore_unknown"], ".dna4.idx"),
+    ("uni-index", ["--ignore_unknown"], ".single.idx"),
+    ("rbi-index", ["--ignore_unknown"], ".rbi.idx"),
+    ("rbi-index-dna4", ["--ignore_unknown"], ".rbi4.idx"),
+])
+def test_index_files_match_jax(tmp_path, cmd, flags, suffix):
+    """Each index subcommand writes the JAX package's container (meta and
+    every array) on a FASTA with IUPAC codes and N, which the unknown-char
+    policies replace (N, random ACGT, random rank 1/2)."""
+    rng = np.random.default_rng(3)
+    recs = [FastaRecord(id=f"s{i}", seq=bytes(rng.choice(list(b"ACGTNacgtRYW"), size=n)))
+            for i, n in enumerate((300, 90, 170))]
+    paths = {}
+    for side, fn in (("port", main), ("jax", jax_main)):
+        os.makedirs(tmp_path / side)
+        ref = str(tmp_path / side / "ref.fasta")
+        write_fasta(ref, recs)
+        assert _quiet(fn, [cmd, ref] + flags)[0] == 0
+        paths[side] = ref + suffix
+    got, want = _idx_members(paths["port"]), _idx_members(paths["jax"])
+    assert got["meta"] == want["meta"]
+    assert sorted(got) == sorted(want)
+    for name in want:
+        if name != "meta":
+            np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    assert ("occ_rev" in got) == (cmd == "index")
+
+
+@pytest.fixture(scope="module")
+def two_line_reads(corpus):
+    """300 reads of 50 chars, one sequence line each (a simple FASTA)."""
+    tmp, ref = corpus
+    reads = str(tmp / "reads2.fasta")
+    assert _quiet(main, ["read_simulator", "-i", ref, "-o", reads, "-n", "300", "-l", "50", "-e", "1",
+                         "--seed", "21", "--fasta_line_length", "0"])[0] == 0
+    return reads
+
+
+@pytest.mark.parametrize("extra", [[], ["-m", "besthits"], ["--limit_queries", "101"], ["--no-reverse"]])
+def test_stream_matches_buffered(corpus, two_line_reads, tmp_path, monkeypatch, extra):
+    tmp, ref = corpus
+    base = ["search", "-q", two_line_reads, "-i", ref + ".idx", "-e", "1", "-g", "optimum", "--device", "cpu"] + extra
+    monkeypatch.setenv("SAHARA_STREAM", "0")
+    rc, log = _quiet(main, base + ["-o", str(tmp_path / "buf.txt")])
+    assert rc == 0 and "streaming" not in log
+    monkeypatch.setenv("SAHARA_STREAM", "1")
+    # small blocks so that several flow through the threads
+    monkeypatch.setattr(search_cmd, "iter_fasta_seq_matrix_blocks",
+                        functools.partial(iter_fasta_seq_matrix_blocks, block_bytes=4096))
+    rc, log = _quiet(main, base + ["-o", str(tmp_path / "str.txt")])
+    assert rc == 0 and "streaming:           True" in log
+    assert (tmp_path / "str.txt").read_text() == (tmp_path / "buf.txt").read_text()
+    assert (tmp_path / "buf.txt").read_text().strip()
+
+
+def test_stream_thread_errors_reach_main(corpus, two_line_reads, tmp_path, monkeypatch):
+    """A bad character in a later block (reader thread) exits 1 with the
+    message; an output that cannot be opened (writer thread) raises."""
+    tmp, ref = corpus
+    monkeypatch.setenv("SAHARA_STREAM", "1")
+    monkeypatch.setattr(search_cmd, "iter_fasta_seq_matrix_blocks",
+                        functools.partial(iter_fasta_seq_matrix_blocks, block_bytes=4096))
+    text = open(two_line_reads).read().splitlines()
+    text[-1] = "X" + text[-1][1:]
+    bad = tmp_path / "bad.fasta"
+    bad.write_text("\n".join(text) + "\n")
+    base = ["search", "-i", ref + ".idx", "-e", "1", "--device", "cpu"]
+    rc, _ = _quiet(main, base + ["-q", str(bad), "-o", str(tmp_path / "o.txt")])
+    assert rc == 1
+    with pytest.raises(FileNotFoundError):
+        _quiet(main, base + ["-q", two_line_reads, "-o", str(tmp_path / "missing" / "o.txt")])
+
+
+def test_stream_declines_wrapped_fasta(corpus, tmp_path, monkeypatch):
+    """A read file with wrapped lines is not simple: the buffered path runs."""
+    tmp, ref = corpus
+    reads = tmp_path / "wrapped.fasta"
+    assert _quiet(main, ["read_simulator", "-i", ref, "-o", str(reads), "-n", "20", "-l", "100", "-e", "1"])[0] == 0
+    monkeypatch.setenv("SAHARA_STREAM", "1")
+    rc, log = _quiet(main, ["search", "-q", str(reads), "-i", ref + ".idx", "-o", str(tmp_path / "o.txt"), "-e", "1",
+                            "--device", "cpu"])
+    assert rc == 0 and "streaming" not in log and "engine: seed-verify" in log
+
+
+def test_stream_falls_back_on_a_later_ragged_record(corpus, two_line_reads, tmp_path, monkeypatch):
+    """A record of another length after the first block stops the stream;
+    the buffered path re-runs the whole file and writes its output."""
+    tmp, ref = corpus
+    reads = tmp_path / "ragged.fasta"
+    with open(two_line_reads) as fh:
+        reads.write_text(fh.read() + ">short\n" + "ACGTACGTACGTACGTACGTACGTACGTACGTACGTACGTACGTA\n")
+    base = ["search", "-q", str(reads), "-i", ref + ".idx", "-e", "1", "--device", "cpu"]
+    monkeypatch.setenv("SAHARA_STREAM", "0")
+    assert _quiet(main, base + ["-o", str(tmp_path / "buf.txt")])[0] == 0
+    monkeypatch.setenv("SAHARA_STREAM", "1")
+    monkeypatch.setattr(search_cmd, "iter_fasta_seq_matrix_blocks",
+                        functools.partial(iter_fasta_seq_matrix_blocks, block_bytes=4096))
+    rc, log = _quiet(main, base + ["-o", str(tmp_path / "str.txt")])
+    assert rc == 0 and "streaming:           True" in log and log.count("config:") == 2
+    assert (tmp_path / "str.txt").read_text() == (tmp_path / "buf.txt").read_text()
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["uni-search", "-q", "{reads}", "-i", "{ref}.single.idx"], 11),
+    (["kmer-index", "{ref}"], 11),
+    (["kmer-search", "--query", "{reads}", "--index", "{ref}.kmer.idx"], 11),
+    (["index", "{ref}", "--max_shard_mb", "1"], 13),
+    (["search", "-q", "{reads}", "-i", "{sharded}", "--device", "cpu"], 13),
+    (["search", "-q", "{reads}", "-i", "{ref}.idx", "--device", "cpu", "--engine", "approx"], 14),
+    (["search", "-q", "{reads}", "-i", "{ref}.idx", "--device", "cpu", "--devices", "2"], 15),
+    (["search", "-q", "{reads}", "-i", "{ref}.idx", "--device", "cpu", "--mh_num_processes", "2"], 15),
+    (["rbi-search", "-q", "{reads}", "-i", "{ref}.rbi.idx", "--device", "cpu", "--devices", "4"], 15),
+], ids=["uni-search", "kmer-index", "kmer-search", "max_shard_mb", "sharded", "approx", "devices", "mh", "rbi-devices"])
+def test_unported_routes_raise(corpus, tmp_path, argv, item):
+    tmp, ref = corpus
+    sharded = str(tmp_path / "sharded.idx")
+    seqs = [np.random.default_rng(5).integers(1, 5, n).astype(np.uint8) for n in (1000, 300)]
+    save_sharded(sharded, build_sharded_bifmindex(seqs, 6, "d_dna5", max_chars=400, overlap=64))
+    fill = dict(reads=str(tmp / "r1.fasta"), ref=ref, sharded=sharded)
+    with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md queue 1 item {item}\b"):
+        _quiet(main, [a.format(**fill) for a in argv])
+
+
+def test_search_without_card_raises(corpus, tmp_path, monkeypatch):
+    """``--device`` defaults to the card; without one the search raises
+    before it reads anything, and never carries on on the CPU."""
+    tmp, ref = corpus
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["search", "-i", ref + ".idx"], ["rbi-search", "-i", ref + ".rbi.idx"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            _quiet(main, argv + ["-q", str(tmp / "r1.fasta"), "-o", str(tmp_path / "o.txt")])
+    assert not (tmp_path / "o.txt").exists()
+
+
+def test_search_config_and_stats_match_jax_words(corpus, tmp_path):
+    """The config echo, the driver's lines and the stats block's keys are
+    the JAX package's, word for word (times masked)."""
+    tmp, ref = corpus
+    logs = []
+    for fn, extra in ((main, ["--device", "cpu"]), (jax_main, [])):
+        rc, log = _quiet(fn, ["search", "-q", str(tmp / "r2.fasta"), "-i", ref + ".idx", "-o", str(tmp_path / "o.txt"),
+                              "-e", "2", "-g", "h2-k2", "--dynamic_generator", "--engine", "workq"] + extra)
+        assert rc == 0
+        logs.append(re.sub(r" +\d+(\.\d+s|q/s)$", " T", log, flags=re.M))
+    assert logs[0] == logs[1]
+    assert "partition: [" in logs[0] and "weighted node count:" in logs[0]
+
+
+SCHEME_CASES = [
+    ["-g", "optimum", "-k", "2"],
+    ["-g", "pigeon", "-k", "1", "-l", "60"],
+    ["list-generators"],
+    ["-a", "-k", "1", "-l", "40"],
+    ["-a", "-y", "-k", "1"],
+    ["-a", "--columba", "{dir}/columba", "-k", "2"],
+    ["-g", "optimum", "-k", "1", "--tikz", "{dir}/tree"],
+    ["-g", "h2-k2", "-k", "2", "--tikz", "{dir}/tree", "--expansion_mode", "topdown", "-l", "50"],
+]
+
+
+@pytest.mark.parametrize("args", SCHEME_CASES, ids=[" ".join(a) for a in SCHEME_CASES])
+def test_search_scheme_matches_jax(tmp_path, args):
+    outs = {}
+    for side, fn in (("port", main), ("jax", jax_main)):
+        os.makedirs(tmp_path / side)
+        rc, log = _quiet(fn, ["search_scheme"] + [a.format(dir=tmp_path / side) for a in args])
+        assert rc == 0
+        outs[side] = log
+    assert outs["port"] == outs["jax"]
+    cmp = filecmp.dircmp(tmp_path / "port", tmp_path / "jax")
+    assert not cmp.left_only and not cmp.right_only
+    for root, _, files in os.walk(tmp_path / "jax"):
+        for f in files:
+            want = os.path.join(root, f)
+            got = want.replace(str(tmp_path / "jax"), str(tmp_path / "port"))
+            assert filecmp.cmp(got, want, shallow=False), f
+
+
+def test_columba_prepare_matches_jax(tmp_path):
+    rng = np.random.default_rng(8)
+    recs = [FastaRecord(id=f"s{i}", seq=bytes(rng.choice(list(b"ACGTNacgu"), size=n)))
+            for i, n in enumerate((400, 150))]
+    ref = tmp_path / "ref.fasta"
+    write_fasta(ref, recs)
+    logs = {}
+    for side, fn in (("port", main), ("jax", jax_main)):
+        rc, log = _quiet(fn, ["columba_prepare", "-i", str(ref), "-o", str(tmp_path / side)])
+        assert rc == 0
+        logs[side] = log.replace(side, "BASE")
+    assert logs["port"] == logs["jax"]
+    for ext in (".txt", ".sa", ".rev.txt", ".rev.sa"):
+        assert filecmp.cmp(tmp_path / f"port{ext}", tmp_path / f"jax{ext}", shallow=False), ext

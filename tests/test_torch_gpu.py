@@ -1,15 +1,20 @@
 """The CUDA kernels against their plain versions, and the search on the card
 against the search on the CPU.  Needs a CUDA card: every test skips
 without one.  This file imports only the port, so on a machine without JAX
-it runs on its own:
+it runs on its own (the CLI case builds its corpus with the port's own
+read simulator):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
+
+import contextlib
+import io
 
 import numpy as np
 import pytest
 import torch
 
+from sahara_tpu_torch.cli.main import main as cli_main
 from sahara_tpu_torch.engine import workq
 from sahara_tpu_torch.engine.device import DeviceIndex
 from sahara_tpu_torch.engine.driver import load_scheme, search_queries
@@ -17,6 +22,7 @@ from sahara_tpu_torch.engine.seedverify import plan_parts
 from sahara_tpu_torch.engine.tape import compile_tape
 from sahara_tpu_torch.index.build import build_bifmindex, build_fmindex
 from sahara_tpu_torch.index.textstore import unpack_text4
+from sahara_tpu_torch.io.fasta import FastaRecord, write_fasta
 from sahara_tpu_torch.kernels import LAUNCHES
 from sahara_tpu_torch.kernels.rank import rank_all, rank_all_plain
 from sahara_tpu_torch.kernels.rank_smem import (
@@ -459,3 +465,43 @@ def test_fallback_on_card_matches_cpu(bihost):
     got = search_queries(DeviceIndex.from_host(idx_host, device=dev), queries, k=2, chunk=128)
     assert LAUNCHES["workq_step"] > before
     assert got.rows() == want.rows() and len(want.rows()) >= 400
+
+
+@pytest.fixture(scope="module")
+def cli_corpus(tmp_path_factory):
+    """A three-sequence reference, its index and 40 simulated reads of 80
+    chars with 2 planted edits (and 40 with 2 substitutions, for Hamming
+    distance), all through the port's CLI."""
+    tmp = tmp_path_factory.mktemp("cli_gpu")
+    rng = np.random.default_rng(11)
+    ref = str(tmp / "ref.fasta")
+    write_fasta(ref, [FastaRecord(id=f"chr{i}", seq=bytes(b"ACGT"[j] for j in rng.integers(0, 4, size=n)))
+                      for i, n in enumerate((3000, 1500, 800))])
+    with contextlib.redirect_stdout(io.StringIO()):
+        for name, errors in (("reads", ["-e", "2"]), ("subs", ["--substitution_errors", "2"])):
+            assert cli_main(["read_simulator", "-i", ref, "-o", str(tmp / f"{name}.fasta"), "-n", "40", "-l", "80",
+                             "--seed", "5"] + errors) == 0
+        assert cli_main(["index", ref]) == 0
+    return tmp, ref
+
+
+@pytest.mark.parametrize("reads,flags,kernel", [
+    ("reads", ["-e", "2", "-d", "lev", "-g", "h2-k2"], "verify"),
+    ("subs", ["-e", "2", "-d", "ham", "-g", "optimum"], "verify"),
+    ("reads", ["-e", "2", "-d", "lev", "-g", "optimum", "--engine", "workq"], "workq_step"),
+], ids=["edit", "hamming", "workq"])
+def test_cli_search_on_card_matches_cpu(cli_corpus, reads, flags, kernel):
+    _card()
+    tmp, ref = cli_corpus
+    reads = str(tmp / f"{reads}.fasta")
+    outs = {}
+    for device in ("cpu", "cuda"):
+        outs[device] = str(tmp / f"{kernel}_{len(flags)}_{device}.txt")
+        before = LAUNCHES[kernel]
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert cli_main(["search", "-q", reads, "-i", ref + ".idx", "-o", outs[device], "--device", device]
+                            + flags) == 0
+        assert (LAUNCHES[kernel] > before) == (device == "cuda")
+    with open(outs["cpu"]) as a, open(outs["cuda"]) as b:
+        want = a.read()
+        assert b.read() == want and len(want.splitlines()) >= 40

@@ -374,3 +374,104 @@ def test_step_equals_drain_count_emit(request, monkeypatch, workload, edit, cap)
     assert seen["drains"] > 0 and seen["steps"] > seen["drains"] and seen["children"] > 0 and seen["hits"] > 0
     # Hamming states all finish on the first drain step, before any cap can bind
     assert seen["capped"] > 0 or not (cap and edit)
+
+
+# F2 (ROADMAP.md queue 3, a property of the reference): the 8 rows where the
+# work-queue engine differs from SV-e1 on the first 4,096 reads of the
+# short-read workload (36 bp, k=3; chip_smoke.py prints them as "rows only
+# sv_e1 gives"): strand query, start in the 40 Mbp reference, the text from
+# 30 chars before the start to 30 after the read's span, the read, its least
+# edit distance at the start, and an alignment with it (I inserts a query
+# char, D a text char, S substitutes).
+_F2_I_D = "I" + "M" * 26 + "D"  # query position 0 inserted, a text char deleted before position 27
+F2_ROWS = [
+    (2998, 8413343, "CGAAAAGATCGTGATAGTTACTCGCTGACCTTGCTCTTTAGAGGTGTAGATATAAAGTTTGAGAGAACCTACCCGTGTGACCGACGCTTGACCCAT",
+     "CTTGCTCTTTAGAGGTGTAGATATAAATTTGACAGA", 3, _F2_I_D + "M" * 5 + "S" + "M" * 3),
+    (2998, 15295590, "CGAAAAGATCGTGATAGTTACTCGCTGACCTTGCTCTTTAGAGGTGTAGATATAAAGTTTGAGAGAACCTACCCGTGTGTCCGACGCTTGACCCAT",
+     "CTTGCTCTTTAGAGGTGTAGATATAAATTTGACAGA", 3, _F2_I_D + "M" * 5 + "S" + "M" * 3),
+    (3508, 29319969, "GCTTTGTAAGCCGTAATTGGGCGGTAGTCTCGAGACTAGCGGCCCATAGGGATGCAGTTGGATAAGACTCCCCTGCTTCATATGTATCACAACCGA",
+     "TCGAGACTAGCGGCCCATAGGGATGCATTGGATAAG", 2, _F2_I_D + "M" * 9),
+    (4848, 33505221, "TGAGGGAAAAAAAGCAAGCAGCTCGCTACATGCTGCTTATCGATGAAACTCTCTGTCAGGATATCATCCAGTGCTTCATCTTAAGAAGCAGGTAGG",
+     "ATGCTGCTTATCGATGAAACTCTCTGTAGGAATATC", 3, _F2_I_D + "M" * 3 + "I" + "M" * 5),
+    (6270, 8717704, "TGCTTGGCCGTACTCAGTCAGTATGAGTGACACTTCGTGTGAACGGTCCGACTATTGAGAGTGTAACCGTCATGAGTCCTGAGGTGCTTCGCTGCG",
+     "ACACTTCGTGTGAACGGTCCGACTATTAGAGTGTAC", 3, _F2_I_D + "M" * 7 + "D" + "M" * 2),
+    (6270, 22582606, "TGCTTGTCCGTACTCAGTCAGTATGAGTGACACTTCGTGTGAACGGTCCGACTATTGAGAGTGTAACCGTCATGAGTCCTGAGGTGCTTCGCTGCC",
+     "ACACTTCGTGTGAACGGTCCGACTATTAGAGTGTAC", 3, _F2_I_D + "M" * 7 + "D" + "M" * 2),
+    (6386, 9333325, "ATCCGGGGATCCGTCGTAGTGTGCAAAAGAGCCCTTTCCCGGGAAACAGCCAGGGGTCCTGCTAAATAGGATGTTGCAGGACCAGATTTACGTTAG",
+     "AGCCCTTTCCCGGGAAACAGCCAGGGGCGTGCTAAA", 3, _F2_I_D + "M" + "S" + "M" * 7),
+    (6386, 26231618, "ATCCGGGGATCCGTCGTAGTGTGCAAAAGAGCCCTTTCCCGGGAAACAGCCAGGGGTCCTGCTAAATAGGATGTTGCAGGACCAGATTTACGTTAG",
+     "AGCCCTTTCCCGGGAAACAGCCAGGGGCGTGCTAAA", 3, _F2_I_D + "M" + "S" + "M" * 7),
+]
+
+
+def _least_edit_at(q: np.ndarray, text: np.ndarray, start: int, k: int) -> int:
+    """Least edit distance of q to text[start, start + L) over L."""
+    prev = np.arange(len(q) + 1)
+    best = prev[-1]
+    for c in text[start : start + len(q) + k]:
+        cur = np.empty_like(prev)
+        cur[0] = prev[0] + 1
+        for i in range(1, len(q) + 1):
+            cur[i] = min(prev[i] + 1, cur[i - 1] + 1, prev[i - 1] + (q[i - 1] != c))
+        prev, best = cur, min(best, cur[-1])
+    return int(best)
+
+
+@pytest.mark.parametrize("qid,pos,window,read,least,ops", F2_ROWS, ids=[f"{r[0]}@{r[1]}" for r in F2_ROWS])
+def test_f2_deletion_after_insertion_across_the_side_switch(qid, pos, window, read, least, ops):
+    """The work-queue engine keeps one last op for both sides and forbids a
+    deletion right after an insertion, even where the insertion ended the
+    left run and the deletion starts the right run, at opposite ends of the
+    span.  optimum, k=3, m=36 has 4 searches; search 3 consumes query
+    positions 26..0 leftwards, then 27..35 rightwards.  Each row's
+    least-error alignment inserts query position 0 (d=26) and deletes a
+    text char before position 27 (d=27): search 3's bounds admit it, the
+    other searches' bounds reject it, and both packages miss the start or
+    report it at a higher error (their hit multisets are equal)."""
+    from sahara_tpu_torch.alphabet import D_DNA5
+
+    text, q = D_DNA5.char_to_rank(window), D_DNA5.char_to_rank(read).astype(np.int32)
+    start, m = 30, len(read)
+    assert _least_edit_at(q, text, start, 3) == least
+    # the alignment: its errors, each query position's op, the deletions' gaps
+    i = j = 0
+    per_qpos, gaps = [], []
+    for op in ops:
+        if op in "MS":
+            assert (q[i] == text[start + j]) == (op == "M")
+        if op == "D":
+            gaps.append(i)  # between query positions i - 1 and i
+        else:
+            per_qpos.append(op)
+        i, j = i + (op != "D"), j + (op != "I")
+    assert i == m and sum(op != "M" for op in ops) == least
+
+    host = build_bifmindex([text], 6, "d_dna5")
+    jdev, _, pdev = _both(host)
+    tape = compile_tape(load_scheme("optimum", 0, 3, m, edit=True, sigma=6, n_text=pdev.n))
+    got = workq.run_workq_search(pdev, q[None], tape, edit=True)
+    jax_tape = jax_compile_tape(jax_expand(JAX_GENERATORS["optimum"].generator(0, 3, 0, 0), m))
+    assert _multiset(got) == _multiset(jax_run_workq_search(jdev, q[None], jax_tape, edit=True))
+    at_start = {int(got.err[h]) for h in range(got.n_hits)
+                if start in host.sa_abs[got.lb[h] : got.lb[h] + got.sz[h]].tolist()}
+    assert min(at_start, default=least + 1) > least
+
+    def admits(s: int) -> bool:
+        """The tape's bounds take the alignment: a deletion counts when the
+        second query position beside its gap is consumed, before it."""
+        consumed, err = set(), 0
+        for d, qp in enumerate(tape.qpos[s].tolist()):
+            for g in gaps:
+                if qp in (g - 1, g) and {g - 1, g} & consumed:
+                    err += 1
+                    if err > tape.hi[s][d]:
+                        return False
+            err += per_qpos[qp] != "M"
+            if not tape.lo[s][d] <= err <= tape.hi[s][d]:
+                return False
+            consumed.add(qp)
+        return True
+
+    side, qpos = tape.side[3].tolist(), tape.qpos[3].tolist()
+    assert (side[26], qpos[26], per_qpos[0], side[27], qpos[27], gaps[0]) == (0, 0, "I", 1, 27, 27)
+    assert tape.num_searches == 4 and admits(3) and not any(admits(s) for s in range(3))
