@@ -4,7 +4,7 @@
 
 Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
 
-1. prints the card's name and power limit, builds the five CUDA kernels
+1. prints the card's name and power limit, builds the seven CUDA kernels
    from ``sahara_tpu_torch/kernels/csrc``, the first versions of the K1, K4
    and K3h kernels (``LEGACY_SOURCES``) and their design variants
    (``DESIGN_VARIANTS``), all nvcc runs at once, and prints each kernel's
@@ -34,7 +34,7 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
    profiles one pass (device busy time, the heaviest device ops and host
    functions);
 5. uploads the index without the full suffix array and checks that the
-   sampled LF-walk locate (K1) gives the same hits on the first 8,192
+   sampled LF-walk locate (K7) gives the same hits on the first 8,192
    reads, and runs Hamming seed-and-verify (K3's Hamming entry) on the
    first 8,192 reads, checking each hit's mismatches on the host;
 6. holds K4 (table in shared memory) and K1 against the plain rank on the
@@ -83,10 +83,24 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
    golden cases with ``--device cuda``, each byte-equal to
    ``tests/goldens/``, and r2 with ``--engine workq`` on the card and on
    the CPU, byte-equal (K5 through the CLI);
-11. runs the rank bench (``sahara_tpu_torch/bench_rank.py``: K1 and K4 at
+11. phase ``uni``: 65,536 error-free 100 bp reads through the port's
+   ``read_simulator`` (read seed 99), ``uni-index`` of the reference and
+   ``uni-search`` of the 131,072 strand queries on the card, its output
+   byte-equal to the JAX package's CLI output (sha256 and lines recorded on
+   the CPU, ``JAX_UNI_*``), K6 launched in it and K1 by the upload; the same
+   queries through ``exact_search`` and ``locate`` on an upload without the
+   full suffix array (K7 at sigma 6) give the same rows; phase ``kmer``:
+   ``kmer-index --kmer 3 --window 4`` (sigma 32, 256 B occ rows) and
+   ``kmer-search`` of the same reads, byte-equal to the JAX package's
+   (``JAX_KMER_*``), K6 and K7 launched at sigma 32.  Each phase reports its
+   stats blocks, wall time and reads/s, and holds K6 and K7 against their
+   plain versions on its own recorded calls (exact equality), timed like the
+   other kernels;
+12. runs the rank bench (``sahara_tpu_torch/bench_rank.py``: K1 and K4 at
    100,000 characters, K1 alone at 4.6 million; device time and call time);
-12. prints the kernels' JSON line (each kernel's figures at the sv_e1
-   path's shape as its ``e1_*`` keys, beside that path's launches), the
+13. prints the kernels' JSON line (each kernel's figures at the sv_e1
+   path's shape as its ``e1_*`` keys, beside that path's launches; K6's on
+   the kmer path as ``kmer_*``, K7's on the uni path as ``uni_*``), the
    card line, and as the last line
    ``{"ok": true, "device": {...}}``.  The full report goes to
    ``chiprun_out/chip_smoke.json``.
@@ -164,6 +178,24 @@ JAX_E1_WORKQ_PREFIX_SHA256 = "e44d9c07db5a3fd633346408031cc550cab5e95f41cedc8055
 JAX_CLI_SHA256 = "e6ba548efad46fc5065aa50ea7e50e7224722d532033ec92cd8b2c45e5ee1325"
 JAX_CLI_LINES = 80248
 
+# The JAX package's CLI output of exact search (phase uni) and kmer search
+# (phase kmer), recorded on the CPU with sahara_tpu as JAX_CLI_* was, on the
+# same ref.fasta, with 65,536 error-free reads:
+#   python -m sahara_tpu read_simulator -i ref.fasta -o reads.fasta -n 65536 \
+#       -l 100 -e 0 --seed 99 --fasta_line_length 0
+#   python -m sahara_tpu uni-index ref.fasta
+#   python -m sahara_tpu uni-search -q reads.fasta -i ref.fasta.single.idx -o uni_out.txt
+#   python -m sahara_tpu kmer-index ref.fasta --kmer 3 --window 4
+#   python -m sahara_tpu kmer-search --query reads.fasta --index ref.fasta.kmer.idx --output kmer_out.txt
+# sha256 of each output file's bytes and its line count.  kmer-index found
+# 29 distinct minimizers (sigma 32) in a kmer text of 14,907,156 symbols.
+JAX_UNI_SHA256 = "d08ed2bda9ad7366607dffeb46ee5f19ed30878a445d74ba4bbaa44111cdb271"
+JAX_UNI_LINES = 73185
+JAX_KMER_SHA256 = "ab23bdcfbb852597e072ba71177b1b9e4543390f227c3b0b3bfa1f5e20434661"
+JAX_KMER_LINES = 74251
+KMER_FLAGS = ["--kmer", "3", "--window", "4"]
+KMER_SIGMA = 32
+
 # The conformance corpus and cases of tests/test_conformance.py (which
 # imports the JAX package, so they are copied here; tests/test_torch_cli.py
 # holds the copies equal): reads (count, length, errors, seed) simulated from
@@ -196,6 +228,7 @@ RANK_BENCH_POSITIONS = 262144  # bench_rank.py's default batch
 SMEM_TEXT_MB = 0.1  # the largest random text whose occ table K4 takes
 E1_K = 3  # the short-read workload's k: 36 // 4 < 10, so one-error seeds
 E1_PREFIX_READS = 4096  # the work-queue engine's share of the short-read workload
+EXACT_READS = 65536  # error-free reads of phases uni and kmer
 # a kernel's figures at the sv_e1 path's shape, kept in its row as e1_<key>
 E1_KEYS = ("max_abs_err", "ms", "cold_ms", "call_ms", "old_ms", "old_cold_ms", "plain_ms", "bound_ms", "bound_by",
            "lanes", "variants", "shape", "rows", "children", "hits", "candidates", "cases")
@@ -575,7 +608,7 @@ def seed_reads(index, queries: torch.Tensor, parts) -> tuple[int, int]:
     j, seen = index.lut_j, []
     for t in range(j, max(ln for _, ln in parts)):
         suffixes = [(off + ln - t, t) for off, ln in parts if ln > t]
-        lo, sz = seed_scan_plain(index.occ16, index.c_arr, index.lut, j, queries, suffixes, index.sigma, index.n)
+        lo, sz = seed_scan_plain(index.occ, index.c_arr, index.lut, j, queries, suffixes, index.sigma, index.n)
         seen += [lo.reshape(-1) >> 5, (lo + sz).reshape(-1) >> 5]
     jmers = torch.cat([queries[:, off + ln - j : off + ln] for off, ln in parts]).long()
     return torch.unique(torch.cat(seen)).numel(), torch.unique(jmers, dim=0).shape[0]
@@ -590,7 +623,7 @@ def shared_row_steps(index, queries: torch.Tensor, parts) -> float:
     j, same, total = index.lut_j, 0, 0
     for t in range(j, max(ln for _, ln in parts)):
         suffixes = [(off + ln - t, t) for off, ln in parts if ln > t]
-        lo, sz = seed_scan_plain(index.occ16, index.c_arr, index.lut, j, queries, suffixes, index.sigma, index.n)
+        lo, sz = seed_scan_plain(index.occ, index.c_arr, index.lut, j, queries, suffixes, index.sigma, index.n)
         same += int(((lo >> 5) == ((lo + sz) >> 5)).sum())
         total += lo.numel()
     return same / total
@@ -683,9 +716,9 @@ def kernel_phases(index, queries: np.ndarray, rng: np.random.Generator, ref: np.
 
     # K1 at 1M random positions over the whole occ table (larger than L2)
     idx = torch.from_numpy(rng.integers(0, n + 1, K1_POSITIONS).astype(np.int32)).to(dev)
-    want = rank_all_plain(index.occ16, sigma, idx)
-    err = assert_equal("rank_all", rank_all(index.occ16, sigma, idx), want)
-    call = lambda: rank_all(index.occ16, sigma, idx)  # noqa: E731
+    want = rank_all_plain(index.occ, sigma, idx)
+    err = assert_equal("rank_all", rank_all(index.occ, sigma, idx), want)
+    call = lambda: rank_all(index.occ, sigma, idx)  # noqa: E731
     old = functools.partial(first_version, rank_mod, extra["rank_v1"], call)
     assert_equal("first rank_all", old(), want)
     rows_read = torch.unique(idx >> 5).numel()
@@ -695,7 +728,7 @@ def kernel_phases(index, queries: np.ndarray, rng: np.random.Generator, ref: np.
         replaces="sahara_tpu/kernels/rank.py:218", max_abs_err=err,
         **redesign_times(call, "rank_all_kernel", flush, old),
         variants=variant_times(rank_mod, extra, "rank", call, "rank_all_kernel", flush, want),
-        plain_ms=time_ms(lambda: rank_all_plain(index.occ16, sigma, idx), 5),
+        plain_ms=time_ms(lambda: rank_all_plain(index.occ, sigma, idx), 5),
         bound_ms=b, bound_by=by, library_ms=None, registers=register_row(ptxas, "rank", "rank_all_kernelILi6E"),
         old_registers=register_row(ptxas, "rank_v1", "rank_all_kernelILi6E"), occ_rows_read=rows_read,
         shape=f"{K1_POSITIONS} positions, sigma={sigma}",
@@ -711,7 +744,7 @@ def kernel_phases(index, queries: np.ndarray, rng: np.random.Generator, ref: np.
         col = rng.integers(0, m, CHUNK)
         qs[np.arange(CHUNK), col] = rng.integers(1, 5, CHUNK)
     qd = torch.from_numpy(np.ascontiguousarray(qs, dtype=np.uint8)).to(dev)
-    args = (index.occ16, index.c_arr, index.lut, index.lut_j, qd, parts, sigma, n)
+    args = (index.occ, index.c_arr, index.lut, index.lut_j, qd, parts, sigma, n)
     lo, sz = seed_scan(*args)
     lo_p, sz_p = seed_scan_plain(*args)
     err = assert_equal("seed_scan lo", lo, lo_p) + assert_equal("seed_scan sz", sz, sz_p)
@@ -1030,7 +1063,7 @@ def workq_path(host, queries: np.ndarray, sv_rows: np.ndarray):
     t0 = time.perf_counter()
     index = DeviceIndex.from_host(host)
     torch.cuda.synchronize()
-    out = dict(upload_s=time.perf_counter() - t0, rev_rows=index.rev_rows, occ16_bytes=index.occ16.numel() * 4)
+    out = dict(upload_s=time.perf_counter() - t0, rev_rows=index.rev_rows, occ_bytes=index.occ.numel() * 4)
     t0 = time.perf_counter()
     res = search_queries(index, queries, **kw)
     torch.cuda.synchronize()
@@ -1384,6 +1417,198 @@ def cli_golden_phase(tmp: str) -> dict:
     return out
 
 
+def exact_words(args) -> tuple[int, int]:
+    """(distinct (occ row, symbol) words K6 ranks at, rank steps) on
+    ``exact_search``'s arguments: the plain scan's interval before each
+    step gives the rows that step reads."""
+    from sahara_tpu_torch.engine.rank import rank_sym
+
+    occ, c_arr, queries, qlens, sigma, n = args
+    q = queries.long()
+    lens = qlens.long().clamp(0, q.shape[1])
+    lb = torch.zeros(q.shape[0], dtype=torch.int32, device=q.device)
+    rb = torch.full_like(lb, n)
+    keys = []
+    for j in range(q.shape[1]):
+        at = lens - 1 - j
+        act = at >= 0
+        c = q.gather(1, at.clamp(min=0)[:, None])[:, 0].clamp(max=sigma - 1)
+        keys += [((lb.long() >> 5) * sigma + c)[act], ((rb.long() >> 5) * sigma + c)[act]]
+        base = c_arr[c]
+        lb = torch.where(act, base + rank_sym(occ, sigma, c, lb), lb)
+        rb = torch.where(act, base + rank_sym(occ, sigma, c, rb), rb)
+    return torch.unique(torch.cat(keys)).numel(), int(lens.sum())
+
+
+def exact_figures(args, flush) -> dict:
+    """K6 on one recorded call's arguments (``exact_search``'s): held
+    against its plain version; its device time warm and cold, call time,
+    the plain version's time and the bound."""
+    from sahara_tpu_torch.kernels.exact import exact_search, exact_search_plain
+
+    occ, _, queries, _, sigma, _ = args
+    lb, ln = exact_search(*args)
+    want_lb, want_ln = exact_search_plain(*args)
+    err = assert_equal("exact_search lb", lb, want_lb) + assert_equal("exact_search len", ln, want_ln)
+    words, steps = exact_words(args)
+    # each (row, symbol) checkpoint and bit word, query char, length and
+    # output once; a step ranks both ends: shift, and and popc each on the
+    # ALU with the symbol's clamp and the row compare, and six adds (masks,
+    # checkpoints, bases)
+    b, by = bound(words * 8 + steps + queries.shape[0] * 12, steps * 8, steps * 6)
+    call = lambda: exact_search(*args)  # noqa: E731
+    return dict(
+        max_abs_err=err, **redesign_times(call, "exact_kernel", flush),
+        plain_ms=time_ms(lambda: exact_search_plain(*args), 2), bound_ms=b, bound_by=by, occ_words=words,
+        steps=steps, rows_found=int(ln.sum()),
+        shape=f"{queries.shape[0]} queries x {queries.shape[1]} symbols, sigma={sigma}, {occ.shape[1]}-int rows",
+    )
+
+
+def walk_words(args) -> tuple[int, int, int, int, int]:
+    """(distinct sampled words, distinct (occ row, symbol) words, distinct
+    sample slots, LF steps, bit planes tested) of the sampled walk on
+    ``lf_walk``'s arguments, from the plain walk."""
+    from sahara_tpu_torch.engine.rank import lf, occ_row, sampled_bit, sampled_rank, symbol_from_row
+
+    occ, c_arr, sampled, sample_seq, _, sigma, rate, rows = args
+    live = torch.ones_like(rows, dtype=torch.bool)
+    s_keys, o_keys, steps, planes = [rows.long() >> 5], [], 0, 0
+    for _ in range(rate):
+        live &= sampled_bit(sampled, rows) == 0
+        c = symbol_from_row(occ_row(occ, rows), sigma, rows)
+        o_keys.append(((rows.long() >> 5) * sigma + c)[live])
+        steps += int(live.sum())
+        planes += int((c + 1)[live].sum())
+        rows = torch.where(live, lf(occ, c_arr, sigma, rows), rows)
+        s_keys.append((rows.long() >> 5)[live])
+    slots = sampled_rank(sampled, rows).clamp(0, sample_seq.shape[0] - 1)
+    return (torch.unique(torch.cat(s_keys)).numel(), torch.unique(torch.cat(o_keys)).numel(),
+            torch.unique(slots).numel(), steps, planes)
+
+
+def walk_figures(args, flush) -> dict:
+    """K7 on one recorded call's arguments (``lf_walk``'s): held against its
+    plain version; its device time warm and cold, call time, the plain
+    version's time and the bound."""
+    from sahara_tpu_torch.kernels.lf_walk import lf_walk, lf_walk_plain
+
+    occ, sigma, rate, rows = args[0], args[5], args[6], args[7]
+    seq_id, pos = lf_walk(*args)
+    want_seq, want_pos = lf_walk_plain(*args)
+    err = assert_equal("lf_walk seq_id", seq_id, want_seq) + assert_equal("lf_walk pos", pos, want_pos)
+    s_words, o_words, slots, steps, planes = walk_words(args)
+    # each sampled word, (row, symbol) checkpoint and bit word and sample
+    # slot once, each row in and (seq_id, pos) out once; a step tests its
+    # sampled bit and each plane up to the symbol's (shift and and), masks
+    # and counts; four adds (mask, rank, base, steps)
+    b, by = bound(8 * (s_words + o_words + slots) + 12 * rows.shape[0], steps * 5 + planes * 2, steps * 4)
+    call = lambda: lf_walk(*args)  # noqa: E731
+    return dict(
+        max_abs_err=err, **redesign_times(call, "lf_walk_kernel", flush),
+        plain_ms=time_ms(lambda: lf_walk_plain(*args), 2), bound_ms=b, bound_by=by, lf_steps=steps,
+        sampled_words=s_words, occ_words=o_words,
+        shape=f"{rows.shape[0]} rows, sigma={sigma}, {occ.shape[1]}-int rows, rate {rate}",
+    )
+
+
+def search_output(path: str, want_sha: str, want_lines: int, what: str) -> tuple[np.ndarray, str, int]:
+    """A search's output file as int64 rows [N, 3], its sha256 and lines;
+    raises unless they are the JAX package's CLI output's."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    sha, lines = hashlib.sha256(data).hexdigest(), data.count(b"\n")
+    print(f"{what}: {lines} lines, sha256 {sha} (JAX package's CLI: {want_lines}, {want_sha})", flush=True)
+    if sha != want_sha or lines != want_lines:
+        raise AssertionError(f"the {what} output differs from the JAX package's CLI output")
+    return np.array(data.decode().split(), dtype=np.int64).reshape(-1, 3), sha, lines
+
+
+def uni_phase(tmp: str, fasta: str, card: str) -> tuple[dict, dict, dict]:
+    """Phase uni: EXACT_READS error-free reads through ``read_simulator``,
+    ``uni-index`` and ``uni-search`` on the card; the output's sha256
+    against the JAX package's CLI, K6 launched there and K1 by the upload
+    (its j-mer table); the same strand queries through ``exact_search`` and
+    ``locate`` on an upload without the full suffix array (the sampled walk,
+    K7 at sigma 6) give the same rows.  Returns the phase's report, K6's
+    figures on the uni-search call and K7's on the sampled locate."""
+    from sahara_tpu_torch.alphabet import D_DNA5
+    from sahara_tpu_torch.cli.common import load_queries_ranked
+    from sahara_tpu_torch.engine.device import DeviceIndex, pad_queries
+    from sahara_tpu_torch.engine.exact import exact_search
+    from sahara_tpu_torch.engine.locate import locate
+    from sahara_tpu_torch.index.fmindex import load_index
+    from sahara_tpu_torch.kernels import LAUNCHES, reset_launches
+    from sahara_tpu_torch.kernels import exact as k6
+    from sahara_tpu_torch.kernels import lf_walk as k7
+
+    reads, out = os.path.join(tmp, "exact_reads.fasta"), os.path.join(tmp, "uni_out.txt")
+    sim_s, _ = run_cli(["read_simulator", "-i", fasta, "-o", reads, "-n", str(EXACT_READS), "-l", "100", "-e", "0",
+                        "--seed", "99", "--fasta_line_length", "0"])
+    index_s, index_log = run_cli(["uni-index", fasta])
+    reset_launches()
+    with recorded(k6, "exact_search") as calls:
+        wall, log = run_cli(["uni-search", "-q", reads, "-i", fasta + ".single.idx", "-o", out])
+    launches = dict(LAUNCHES)
+    require_launches(launches, ("exact_search", "rank_all"), "uni-search")
+    rows, sha, lines = search_output(out, JAX_UNI_SHA256, JAX_UNI_LINES, "uni-search")
+
+    sampled = DeviceIndex.from_host(load_index(fasta + ".single.idx"), full_sa=False)
+    queries = load_queries_ranked(reads, D_DNA5, add_revcomp=True)
+    reset_launches()
+    with recorded(k7, "lf_walk") as walks:
+        got = np.stack([t.cpu().numpy() for t in locate(sampled, *exact_search(sampled, *pad_queries(queries)))], 1)
+    sampled_launches = dict(LAUNCHES)
+    require_launches(sampled_launches, ("exact_search", "lf_walk"), "sampled locate")
+    if not np.array_equal(got, rows):
+        raise AssertionError("exact search with the sampled walk gives other rows than uni-search")
+    flush_buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=sampled.device)
+    flush = lambda: flush_buf.fill_(1)  # noqa: E731
+    k6_fig, k7_fig = exact_figures(calls[0][0], flush), walk_figures(walks[0][0], flush)
+    rep = dict(reads=EXACT_READS, queries=len(queries), read_simulator_s=sim_s, index_s=index_s,
+               index_stats=stats_block(index_log), wall_s=wall, reads_per_s=EXACT_READS / wall,
+               stats=stats_block(log), launches=launches, lines=lines, sha256=sha,
+               sampled_launches=sampled_launches, card=card)
+    print(f"uni: uni-index {index_s:.1f} s; uni-search wall {wall:.2f} s, {rep['reads_per_s']:.1f} reads/s end to end "
+          f"({EXACT_READS} reads, both strands); stats block s {json.dumps(rep['stats'])}; launches "
+          f"{json.dumps(launches)}; the sampled walk gives the same {len(rows)} rows ({json.dumps(sampled_launches)}); "
+          f"{card}", flush=True)
+    return rep, k6_fig, k7_fig
+
+
+def kmer_phase(tmp: str, fasta: str, reads: str, card: str) -> tuple[dict, dict, dict]:
+    """Phase kmer: ``kmer-index`` of the reference (``KMER_FLAGS``: sigma
+    32) and ``kmer-search`` of phase uni's reads on the card; the output's
+    sha256 against the JAX package's CLI and K6 and K7 launched at sigma 32.
+    Returns the phase's report and K6's and K7's figures on that run's
+    calls."""
+    from sahara_tpu_torch.kernels import LAUNCHES, reset_launches
+    from sahara_tpu_torch.kernels import exact as k6
+    from sahara_tpu_torch.kernels import lf_walk as k7
+
+    out = os.path.join(tmp, "kmer_out.txt")
+    index_s, index_log = run_cli(["kmer-index", fasta] + KMER_FLAGS)
+    reset_launches()
+    with recorded(k6, "exact_search") as calls, recorded(k7, "lf_walk") as walks:
+        wall, log = run_cli(["kmer-search", "--query", reads, "--index", fasta + ".kmer.idx", "--output", out])
+    launches = dict(LAUNCHES)
+    require_launches(launches, ("exact_search", "lf_walk"), "kmer-search")
+    _, sha, lines = search_output(out, JAX_KMER_SHA256, JAX_KMER_LINES, "kmer-search")
+    sigmas = {calls[0][0][4], walks[0][0][5]}
+    if sigmas != {KMER_SIGMA}:
+        raise AssertionError(f"kmer-search ran at sigma {sigmas}, not {KMER_SIGMA}")
+    flush_buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=calls[0][0][0].device)
+    flush = lambda: flush_buf.fill_(1)  # noqa: E731
+    k6_fig, k7_fig = exact_figures(calls[0][0], flush), walk_figures(walks[0][0], flush)
+    rep = dict(index_s=index_s, index_stats=stats_block(index_log),
+               wall_s=wall, reads_per_s=EXACT_READS / wall, stats=stats_block(log), launches=launches, lines=lines,
+               sha256=sha, sigma=KMER_SIGMA, card=card)
+    print(f"kmer: kmer-index {index_s:.1f} s (stats {json.dumps(rep['index_stats'])}); kmer-search wall {wall:.2f} s, "
+          f"{rep['reads_per_s']:.1f} reads/s end to end; stats block s {json.dumps(rep['stats'])}; launches "
+          f"{json.dumps(launches)}; {card}", flush=True)
+    return rep, k6_fig, k7_fig
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1471,23 +1696,21 @@ def main() -> int:
           f"max_memory_allocated {report['max_memory_allocated']} B", flush=True)
     print(f"passes s {passes}; device busy {report['profile']['device_busy_ms']:.2f} ms of a pass", flush=True)
 
-    # sampled LF-walk locate: no full suffix array on the card
-    reset_launches()
+    # sampled LF-walk locate (K7): no full suffix array on the card
     sampled = DeviceIndex.from_host(host, full_sa=False, include_rev=False)
-    k1_upload = LAUNCHES["rank_all"]
     sub = queries[: 2 * SAMPLED_READS]
+    reset_launches()
     t0 = time.perf_counter()
     res_s = search_queries(sampled, sub, **kw)
     torch.cuda.synchronize()
     report["sampled_pass_s"] = time.perf_counter() - t0
-    report["sampled_locate_rank_all_launches"] = LAUNCHES["rank_all"] - k1_upload
-    if report["sampled_locate_rank_all_launches"] <= 0:
-        raise AssertionError("sampled locate never launched rank_all")
+    report["sampled_locate_lf_walk_launches"] = LAUNCHES["lf_walk"]
+    require_launches(LAUNCHES, ("lf_walk",), "sampled locate")
     want = rows[rows[:, 0] < 2 * SAMPLED_READS]
     if not np.array_equal(sorted_rows(res_s), want):
         raise AssertionError("sampled-walk hits differ from the full-SA hits")
     print(f"sampled walk: {len(want)} hits equal on the first {SAMPLED_READS} reads, "
-          f"{report['sampled_locate_rank_all_launches']} rank_all launches in locate, "
+          f"{report['sampled_locate_lf_walk_launches']} lf_walk launches in locate, "
           f"{report['sampled_pass_s'] * 1e3:.1f} ms", flush=True)
     del sampled
     report["hamming"] = hamming_phase(index, ref, queries)
@@ -1531,7 +1754,28 @@ def main() -> int:
     # phase cli: the search through the CLI, then the goldens
     report["cli"].update(search=cli_search_phase(tmp.name, fasta, reads, len(queries) // 2, rows, card),
                          goldens=cli_golden_phase(tmp.name))
+
+    # phases uni and kmer: exact search through the CLI (K6, K7)
+    report["uni"], k6, uni_k7 = uni_phase(tmp.name, fasta, card)
+    report["kmer"], kmer_k6, k7 = kmer_phase(tmp.name, fasta, os.path.join(tmp.name, "exact_reads.fasta"), card)
     tmp.cleanup()
+    kernels.append(dict(
+        name="exact_search", route="cuda", source="sahara_tpu_torch/kernels/csrc/exact.cu",
+        replaces="sahara_tpu/engine/exact.py:21", library_ms=None, registers=register_row(ptxas, "exact", "exact_kernel"),
+        **k6, kmer_launches=report["kmer"]["launches"]["exact_search"], **{f"kmer_{k}": v for k, v in kmer_k6.items()},
+    ))
+    kernels.append(dict(
+        name="lf_walk", route="cuda", source="sahara_tpu_torch/kernels/csrc/lf_walk.cu",
+        replaces="sahara_tpu/engine/locate.py:51", library_ms=None, registers=register_row(ptxas, "lf_walk", "lf_walk"),
+        **k7, uni_launches=report["uni"]["sampled_launches"]["lf_walk"], **{f"uni_{k}": v for k, v in uni_k7.items()},
+    ))
+    for row, other in ((kernels[-2], "kmer"), (kernels[-1], "uni")):
+        print_times(row)
+        print(f"  at {row['shape']}: plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.5f} ms by "
+              f"{row['bound_by']}; at the {other} path's {row[other + '_shape']}: device warm {row[other + '_ms']:.4f} "
+              f"/ cold {row[other + '_cold_ms']:.4f} ms, call {row[other + '_call_ms']:.4f} ms, plain "
+              f"{row[other + '_plain_ms']:.3f} ms, bound {row[other + '_bound_ms']:.5f} ms by {row[other + '_bound_by']}",
+              flush=True)
 
     # the rank bench: the path that runs K4
     reset_launches()
@@ -1541,7 +1785,9 @@ def main() -> int:
 
     path_launches = {**launches, "verify_hamming": report["hamming"]["verify_launches"],
                      "rank_all_smem": rank_bench_launches["rank_all_smem"],
-                     "workq_step": report["workq"]["launches"]["workq_step"]}
+                     "workq_step": report["workq"]["launches"]["workq_step"],
+                     "exact_search": report["uni"]["launches"]["exact_search"],
+                     "lf_walk": report["kmer"]["launches"]["lf_walk"]}
     for row in kernels:
         row["launches"] = path_launches[row["name"]]
     report.update(card=card, kernels=kernels, total_s=time.perf_counter() - t_start)
@@ -1554,9 +1800,12 @@ def main() -> int:
     print(card)
     # device times also cold and the call time; K1, K4 and K3h their first
     # version's; K5, K3 and K3h also at the sv_e1 path's shapes, beside that
-    # path's launches
-    more = ("cold_ms", "call_ms", "old_ms", "old_cold_ms", "e1_launches", "e1_max_abs_err", "e1_ms", "e1_cold_ms",
-            "e1_call_ms", "e1_old_ms", "e1_old_cold_ms", "e1_plain_ms", "e1_bound_ms", "e1_bound_by")
+    # path's launches; K6 also on the kmer path, K7 also on the uni path's
+    # sampled walk
+    more = ("cold_ms", "call_ms", "old_ms", "old_cold_ms")
+    more += tuple(f"{p}_{k}" for p in ("e1", "kmer", "uni") for k in (
+        "launches", "max_abs_err", "ms", "cold_ms", "call_ms", "old_ms", "old_cold_ms", "plain_ms", "bound_ms",
+        "bound_by"))
     print(json.dumps({"kernels": [{k: row[k] for k in keys + more if k in row} for row in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -24,7 +24,7 @@ import sys
 import numpy as np
 import torch
 
-from sahara_tpu_torch.engine.rank import pack_occ16
+from sahara_tpu_torch.engine.rank import pack_occ
 from sahara_tpu_torch.index.build import build_fmindex
 from sahara_tpu_torch.kernels.rank import rank_all, rank_all_plain
 from sahara_tpu_torch.kernels.rank_smem import occ16_smem_bytes, rank_all_smem, smem_eligible
@@ -37,7 +37,7 @@ def setup(ref_mb: float, n: int, device) -> tuple[torch.Tensor, int, torch.Tenso
     rng = np.random.default_rng(0)
     text = rng.integers(1, 5, size=int(ref_mb * 1_000_000)).astype(np.uint8)
     host = build_fmindex([text], 6, "d_dna5")
-    occ16 = torch.from_numpy(pack_occ16(host.occ)).to(device)
+    occ16 = torch.from_numpy(pack_occ(host.occ)).to(device)
     idx = torch.from_numpy(rng.integers(0, host.n, size=n).astype(np.int32)).to(device)
     return occ16, host.sigma, idx
 

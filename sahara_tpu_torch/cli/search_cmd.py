@@ -5,10 +5,11 @@ output, stats block.
 The counterpart of ``sahara_tpu/cli/search_cmd.py`` on one device.
 ``--device`` (default ``cuda``) is where the index is uploaded and searched;
 without a card the search commands raise unless ``--device cpu`` is given.
-What is not ported raises ``NotImplementedError`` naming its ROADMAP.md
-item: ``uni-search`` (item 11), ``--engine approx`` (item 14), ``--devices``
-above 1 and ``--mh_num_processes`` above 1 (item 15), sharded indexes
-(item 13)."""
+``uni-search`` is exact search and locate on a unidirectional index (K6,
+and K7 where the index has no full suffix array).  What is not ported
+raises ``NotImplementedError`` naming its ROADMAP.md item: ``--engine
+approx`` (item 14), ``--devices`` above 1 and ``--mh_num_processes`` above
+1 (item 15), sharded indexes (item 13)."""
 
 from __future__ import annotations
 
@@ -18,18 +19,20 @@ import queue as queue_mod
 import threading
 
 import numpy as np
+import torch
 
-from sahara_tpu_torch.alphabet import DR_DNA4, DR_DNA5, INVALID_RANK, by_sigma
+from sahara_tpu_torch.alphabet import D_DNA5, DR_DNA4, DR_DNA5, INVALID_RANK, by_sigma
 from sahara_tpu_torch.cli.common import format_hit_block, load_queries_ranked, write_hits
-from sahara_tpu_torch.engine.device import DeviceIndex, resolve_device
+from sahara_tpu_torch.engine.device import DeviceIndex, pad_queries, resolve_device
 from sahara_tpu_torch.engine.driver import SearchResult, _merge_results, search_queries
+from sahara_tpu_torch.engine.exact import exact_search
+from sahara_tpu_torch.engine.locate import locate
 from sahara_tpu_torch.index.fmindex import load_index, peek_sigma
 from sahara_tpu_torch.index.shard import load_any_index, peek_index_kind
 from sahara_tpu_torch.io.fasta import NotSimpleFasta, iter_fasta_seq_matrix_blocks, read_fasta
 from sahara_tpu_torch.utils.errors import SaharaError
 from sahara_tpu_torch.utils.stopwatch import Timings
 
-EXACT_NOT_PORTED = "exact and k-mer search are not ported; see ROADMAP.md queue 1 item 11"
 STREAM_MIN_BYTES = 128 << 20  # read files from this size stream by default
 
 
@@ -250,7 +253,38 @@ def cmd_search(args):
 
 
 def cmd_uni_search(args):
-    raise NotImplementedError(EXACT_NOT_PORTED)
+    dev = resolve_device(args.device)
+    timing = Timings()
+    queries = load_queries_ranked(args.query, D_DNA5, add_revcomp=not args.no_reverse)
+    if not queries:
+        raise SaharaError(f"query file {args.query} was empty - abort")
+    timing.mark("ld queries")
+
+    print("config:")
+    print(f"  query:               {args.query}")
+    print(f"  index:               {args.index}")
+    print(f"  reverse complements: {not args.no_reverse}")
+    print(f"  output path:         {args.output}")
+    fwd = len(queries) // (1 if args.no_reverse else 2)
+    print(f"fwd queries: {fwd}")
+    print(f"bwd queries: {len(queries) - fwd}")
+
+    _check_index_path(args.index)
+    index = DeviceIndex.from_host(load_index(args.index), device=dev)
+    timing.mark("ld index")
+
+    lb, ln = exact_search(index, *pad_queries(queries))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    timing.mark("search")
+
+    # rows come out by query, each query's in SA order
+    src, seq_id, pos = (t.cpu().numpy() for t in locate(index, lb, ln))
+    timing.mark("locate")
+
+    n = write_hits(args.output, (src, seq_id, pos))
+    timing.mark("result")
+    timing.print_stats(n_queries=len(queries), n_hits=n)
 
 
 def _rbi_search(args, alphabet, unknown_random_ranks: bool):
@@ -364,11 +398,13 @@ def register(subparsers):
     _add_search_flags(p, metric=True, reverse=True, limit=True)
     p.set_defaults(func=cmd_search)
 
-    p = subparsers.add_parser("uni-search", help="search for a given pattern (not ported: ROADMAP.md queue 1 item 11)")
+    p = subparsers.add_parser("uni-search", help="search for a given pattern")
     p.add_argument("-q", "--query", required=True)
     p.add_argument("-i", "--index", required=True)
     p.add_argument("-o", "--output", default="sahara-output.txt")
     p.add_argument("--no-reverse", action="store_true")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the index is uploaded and searched: the CUDA card (default) or the CPU")
     p.set_defaults(func=cmd_uni_search)
 
     p = subparsers.add_parser("rbi-search", help="search for a given pattern")

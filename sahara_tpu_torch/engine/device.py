@@ -1,8 +1,11 @@
 """Device-resident view of an FM-index (tensors on one device).
 
 The counterpart of ``sahara_tpu/engine/device.py::DeviceIndex``: the occ
-tables in the planar occ16 layout, the sampled suffix array, the packed
-text, the j-mer seed table and the optional full suffix array.
+tables in the planar layout of ``engine/rank.py`` (occ16 rows up to sigma =
+8, wider rows up to sigma = 128), the sampled suffix array, the packed text,
+the j-mer seed table and the optional full suffix array.  Exact search and
+locate take every row width; seed-and-verify and the work-queue engine take
+only occ16 rows.
 
 For a bidirectional host index the reversed-text occ table is stacked after
 the forward one (``rev_rows`` words in), so the work-queue engine picks the
@@ -18,7 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from sahara_tpu_torch.engine.rank import pack_occ16
+from sahara_tpu_torch.engine.rank import pack_occ
 from sahara_tpu_torch.index.fmindex import BiFMIndex, FMIndex
 from sahara_tpu_torch.index.jmer import build_jmer_lut, pick_lut_j
 
@@ -33,7 +36,7 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class DeviceIndex:
-    occ16: torch.Tensor  # int32[W or 2W, 16] — engine/rank.py layout, forward table first
+    occ: torch.Tensor  # int32[W or 2W, row_ints] — engine/rank.py layout, forward table first
     c_arr: torch.Tensor  # int32[sigma+1]
     sampled: torch.Tensor  # int32[W, 2] — (checkpoint, bit word) of sampled rows
     sample_seq: torch.Tensor  # int32[S]
@@ -62,7 +65,12 @@ class DeviceIndex:
 
     @property
     def device(self) -> torch.device:
-        return self.occ16.device
+        return self.occ.device
+
+    @property
+    def row_ints(self) -> int:
+        """int32 per occ row: 16 (occ16) for sigma <= 8, wider above."""
+        return self.occ.shape[1]
 
     @property
     def bidirectional(self) -> bool:
@@ -85,17 +93,17 @@ class DeviceIndex:
         dev = resolve_device(device)
 
         def put(x) -> torch.Tensor:
-            return torch.tensor(np.asarray(x, dtype=np.int32), device=dev)
+            return torch.tensor(np.ascontiguousarray(x, dtype=np.int32), device=dev)
 
-        occ = pack_occ16(index.occ)
+        occ = pack_occ(index.occ)
         mirrored = bool(getattr(index, "mirrored", False))
         rev_rows = 0
         if isinstance(index, BiFMIndex) and index.occ_rev is not None and not mirrored and include_rev:
             if index.occ_rev.shape != index.occ.shape:
                 raise ValueError("forward and reversed occ tables differ in shape")
             rev_rows = occ.shape[0]
-            occ = np.concatenate([occ, pack_occ16(index.occ_rev)])
-        occ16 = put(occ)
+            occ = np.concatenate([occ, pack_occ(index.occ_rev)])
+        occ = put(occ)
         c_arr = put(index.c_arr)
         # symbol counts from the C-array: count(s) = C[s+1] - C[s]
         counts = np.diff(np.append(np.asarray(index.c_arr, dtype=np.int64)[: index.sigma], index.n))
@@ -104,10 +112,10 @@ class DeviceIndex:
         lut, lut_j = None, 0
         if index.text4 is not None and index.sigma <= 6:
             lut_j = pick_lut_j(index.n)
-            lut = build_jmer_lut(occ16, c_arr, index.sigma, index.n, lut_j)
+            lut = build_jmer_lut(occ, c_arr, index.sigma, index.n, lut_j)
         has_text = index.text4 is not None
         return DeviceIndex(
-            occ16=occ16,
+            occ=occ,
             c_arr=c_arr,
             sampled=put(index.sampled),
             sample_seq=put(index.sample_seq),
@@ -126,3 +134,13 @@ class DeviceIndex:
             sigma_live=sigma_live,
             mirrored=mirrored,
         )
+
+
+def pad_queries(queries: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
+    """Left-aligned queries padded to the longest: (uint8[B, L] symbols,
+    int32[B] lengths)."""
+    lens = np.fromiter((len(q) for q in queries), dtype=np.int32, count=len(queries))
+    out = np.zeros((len(queries), int(lens.max(initial=0))), dtype=np.uint8)
+    for i, q in enumerate(queries):
+        out[i, : len(q)] = q
+    return out, lens

@@ -29,6 +29,7 @@ import torch
 from sahara_tpu_torch.engine import workq
 from sahara_tpu_torch.engine.device import DeviceIndex, resolve_device
 from sahara_tpu_torch.engine.locate import expand_intervals, lf_walk
+from sahara_tpu_torch.engine.rank import ROW_INTS
 from sahara_tpu_torch.engine.seedverify import (
     StageTimer,
     plan_parts,
@@ -371,6 +372,9 @@ def search_queries(
         raise NotImplementedError("multi-device search is not ported; see ROADMAP.md queue 1 item 15")
     if mode not in ("all", "besthits"):
         raise ValueError(f"unknown search mode {mode!r}")
+    if index.row_ints != ROW_INTS:
+        raise ValueError(f"approximate search takes occ16 rows (sigma <= 8), got a sigma={index.sigma} index; "
+                         "exact search (engine/exact.py) takes any sigma")
 
     by_len: dict[int, list[int] | None] = {}
     if isinstance(queries, np.ndarray):

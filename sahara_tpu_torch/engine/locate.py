@@ -2,7 +2,9 @@
 
 The counterpart of ``sahara_tpu/engine/locate.py``: ``expand_intervals`` is
 an integer cumsum plus searchsorted, and ``lf_walk`` either gathers the
-full suffix array or walks each row back by LF steps to a sampled row.
+full suffix array or walks each row back by LF steps to a sampled row (one
+K7 launch).  ``locate`` is the two for a batch of intervals, allocated to
+their exact total.
 """
 
 from __future__ import annotations
@@ -10,8 +12,7 @@ from __future__ import annotations
 import torch
 
 from sahara_tpu_torch.engine.device import DeviceIndex
-from sahara_tpu_torch.engine.rank import sampled_bit, sampled_rank
-from sahara_tpu_torch.kernels.rank import rank_all
+from sahara_tpu_torch.kernels import lf_walk as k7
 
 
 def expand_intervals(lb: torch.Tensor, ln: torch.Tensor, cap_rows: int):
@@ -35,29 +36,30 @@ def lf_walk(index: DeviceIndex, rows: torch.Tensor, valid: torch.Tensor):
 
     With the full suffix array this is one gather plus a search of the
     sequence starts.  Otherwise each row walks back by LF steps until its
-    row is sampled (< rate steps by the text layout), a fixed loop of
-    ``rate`` trips; each trip is one rank_all launch over the rows and their
-    successors, whose difference also names the BWT symbol.
+    row is sampled (< rate steps by the text layout): one K7 launch.
 
     Rows whose suffix starts at a sentinel are unspecified and may differ
     between the two paths; no search hit produces one."""
-    rows = torch.where(valid, rows, 0).to(torch.int32)
+    seq_id, pos = _walk(index, torch.where(valid, rows, 0).to(torch.int32))
+    return torch.where(valid, seq_id, -1), torch.where(valid, pos, -1)
+
+
+def _walk(index: DeviceIndex, rows: torch.Tensor):
     if index.sa_full is not None:
         abs_pos = index.sa_full[rows.long()]
         seq_id = torch.searchsorted(index.seq_starts, abs_pos, right=True) - 1
         pos = abs_pos - index.seq_starts[seq_id.clamp(min=0)]
-        return torch.where(valid, seq_id, -1).to(torch.int32), torch.where(valid, pos, -1)
-    nr = rows.shape[0]
-    steps = torch.zeros_like(rows)
-    for _ in range(index.rate):
-        done = sampled_bit(index.sampled, rows) == 1
-        ranks = rank_all(index.occ16, index.sigma, torch.cat([rows, rows + 1]))
-        before, after = ranks[:nr], ranks[nr:]
-        sym = (after - before).argmax(dim=1)
-        nxt = index.c_arr[sym] + before.gather(1, sym[:, None])[:, 0]
-        rows = torch.where(done, rows, nxt)
-        steps = torch.where(done, steps, steps + 1)
-    slot = sampled_rank(index.sampled, rows).clamp(0, index.sample_seq.shape[0] - 1).long()
-    seq_id = index.sample_seq[slot]
-    pos = index.sample_pos[slot] + steps
-    return torch.where(valid, seq_id, -1), torch.where(valid, pos, -1)
+        return seq_id.to(torch.int32), pos
+    return k7.lf_walk(index.occ, index.c_arr, index.sampled, index.sample_seq, index.sample_pos, index.sigma,
+                      index.rate, rows)
+
+
+def locate(index: DeviceIndex, lb: torch.Tensor, ln: torch.Tensor):
+    """Every row of the intervals [lb_i, lb_i + ln_i) and its text position:
+    (src int64 — the interval each row came from, seq_id int32, pos int32),
+    intervals in order and each interval's rows in SA order.  Reads the
+    total once to allocate exactly."""
+    total = int(ln.long().sum())
+    rows, src, _, _ = expand_intervals(lb, ln, total)
+    seq_id, pos = _walk(index, rows)
+    return src, seq_id, pos

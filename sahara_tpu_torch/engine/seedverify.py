@@ -14,7 +14,7 @@ search of the part slices (the driver runs it, ``seed_tape``).  One chunk
 2. expand  — ragged part intervals to candidate SA rows (cumsum/searchsorted;
              one-error seeds also drop duplicate (query, part, row) keys);
 3. locate  — SA row to text position (full-SA gather, or the sampled LF-walk
-             through K1 rank_all);
+             through K7 lf_walk);
 4. verify  — K3 verify: banded minimal-span edit DP (or Hamming count) of
              the full query around each anchor;
 5. emit    — (candidate, start) pairs with distance <= k, one D2H.
@@ -121,7 +121,7 @@ def seed_parts(index: DeviceIndex, queries: torch.Tensor, parts) -> tuple[torch.
     lane; ``queries`` are uint8 ranks on the index's device."""
     use_lut = index.lut is not None and index.lut_j > 0 and min(ln for _, ln in parts) >= index.lut_j
     return seed_scan(
-        index.occ16, index.c_arr, index.lut if use_lut else None, index.lut_j if use_lut else 0,
+        index.occ, index.c_arr, index.lut if use_lut else None, index.lut_j if use_lut else 0,
         queries, parts, index.sigma, index.n,
     )
 

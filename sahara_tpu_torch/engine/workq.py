@@ -241,7 +241,7 @@ def start_queue(index: DeviceIndex, queries: torch.Tensor, device_tape, active: 
     meta = ((lanes % ns) << layout.s_shift) | ((lanes // ns) << layout.q_shift)
     meta = torch.where(meta >= 1 << 31, meta - (1 << 32), meta).to(torch.int32)
     ctx = step_context(
-        index.occ16, index.c_arr, pack_lane_tape(queries, *device_tape), sigma=sigma,
+        index.occ, index.c_arr, pack_lane_tape(queries, *device_tape), sigma=sigma,
         sl=max(min(index.sigma_live or sigma, sigma), 2), edit=edit, m=m, ns=ns, rev_off=index.rev_word_off,
         layout=layout, max_rows=max(meta.shape[0], HARD_CAP),
         hq_counts=torch.zeros(nq, dtype=torch.int32, device=index.device) if cap_per_query else None,

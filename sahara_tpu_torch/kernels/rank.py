@@ -2,8 +2,7 @@
 
 The Hopper counterpart of ``sahara_tpu/kernels/rank.py::rank_all_hbm``.  On
 the main path it builds the j-mer seed table at index upload
-(``index/jmer.py``) and drives the sampled LF-walk locate
-(``engine/locate.py``) where no full-SA sidecar exists.
+(``index/jmer.py``); it takes occ16 rows only (sigma <= 8).
 """
 
 from __future__ import annotations

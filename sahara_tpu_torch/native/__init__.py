@@ -1,4 +1,5 @@
-"""ctypes binding for the host SA-IS suffix sorter (``sahara_native.cpp``).
+"""ctypes binding for the host native code (``sahara_native.cpp``): the SA-IS
+suffix sorter and XXH64.
 
 The library is compiled with ``g++`` at first use into ``_build/`` beside
 this file (git-ignored), under a name keyed by the source's hash.  Several
@@ -58,6 +59,12 @@ def get_lib() -> ctypes.CDLL:
             lib.sahara_sais_i32.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
             ]
+            lib.sahara_xxh64.restype = ctypes.c_uint64
+            lib.sahara_xxh64.argtypes = [ctypes.c_char_p, ctypes.c_uint64, ctypes.c_uint64]
+            lib.sahara_xxh64_batch_u64.restype = None
+            lib.sahara_xxh64_batch_u64.argtypes = [
+                ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_void_p,
+            ]
             _lib = lib
         return _lib
 
@@ -86,3 +93,21 @@ def suffix_array(text: np.ndarray) -> np.ndarray:
         raise RuntimeError(f"SA-IS failed ({rc})")
     # drop the sentinel suffix (always sa[0] == n)
     return sa[1:].astype(np.int64)
+
+
+def xxh64(data: bytes, seed: int = 0) -> int:
+    """XXH64 of a byte string."""
+    return int(get_lib().sahara_xxh64(data, len(data), seed))
+
+
+def xxh64_u64(value: int, seed: int = 0) -> int:
+    """XXH64 of one uint64 (its little-endian bytes), the kmer hash."""
+    return xxh64(int(value).to_bytes(8, "little"), seed)
+
+
+def xxh64_batch_u64(values: np.ndarray, seed: int = 0) -> np.ndarray:
+    """XXH64 of each uint64 key: uint64[len(values)]."""
+    values = np.ascontiguousarray(values, dtype=np.uint64)
+    out = np.empty(len(values), dtype=np.uint64)
+    get_lib().sahara_xxh64_batch_u64(values.ctypes.data, len(values), seed, out.ctypes.data)
+    return out

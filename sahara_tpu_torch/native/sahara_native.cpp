@@ -1,12 +1,15 @@
-// SA-IS suffix-array construction for the host index build.
+// Host native code: SA-IS suffix-array construction for the index build and
+// XXH64 for the kmer sketch.
 //
-// Nong, Zhang & Chan, "Two Efficient Algorithms for Linear Time Suffix Array
-// Construction" (2009): induced sorting with LMS substrings, over int32 texts
-// of fewer than 2^31 chars.  Exposed as a C ABI and
-// loaded with ctypes (sahara_tpu_torch/native/__init__.py).
+// SA-IS: Nong, Zhang & Chan, "Two Efficient Algorithms for Linear Time
+// Suffix Array Construction" (2009): induced sorting with LMS substrings, over
+// int32 texts of fewer than 2^31 chars.  XXH64: the public xxHash
+// specification, a copy of sahara_tpu/native/sahara_native.cpp's.  Exposed as
+// a C ABI and loaded with ctypes (sahara_tpu_torch/native/__init__.py).
 
 #include <algorithm>
 #include <cstdint>
+#include <cstring>
 #include <vector>
 
 namespace {
@@ -153,6 +156,96 @@ void sais_impl(const CharT* s, IdxT* SA, IdxT n, IdxT K) {
     induce_s(is_s, SA, s, n, K, bkt.data());
 }
 
+// ---------------------------------------------------------------------------
+// XXH64 (public spec). Needed bit-exact for kmer mod-mer selection parity
+// (reference: hash.h:25-27 uses XXH64 with seed 0).
+// ---------------------------------------------------------------------------
+
+constexpr uint64_t P1 = 0x9E3779B185EBCA87ULL;
+constexpr uint64_t P2 = 0xC2B2AE3D27D4EB4FULL;
+constexpr uint64_t P3 = 0x165667B19E3779F9ULL;
+constexpr uint64_t P4 = 0x85EBCA77C2B2AE63ULL;
+constexpr uint64_t P5 = 0x27D4EB2F165667C5ULL;
+
+inline uint64_t rotl64(uint64_t x, int r) { return (x << r) | (x >> (64 - r)); }
+
+inline uint64_t read64(const uint8_t* p) {
+    uint64_t v;
+    std::memcpy(&v, p, 8);
+    return v;  // little-endian hosts only (x86/ARM)
+}
+inline uint32_t read32(const uint8_t* p) {
+    uint32_t v;
+    std::memcpy(&v, p, 4);
+    return v;
+}
+
+inline uint64_t xxh64_round(uint64_t acc, uint64_t input) {
+    acc += input * P2;
+    acc = rotl64(acc, 31);
+    acc *= P1;
+    return acc;
+}
+
+inline uint64_t xxh64_merge_round(uint64_t acc, uint64_t val) {
+    val = xxh64_round(0, val);
+    acc ^= val;
+    acc = acc * P1 + P4;
+    return acc;
+}
+
+uint64_t xxh64_impl(const uint8_t* p, size_t len, uint64_t seed) {
+    const uint8_t* end = p + len;
+    uint64_t h;
+    if (len >= 32) {
+        const uint8_t* limit = end - 32;
+        uint64_t v1 = seed + P1 + P2;
+        uint64_t v2 = seed + P2;
+        uint64_t v3 = seed + 0;
+        uint64_t v4 = seed - P1;
+        do {
+            v1 = xxh64_round(v1, read64(p));
+            p += 8;
+            v2 = xxh64_round(v2, read64(p));
+            p += 8;
+            v3 = xxh64_round(v3, read64(p));
+            p += 8;
+            v4 = xxh64_round(v4, read64(p));
+            p += 8;
+        } while (p <= limit);
+        h = rotl64(v1, 1) + rotl64(v2, 7) + rotl64(v3, 12) + rotl64(v4, 18);
+        h = xxh64_merge_round(h, v1);
+        h = xxh64_merge_round(h, v2);
+        h = xxh64_merge_round(h, v3);
+        h = xxh64_merge_round(h, v4);
+    } else {
+        h = seed + P5;
+    }
+    h += (uint64_t)len;
+    while (p + 8 <= end) {
+        uint64_t k1 = xxh64_round(0, read64(p));
+        h ^= k1;
+        h = rotl64(h, 27) * P1 + P4;
+        p += 8;
+    }
+    if (p + 4 <= end) {
+        h ^= (uint64_t)read32(p) * P1;
+        h = rotl64(h, 23) * P2 + P3;
+        p += 4;
+    }
+    while (p < end) {
+        h ^= (*p) * P5;
+        h = rotl64(h, 11) * P1;
+        ++p;
+    }
+    h ^= h >> 33;
+    h *= P2;
+    h ^= h >> 29;
+    h *= P3;
+    h ^= h >> 32;
+    return h;
+}
+
 }  // namespace
 
 extern "C" {
@@ -162,6 +255,17 @@ int sahara_sais_i32(const int32_t* s, int32_t* sa, int32_t n, int32_t K) {
     if (n <= 0 || K <= 0) return -1;
     sais_impl<int32_t, int32_t>(s, sa, n, K);
     return 0;
+}
+
+uint64_t sahara_xxh64(const uint8_t* data, uint64_t len, uint64_t seed) {
+    return xxh64_impl(data, (size_t)len, seed);
+}
+
+// XXH64 of each uint64 key (little-endian bytes), the kmer hash.
+void sahara_xxh64_batch_u64(const uint64_t* keys, uint64_t n, uint64_t seed, uint64_t* out) {
+    for (uint64_t i = 0; i < n; ++i) {
+        out[i] = xxh64_impl((const uint8_t*)&keys[i], 8, seed);
+    }
 }
 
 }  // extern "C"

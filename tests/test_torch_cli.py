@@ -2,11 +2,12 @@
 
 The conformance corpus of ``tests/test_conformance.py`` is built through
 the port's own ``write_fasta``, ``read_simulator`` and index subcommands;
-the 9 ``search`` and 2 ``rbi`` goldens must come out byte-identical with
-``--device cpu``.  The index files, the simulated reads and the
+the 9 ``search`` and 2 ``rbi`` goldens and the ``uni-search`` and
+``kmer-search`` goldens must come out byte-identical with ``--device cpu``.
+The index files (``.kmer.idx`` too), the simulated reads and the
 ``search_scheme`` / ``columba_prepare`` outputs are held against the JAX
 package's CLI on the same inputs (its index and host-only commands compile
-nothing)."""
+nothing); the kmer files each package writes are searched by the other."""
 
 from __future__ import annotations
 
@@ -60,6 +61,7 @@ def corpus(tmp_path_factory):
                              "-l", str(length), "-e", str(e), "--seed", str(seed)])[0] == 0
     for cmd in INDEX_COMMANDS:
         assert _quiet(main, [cmd, ref])[0] == 0
+    assert _quiet(main, ["kmer-index", ref, "--kmer", "1"])[0] == 0
     return tmp, ref
 
 
@@ -91,6 +93,101 @@ def test_rbi_search_goldens(corpus, tmp_path, name, cmd, suffix):
                           "-g", "optimum", "--device", "cpu"])
     assert rc == 0
     assert out.read_text() == _golden(name)
+
+
+EXACT_CASES = [
+    ("uni_exact.txt", ["uni-search", "-q", "{reads}", "-i", "{ref}.single.idx", "-o", "{out}"]),
+    ("kmer_exact.txt", ["kmer-search", "--query", "{reads}", "--index", "{ref}.kmer.idx", "--output", "{out}"]),
+]
+
+
+@pytest.mark.parametrize("name,argv", EXACT_CASES, ids=[c[0] for c in EXACT_CASES])
+def test_exact_search_goldens(corpus, tmp_path, name, argv):
+    """uni-search (exact search on the single index) and kmer-search (in
+    kmer space, sigma = 3 at --kmer 1) as tests/test_conformance.py runs
+    them, on the CPU."""
+    tmp, ref = corpus
+    out = tmp_path / "out.txt"
+    fill = dict(reads=str(tmp / "r0.fasta"), ref=ref, out=str(out))
+    assert _quiet(main, [a.format(**fill) for a in argv] + ["--device", "cpu"])[0] == 0
+    assert out.read_text() == _golden(name)
+
+
+def _masked(log: str) -> str:
+    """A subcommand's stdout with its timings masked."""
+    return re.sub(r" +\d+(\.\d+s|q/s)$", " T", log, flags=re.M)
+
+
+KMER_MODES = {
+    "winnowing": ["--kmer", "3", "--window", "4"],
+    "mod": ["--kmer_mode", "mod", "--mod", "6", "--kmer", "10"],
+}
+
+
+@pytest.fixture(scope="module")
+def kmer_corpus(tmp_path_factory):
+    """A 4,000-char reference with an N, a second record of its first 1,500
+    chars reversed, and 8 reads of 600 chars cut from the first (plus one
+    with an unseen kmer and one too short to keep)."""
+    tmp = tmp_path_factory.mktemp("kmer_cli")
+    rng = np.random.default_rng(77)
+    ref = bytearray(b"ACGT"[j] for j in rng.integers(0, 4, size=4000))
+    ref[1234] = ord("N")
+    reads = [FastaRecord(id=f"r{i}", seq=bytes(ref[p : p + 600]))
+             for i, p in enumerate(rng.integers(0, len(ref) - 600, size=8))]
+    reads += [FastaRecord(id="unseen", seq=b"ACGTAGCTAGNNNNNNNNNNNNNNNNNNNNNNNNNNNNN" * 4),
+              FastaRecord(id="short", seq=bytes(ref[100:112]))]
+    write_fasta(tmp / "reads.fasta", reads)
+    return tmp, [FastaRecord(id="chr1", seq=bytes(ref)), FastaRecord(id="chr2", seq=bytes(ref[:1500][::-1]))]
+
+
+@pytest.mark.parametrize("mode", KMER_MODES)
+def test_kmer_index_and_search_match_jax(kmer_corpus, tmp_path, mode):
+    """kmer-index through each package: the same stdout (timings masked)
+    and the same container, the inner index array by array; then
+    kmer-search of each package on the other's file: the same stdout and
+    byte-identical hits."""
+    tmp, recs = kmer_corpus
+    logs, paths = {}, {}
+    for side, fn in (("port", main), ("jax", jax_main)):
+        os.makedirs(tmp_path / side)
+        ref = str(tmp_path / side / "ref.fasta")
+        write_fasta(ref, recs)
+        rc, log = _quiet(fn, ["kmer-index", ref] + KMER_MODES[mode])
+        assert rc == 0
+        logs[side], paths[side] = _masked(log).replace(str(tmp_path / side), ""), ref + ".kmer.idx"
+    assert logs["port"] == logs["jax"]
+    got, want = _idx_members(paths["port"]), _idx_members(paths["jax"])
+    assert sorted(got) == sorted(want) == ["inner_index", "kmer_meta", "uniq_keys", "uniq_vals"]
+    for name in ("kmer_meta", "uniq_keys", "uniq_vals"):
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    inner = [_idx_members(io.BytesIO(bytes(m["inner_index"]))) for m in (got, want)]
+    assert inner[0]["meta"] == inner[1]["meta"] and sorted(inner[0]) == sorted(inner[1])
+    for name in inner[1]:
+        if name != "meta":
+            np.testing.assert_array_equal(inner[0][name], inner[1][name], err_msg=name)
+    outs = {}
+    for side, fn, index, extra in (("port", main, paths["jax"], ["--device", "cpu"]),
+                                   ("jax", jax_main, paths["port"], [])):
+        outs[side] = tmp_path / side / "hits.txt"
+        rc, log = _quiet(fn, ["kmer-search", "--query", str(tmp / "reads.fasta"), "--index", index,
+                              "--output", str(outs[side])] + extra)
+        assert rc == 0
+        logs[side] = re.sub(r"/(port|jax)/", "/", _masked(log).replace(str(tmp_path), ""))
+    assert logs["port"] == logs["jax"] and "skipped" in logs["port"]
+    assert outs["port"].read_text() == outs["jax"].read_text() and outs["port"].read_text()
+
+
+def test_exact_commands_without_card_raise(corpus, tmp_path, monkeypatch):
+    """uni-search and kmer-search default to the card; without one they
+    raise before they read anything."""
+    tmp, ref = corpus
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["uni-search", "-q", str(tmp / "r0.fasta"), "-i", ref + ".single.idx", "-o"],
+                 ["kmer-search", "--query", str(tmp / "r0.fasta"), "--index", ref + ".kmer.idx", "--output"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            _quiet(main, argv + [str(tmp_path / "o.txt")])
+    assert not (tmp_path / "o.txt").exists()
 
 
 def test_rbi_orig_coords_maps_mirror_hits(corpus, tmp_path):
@@ -138,7 +235,8 @@ def test_read_simulator_matches_jax(corpus, tmp_path):
 def _idx_members(path) -> dict:
     with FastNpz(path) as data:
         members = {name: np.array(data[name]) for name in data.files}
-    members["meta"] = json.loads(bytes(members["meta"]).decode())
+    if "meta" in members:
+        members["meta"] = json.loads(bytes(members["meta"]).decode())
     return members
 
 
@@ -247,16 +345,13 @@ def test_stream_falls_back_on_a_later_ragged_record(corpus, two_line_reads, tmp_
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["uni-search", "-q", "{reads}", "-i", "{ref}.single.idx"], 11),
-    (["kmer-index", "{ref}"], 11),
-    (["kmer-search", "--query", "{reads}", "--index", "{ref}.kmer.idx"], 11),
     (["index", "{ref}", "--max_shard_mb", "1"], 13),
     (["search", "-q", "{reads}", "-i", "{sharded}", "--device", "cpu"], 13),
     (["search", "-q", "{reads}", "-i", "{ref}.idx", "--device", "cpu", "--engine", "approx"], 14),
     (["search", "-q", "{reads}", "-i", "{ref}.idx", "--device", "cpu", "--devices", "2"], 15),
     (["search", "-q", "{reads}", "-i", "{ref}.idx", "--device", "cpu", "--mh_num_processes", "2"], 15),
     (["rbi-search", "-q", "{reads}", "-i", "{ref}.rbi.idx", "--device", "cpu", "--devices", "4"], 15),
-], ids=["uni-search", "kmer-index", "kmer-search", "max_shard_mb", "sharded", "approx", "devices", "mh", "rbi-devices"])
+], ids=["max_shard_mb", "sharded", "approx", "devices", "mh", "rbi-devices"])
 def test_unported_routes_raise(corpus, tmp_path, argv, item):
     tmp, ref = corpus
     sharded = str(tmp_path / "sharded.idx")
@@ -287,7 +382,7 @@ def test_search_config_and_stats_match_jax_words(corpus, tmp_path):
         rc, log = _quiet(fn, ["search", "-q", str(tmp / "r2.fasta"), "-i", ref + ".idx", "-o", str(tmp_path / "o.txt"),
                               "-e", "2", "-g", "h2-k2", "--dynamic_generator", "--engine", "workq"] + extra)
         assert rc == 0
-        logs.append(re.sub(r" +\d+(\.\d+s|q/s)$", " T", log, flags=re.M))
+        logs.append(_masked(log))
     assert logs[0] == logs[1]
     assert "partition: [" in logs[0] and "weighted node count:" in logs[0]
 

@@ -18,12 +18,17 @@ from sahara_tpu_torch.cli.main import main as cli_main
 from sahara_tpu_torch.engine import workq
 from sahara_tpu_torch.engine.device import DeviceIndex
 from sahara_tpu_torch.engine.driver import load_scheme, search_queries
+from sahara_tpu_torch.engine.exact import exact_search as engine_exact_search
+from sahara_tpu_torch.engine.locate import locate
+from sahara_tpu_torch.engine.rank import sampled_bit
 from sahara_tpu_torch.engine.seedverify import plan_parts
 from sahara_tpu_torch.engine.tape import compile_tape
 from sahara_tpu_torch.index.build import build_bifmindex, build_fmindex
 from sahara_tpu_torch.index.textstore import unpack_text4
 from sahara_tpu_torch.io.fasta import FastaRecord, write_fasta
 from sahara_tpu_torch.kernels import LAUNCHES
+from sahara_tpu_torch.kernels.exact import exact_search, exact_search_plain
+from sahara_tpu_torch.kernels.lf_walk import lf_walk, lf_walk_plain
 from sahara_tpu_torch.kernels.rank import rank_all, rank_all_plain
 from sahara_tpu_torch.kernels.rank_smem import (
     SMEM_LIMIT, launch_shape, occ16_smem_bytes, rank_all_smem, rank_all_smem_plain,
@@ -67,12 +72,12 @@ def test_rank_all_kernel_matches_plain(host):
     index = DeviceIndex.from_host(idx_host, device=dev)
     idx = torch.from_numpy(np.r_[0, idx_host.n, np.random.default_rng(1).integers(0, idx_host.n, 5000)].astype(np.int32)).to(dev)
     before = LAUNCHES["rank_all"]
-    got = rank_all(index.occ16, index.sigma, idx)
+    got = rank_all(index.occ, index.sigma, idx)
     torch.cuda.synchronize()
     assert LAUNCHES["rank_all"] == before + 1
-    assert torch.equal(got, rank_all_plain(index.occ16, index.sigma, idx))
+    assert torch.equal(got, rank_all_plain(index.occ, index.sigma, idx))
     with pytest.raises(TypeError):
-        rank_all(index.occ16, index.sigma, idx.long())
+        rank_all(index.occ, index.sigma, idx.long())
 
 
 @pytest.mark.parametrize("use_lut", [True, False])
@@ -84,7 +89,7 @@ def test_seed_scan_kernel_matches_plain(host, use_lut):
     q[:50] = np.random.default_rng(3).integers(0, 6, (50, 60))  # N and sentinel ranks too
     parts = plan_parts(60, 3)
     lut, lut_j = (index.lut, index.lut_j) if use_lut else (None, 0)
-    args = (index.occ16, index.c_arr, lut, lut_j, torch.from_numpy(q).to(dev), parts, index.sigma, index.n)
+    args = (index.occ, index.c_arr, lut, lut_j, torch.from_numpy(q).to(dev), parts, index.sigma, index.n)
     lo, sz = seed_scan(*args)
     torch.cuda.synchronize()
     lo_p, sz_p = seed_scan_plain(*args)
@@ -241,7 +246,7 @@ def test_seed_scan_kernel_shares_rows(host):
     parts = plan_parts(m, 2)
     qd = torch.from_numpy(q).to(dev)
     for lut, lut_j in ((index.lut, index.lut_j), (None, 0)):
-        args = (index.occ16, index.c_arr, lut, lut_j, qd, parts, index.sigma, index.n)
+        args = (index.occ, index.c_arr, lut, lut_j, qd, parts, index.sigma, index.n)
         lo, sz = seed_scan(*args)
         torch.cuda.synchronize()
         lo_p, sz_p = seed_scan_plain(*args)
@@ -249,7 +254,7 @@ def test_seed_scan_kernel_shares_rows(host):
         # the interval before each step: the plain scan of the part suffixes
         same = straddle = empty = 0
         for t in range(lut_j, min(ln for _, ln in parts)):
-            lo_t, sz_t = seed_scan_plain(index.occ16, index.c_arr, lut, lut_j, qd,
+            lo_t, sz_t = seed_scan_plain(index.occ, index.c_arr, lut, lut_j, qd,
                                          [(off + ln - t, t) for off, ln in parts], index.sigma, index.n)
             one_row = (lo_t >> 5) == ((lo_t + sz_t) >> 5)
             same += int((one_row & (sz_t > 0)).sum())
@@ -286,10 +291,10 @@ def test_rank_all_smem_kernel_matches_plain(bihost):
     idx = torch.from_numpy(np.r_[0, idx_host.n, np.random.default_rng(6).integers(0, idx_host.n, 300_000)]
                            .astype(np.int32)).to(dev)
     before = LAUNCHES["rank_all_smem"]
-    got = rank_all_smem(index.occ16, index.sigma, idx)
+    got = rank_all_smem(index.occ, index.sigma, idx)
     torch.cuda.synchronize()
     assert LAUNCHES["rank_all_smem"] == before + 1
-    assert torch.equal(got, rank_all_smem_plain(index.occ16, index.sigma, idx))
+    assert torch.equal(got, rank_all_smem_plain(index.occ, index.sigma, idx))
 
 
 def test_rank_all_smem_refuses_a_large_table():
@@ -469,19 +474,23 @@ def test_fallback_on_card_matches_cpu(bihost):
 
 @pytest.fixture(scope="module")
 def cli_corpus(tmp_path_factory):
-    """A three-sequence reference, its index and 40 simulated reads of 80
-    chars with 2 planted edits (and 40 with 2 substitutions, for Hamming
-    distance), all through the port's CLI."""
+    """A three-sequence reference, its three indexes (bidirectional, single
+    and kmer: --kmer 3 --window 4, sigma 32) and 40 simulated reads of 80
+    chars with 2 planted edits (40 with 2 substitutions, for Hamming
+    distance; 40 error-free, for exact search), all through the port's
+    CLI."""
     tmp = tmp_path_factory.mktemp("cli_gpu")
     rng = np.random.default_rng(11)
     ref = str(tmp / "ref.fasta")
     write_fasta(ref, [FastaRecord(id=f"chr{i}", seq=bytes(b"ACGT"[j] for j in rng.integers(0, 4, size=n)))
                       for i, n in enumerate((3000, 1500, 800))])
     with contextlib.redirect_stdout(io.StringIO()):
-        for name, errors in (("reads", ["-e", "2"]), ("subs", ["--substitution_errors", "2"])):
+        for name, errors in (("reads", ["-e", "2"]), ("subs", ["--substitution_errors", "2"]), ("exact", ["-e", "0"])):
             assert cli_main(["read_simulator", "-i", ref, "-o", str(tmp / f"{name}.fasta"), "-n", "40", "-l", "80",
                              "--seed", "5"] + errors) == 0
         assert cli_main(["index", ref]) == 0
+        assert cli_main(["uni-index", ref]) == 0
+        assert cli_main(["kmer-index", ref, "--kmer", "3", "--window", "4"]) == 0
     return tmp, ref
 
 
@@ -505,3 +514,106 @@ def test_cli_search_on_card_matches_cpu(cli_corpus, reads, flags, kernel):
     with open(outs["cpu"]) as a, open(outs["cuda"]) as b:
         want = a.read()
         assert b.read() == want and len(want.splitlines()) >= 40
+
+
+@pytest.mark.parametrize("argv,kernels", [
+    (["uni-search", "-q", "{tmp}/exact.fasta", "-i", "{ref}.single.idx"], ("exact_search",)),
+    (["kmer-search", "--query", "{tmp}/exact.fasta", "--index", "{ref}.kmer.idx"], ("exact_search", "lf_walk")),
+], ids=["uni-search", "kmer-search"])
+def test_exact_cli_on_card_matches_cpu(cli_corpus, argv, kernels):
+    _card()
+    tmp, ref = cli_corpus
+    outs = {}
+    for device in ("cpu", "cuda"):
+        outs[device] = str(tmp / f"{argv[0]}_{device}.txt")
+        before = {k: LAUNCHES[k] for k in kernels}
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert cli_main([a.format(tmp=tmp, ref=ref) for a in argv] + ["-o" if argv[0] == "uni-search" else
+                                                                          "--output", outs[device],
+                                                                          "--device", device]) == 0
+        assert all((LAUNCHES[k] > before[k]) == (device == "cuda") for k in kernels)
+    with open(outs["cpu"]) as a, open(outs["cuda"]) as b:
+        want = a.read()
+        assert b.read() == want and len(want.splitlines()) >= 40
+
+
+@pytest.fixture(scope="module", params=[6, 17, 32, 128])
+def exact_host(request):
+    """A host index over symbols 1..sigma-1 (DNA ranks at sigma 6, occ16
+    rows; wide rows at 17, 48 int32 with the bit words off a 16 B boundary,
+    and at 32 and 128), a repeat in it, and its sequences."""
+    sigma = request.param
+    rng = np.random.default_rng(90 + sigma)
+    seqs = [rng.integers(1, sigma, int(rng.integers(500, 3000))).astype(np.uint8) for _ in range(20)]
+    seqs[3][:400] = seqs[2][-400:]
+    return build_fmindex(seqs, sigma, "d_dna5" if sigma == 6 else f"kmer{sigma}"), seqs
+
+
+def _exact_queries(seqs, sigma, rng):
+    """Substrings of 1-60 symbols, random strings, a zero-length query (its
+    interval stays [0, n): rb = n at every step of the others' first), a
+    query of symbols at and above sigma (clamped to sigma - 1), and a
+    length past the matrix width (clamped to it)."""
+    out = []
+    for _ in range(3000):
+        s = seqs[int(rng.integers(0, len(seqs)))]
+        ln = int(rng.integers(1, 61))
+        p = int(rng.integers(0, max(len(s) - ln, 1)))
+        out.append(s[p : p + ln])
+    out += [rng.integers(1, sigma, int(rng.integers(1, 40))).astype(np.uint8) for _ in range(500)]
+    out += [np.zeros(0, dtype=np.uint8), np.array([sigma - 1, sigma, 255, 1], dtype=np.uint8)]
+    width = max(len(q) for q in out)
+    q = np.zeros((len(out), width), dtype=np.uint8)
+    lens = np.array([len(x) for x in out], dtype=np.int32)
+    for i, x in enumerate(out):
+        q[i, : len(x)] = x
+    lens[-1] = width + 5
+    return q, lens
+
+
+def test_exact_search_kernel_matches_plain(exact_host):
+    dev = _card()
+    host, seqs = exact_host
+    index = DeviceIndex.from_host(host, device=dev)
+    q, lens = _exact_queries(seqs, host.sigma, np.random.default_rng(1))
+    args = (index.occ, index.c_arr, torch.from_numpy(q).to(dev), torch.from_numpy(lens).to(dev), index.sigma, index.n)
+    before = LAUNCHES["exact_search"]
+    lb, ln = exact_search(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["exact_search"] == before + 1
+    lb_p, ln_p = exact_search_plain(*args)
+    assert torch.equal(lb, lb_p) and torch.equal(ln, ln_p)
+    assert (lb[-2].item(), ln[-2].item()) == (0, index.n)
+    assert (ln > 1).any() and (ln == 0).any()
+    with pytest.raises(TypeError):
+        exact_search(args[0], args[1], args[2], args[3].long(), index.sigma, index.n)
+
+
+def test_lf_walk_kernel_matches_plain(exact_host):
+    """Every SA row of the text (hit rows, rows already sampled, rows of
+    sentinels), through K7 and through the plain fixed-trip walk."""
+    dev = _card()
+    host, _ = exact_host
+    index = DeviceIndex.from_host(host, device=dev, full_sa=False)
+    rows = torch.arange(index.n, dtype=torch.int32, device=dev)
+    args = (index.occ, index.c_arr, index.sampled, index.sample_seq, index.sample_pos, index.sigma, index.rate, rows)
+    before = LAUNCHES["lf_walk"]
+    seq_id, pos = lf_walk(*args)
+    torch.cuda.synchronize()
+    assert LAUNCHES["lf_walk"] == before + 1
+    want_seq, want_pos = lf_walk_plain(*args)
+    assert torch.equal(seq_id, want_seq) and torch.equal(pos, want_pos)
+    assert (sampled_bit(index.sampled, rows) == 1).any()
+    with pytest.raises(TypeError):
+        lf_walk(*args[:-1], rows.long())
+
+
+def test_exact_locate_on_card_matches_cpu(exact_host):
+    """exact search + locate (sampled walk) on the card against the CPU."""
+    dev = _card()
+    host, seqs = exact_host
+    q, lens = _exact_queries(seqs, host.sigma, np.random.default_rng(2))
+    got, want = (locate(ix, *engine_exact_search(ix, q[:-2], lens[:-2]))
+                 for ix in (DeviceIndex.from_host(host, device=dev, full_sa=False),
+                            DeviceIndex.from_host(host, device="cpu", full_sa=False)))
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want)) and want[0].shape[0] >= 3000

@@ -12,7 +12,7 @@ import sahara_tpu.index.fmindex as jax_fm
 from sahara_tpu.index.jmer import build_jmer_lut as jax_build_jmer_lut
 from sahara_tpu.index.textstore import pack_text4 as jax_pack_text4
 from sahara_tpu_torch.engine.device import DeviceIndex
-from sahara_tpu_torch.engine.rank import pack_occ16
+from sahara_tpu_torch.engine.rank import pack_occ
 from sahara_tpu_torch.index import build, fmindex
 from sahara_tpu_torch.index.jmer import build_jmer_lut, pick_lut_j
 from sahara_tpu_torch.index.textstore import pack_text4, unpack_text4
@@ -82,7 +82,7 @@ def test_from_arrays_and_load_give_same_device_tensors(tmp_path):
             "rate": host.rate, "n": host.n, "mirrored": host.mirrored}
     a = DeviceIndex.from_host(fmindex.from_arrays(arrays, meta), device="cpu")
     b = DeviceIndex.from_host(fmindex.load_index(str(path)), device="cpu")
-    for name in ("occ16", "c_arr", "sampled", "sample_seq", "sample_pos", "text4", "seq_starts", "lut", "sa_full"):
+    for name in ("occ", "c_arr", "sampled", "sample_seq", "sample_pos", "text4", "seq_starts", "lut", "sa_full"):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
     assert (a.sigma, a.rate, a.n, a.lut_j) == (b.sigma, b.rate, b.n, b.lut_j)
 
@@ -92,7 +92,7 @@ def test_from_arrays_and_load_give_same_device_tensors(tmp_path):
 def test_jmer_lut_matches_jax(sigma, alphabet, j):
     host = jax_build.build_fmindex(_seqs(5, sigma=sigma), sigma, alphabet)
     want = jax_build_jmer_lut(host.occ, host.c_arr, sigma, host.n, j)
-    occ16 = torch.from_numpy(pack_occ16(host.occ))
+    occ16 = torch.from_numpy(pack_occ(host.occ))
     got = build_jmer_lut(occ16, torch.from_numpy(host.c_arr), sigma, host.n, j)
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -101,8 +101,8 @@ def test_device_index_lut_and_sidecar():
     host = build.build_fmindex(_seqs(6), 6, "d_dna5")
     dev = DeviceIndex.from_host(host, device="cpu")
     assert dev.lut_j == pick_lut_j(host.n) and dev.lut.shape == (2 << (2 * dev.lut_j),)
-    np.testing.assert_array_equal(dev.occ16[:, :12].numpy(), host.occ)
-    assert not dev.occ16[:, 12:].any()
+    np.testing.assert_array_equal(dev.occ[:, :12].numpy(), host.occ)
+    assert not dev.occ[:, 12:].any()
     np.testing.assert_array_equal(dev.sa_full.numpy(), host.sa_abs)
     assert DeviceIndex.from_host(host, device="cpu", full_sa=False).sa_full is None
 

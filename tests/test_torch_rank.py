@@ -20,7 +20,7 @@ def occ_fixture():
     rng = np.random.default_rng(3)
     seqs = [rng.integers(1, 6, size=5000).astype(np.uint8), rng.integers(1, 5, size=700).astype(np.uint8)]
     host = build_bifmindex(seqs, 6, "d_dna5")
-    occ16 = torch.from_numpy(rank.pack_occ16(host.occ))
+    occ16 = torch.from_numpy(rank.pack_occ(host.occ))
     idx = rng.integers(0, host.n + 1, size=700).astype(np.int32)
     return host, occ16, idx
 
@@ -111,7 +111,7 @@ def test_rank_all_smem_largest_table_matches_pallas():
     rng = np.random.default_rng(11)
     occ = rng.integers(-(2**31), 2**31, size=(rows, 2 * sigma), dtype=np.int64).astype(np.int32)
     idx = np.r_[0, 32 * rows - 1, rng.integers(0, 32 * rows, size=254)].astype(np.int32)
-    occ16 = torch.from_numpy(rank.pack_occ16(occ))
+    occ16 = torch.from_numpy(rank.pack_occ(occ))
     assert occ16_smem_bytes(occ16.shape[0]) == SMEM_LIMIT
     got = rank_all_smem(occ16, sigma, torch.from_numpy(idx)).numpy()
     packed = jax_pack_occ16(occ)
@@ -128,7 +128,7 @@ def test_rank_all_offset_matches_xla(occ_fixture):
     w = host.occ.shape[0]
     stacked = np.concatenate([host.occ, host.occ_rev])
     off = np.random.default_rng(5).integers(0, 2, size=idx.shape[0]).astype(np.int32) * w
-    got = rank.rank_all_offset(torch.from_numpy(rank.pack_occ16(stacked)), host.sigma, torch.from_numpy(idx),
+    got = rank.rank_all_offset(torch.from_numpy(rank.pack_occ(stacked)), host.sigma, torch.from_numpy(idx),
                                torch.from_numpy(off)).numpy()
     want = jax_rank.rank_all_offset(jnp.asarray(stacked), host.sigma, jnp.asarray(idx), jnp.asarray(off))
     np.testing.assert_array_equal(got, np.asarray(want))

@@ -19,7 +19,7 @@ from sahara_tpu.schemes import limit_to_hamming as jax_limit_to_hamming
 from sahara_tpu_torch.engine import seedverify, workq
 from sahara_tpu_torch.engine.device import DeviceIndex
 from sahara_tpu_torch.engine.driver import load_scheme, search_queries
-from sahara_tpu_torch.engine.rank import pack_occ16, rank_all_offset
+from sahara_tpu_torch.engine.rank import pack_occ, rank_all_offset
 from sahara_tpu_torch.engine.tape import compile_tape
 from sahara_tpu_torch.index.fmindex import from_arrays
 from sahara_tpu_torch.kernels.workq import EDGE_L, EDGE_R, EDGES, OP_DEL, OP_INS, workq_step_plain
@@ -101,11 +101,11 @@ def test_device_index_stacks_the_reversed_table(three_seqs):
     _, jdev, port_host, pdev, _ = three_seqs
     w = port_host.occ.shape[0]
     assert pdev.rev_rows == w and pdev.rev_word_off == w and pdev.bidirectional
-    np.testing.assert_array_equal(pdev.occ16[:w].numpy(), pack_occ16(port_host.occ))
-    np.testing.assert_array_equal(pdev.occ16[w:].numpy(), pack_occ16(port_host.occ_rev))
+    np.testing.assert_array_equal(pdev.occ[:w].numpy(), pack_occ(port_host.occ))
+    np.testing.assert_array_equal(pdev.occ[w:].numpy(), pack_occ(port_host.occ_rev))
     assert pdev.sigma_live == jdev.sigma_live == 5
     sv_only = DeviceIndex.from_host(port_host, device="cpu", include_rev=False)
-    assert sv_only.occ16.shape[0] == w and not sv_only.bidirectional
+    assert sv_only.occ.shape[0] == w and not sv_only.bidirectional
 
 
 @pytest.mark.parametrize("gen", ["optimum", "h2-k2"])
@@ -236,7 +236,7 @@ def test_workq_needs_a_bidirectional_index(sv_workload):
     sv_only = DeviceIndex.from_host(port_host, device="cpu", include_rev=False)
     with pytest.raises(ValueError, match="bidirectional"):
         search_queries(sv_only, queries, k=2, engine="workq", device="cpu")
-    assert torch.equal(sv_only.occ16, DeviceIndex.from_host(port_host, device="cpu").occ16[: sv_only.occ16.shape[0]])
+    assert torch.equal(sv_only.occ, DeviceIndex.from_host(port_host, device="cpu").occ[: sv_only.occ.shape[0]])
 
 
 # The step as a drain, a count and an emit: the drain in PyTorch, then the
