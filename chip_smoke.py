@@ -5,8 +5,8 @@
 Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
 
 1. prints the card's name and power limit, builds the seven CUDA kernels
-   from ``sahara_tpu_torch/kernels/csrc``, the first versions of the K1, K4
-   and K3h kernels (``LEGACY_SOURCES``) and their design variants
+   from ``sahara_tpu_torch/kernels/csrc``, the first versions of the K1, K4,
+   K3h, K6 and K7 kernels (``LEGACY_SOURCES``) and their design variants
    (``DESIGN_VARIANTS``), all nvcc runs at once, and prints each kernel's
    registers;
 2. regenerates the ``bench.py`` workload from its seeds (40 MB reference,
@@ -95,7 +95,11 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
    (``JAX_KMER_*``), K6 and K7 launched at sigma 32.  Each phase reports its
    stats blocks, wall time and reads/s, and holds K6 and K7 against their
    plain versions on its own recorded calls (exact equality), timed like the
-   other kernels;
+   other kernels and beside their first versions and design variants (K6
+   also without the j-mer table start, where the call has the table), with
+   each call's longest chain of dependent steps and the distinct 32 B
+   sectors its plain version touches; phase ``uni`` checks that K6 started
+   queries from the j-mer table and reports their share;
 12. runs the rank bench (``sahara_tpu_torch/bench_rank.py``: K1 and K4 at
    100,000 characters, K1 alone at 4.6 million; device time and call time);
 13. prints the kernels' JSON line (each kernel's figures at the sv_e1
@@ -250,12 +254,49 @@ DP_ALU_OPS_PER_CELL = 4
 DP_ADD_OPS_PER_CELL = 1
 FLUSH_BYTES = 128 << 20  # written between launches to evict the 50 MB L2
 
-# The first versions of the K1, K4 and K3h kernels (``rank.cu`` and
+# ``launch.cuh`` as the first K6 and K7 included it.
+LEGACY_LAUNCH = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+namespace sahara {
+inline int sm_count() {
+    static const int sms = [] {
+        int dev = 0, n = 132;
+        if (cudaGetDevice(&dev) != cudaSuccess ||
+            cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+            cudaGetLastError();
+            n = 132;
+        }
+        return n;
+    }();
+    return sms;
+}
+inline int balanced_block(int64_t threads) {
+    const int sms = sm_count();
+    int best = 256;
+    int64_t best_load = INT64_MAX;
+    for (int bs = 32; bs <= 256; bs += 32) {
+        const int64_t blocks = (threads + bs - 1) / bs;
+        const int64_t load = (blocks + sms - 1) / sms * bs;
+        if (load <= best_load) {
+            best_load = load;
+            best = bs;
+        }
+    }
+    return best;
+}
+}  // namespace sahara
+"""
+
+# The first versions of the K1, K4, K3h, K6 and K7 kernels (``rank.cu`` and
 # ``rank_smem.cu`` before their redesign, ``occ.cuh``'s ``load_row``
-# inlined; ``verify.cu``'s Hamming entry before its redesign, alone), kept
-# here only to be timed beside their redesigns on the same inputs; nothing on
-# a path loads them.  Their C entries have the current ones' signatures, so
-# the current wrappers launch them (``first_version``).
+# inlined; ``verify.cu``'s Hamming entry before its redesign, alone;
+# ``exact.cu`` and ``lf_walk.cu`` before theirs, ``launch.cuh`` inlined),
+# kept here only to be timed beside their redesigns on the same inputs;
+# nothing on a path loads them.  Their C entries have the current ones'
+# signatures, so the current wrappers launch them (``first_version``); the
+# first K6 takes the j-mer table's arguments and ignores them (it always
+# scans every symbol).
 LEGACY_SOURCES = {
     "rank_v1": r"""
 #include <cstdint>
@@ -419,6 +460,115 @@ extern "C" int sahara_verify(const void* text4, int64_t n, const void* queries, 
     return static_cast<int>(cudaGetLastError());
 }
 """,
+    "exact_v1": LEGACY_LAUNCH + r"""
+namespace {
+__global__ void exact_kernel(const int32_t* __restrict__ occ, int row_ints, const int32_t* __restrict__ c_arr,
+                             const uint8_t* __restrict__ queries, const int32_t* __restrict__ qlens, int64_t nq,
+                             int width, int sigma, int32_t n, int32_t* __restrict__ lb_out,
+                             int32_t* __restrict__ len_out) {
+    const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (t >= nq) return;
+    const uint8_t* q = queries + t * width;
+    int32_t lb = 0;
+    int32_t rb = n;
+    for (int j = min(max(__ldg(qlens + t), 0), width) - 1; j >= 0; --j) {
+        const int c = min(static_cast<int>(__ldg(q + j)), sigma - 1);
+        const int32_t* row_lb = occ + static_cast<int64_t>(lb >> 5) * row_ints;
+        const int32_t ckpt_lb = __ldg(row_lb + c);
+        const uint32_t bits_lb = static_cast<uint32_t>(__ldg(row_lb + sigma + c));
+        int32_t ckpt_rb = ckpt_lb;
+        uint32_t bits_rb = bits_lb;
+        if ((rb >> 5) != (lb >> 5)) {
+            const int32_t* row_rb = occ + static_cast<int64_t>(rb >> 5) * row_ints;
+            ckpt_rb = __ldg(row_rb + c);
+            bits_rb = static_cast<uint32_t>(__ldg(row_rb + sigma + c));
+        }
+        const int32_t base = __ldg(c_arr + c);
+        lb = base + ckpt_lb + __popc(bits_lb & ((1u << (lb & 31)) - 1u));
+        rb = base + ckpt_rb + __popc(bits_rb & ((1u << (rb & 31)) - 1u));
+    }
+    lb_out[t] = lb;
+    len_out[t] = rb - lb;
+}
+}  // namespace
+// the j-mer table's arguments are taken and not used
+extern "C" int sahara_exact_search(const void* occ, const void* c_arr, const void*, int, const void* queries,
+                                   const void* qlens, int64_t nq, int width, int row_ints, int sigma, int32_t n,
+                                   void* lb, void* len, void* stream) {
+    if (nq <= 0) return 0;
+    if (sigma < 1 || 2 * sigma > row_ints) return static_cast<int>(cudaErrorInvalidValue);
+    const int block = sahara::balanced_block(nq);
+    exact_kernel<<<static_cast<unsigned>((nq + block - 1) / block), block, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(occ), row_ints, static_cast<const int32_t*>(c_arr),
+        static_cast<const uint8_t*>(queries), static_cast<const int32_t*>(qlens), nq, width, sigma, n,
+        static_cast<int32_t*>(lb), static_cast<int32_t*>(len));
+    return static_cast<int>(cudaGetLastError());
+}
+""",
+    "lf_walk_v1": LEGACY_LAUNCH + r"""
+namespace {
+__device__ __forceinline__ int32_t lf_step(const int32_t* __restrict__ occ, int row_ints,
+                                           const int32_t* __restrict__ c_arr, int sigma, int32_t row) {
+    const int32_t* r = occ + static_cast<int64_t>(row >> 5) * row_ints;
+    const int4* r4 = reinterpret_cast<const int4*>(r);
+    const int off = row & 31;
+    int c = -1;
+    uint32_t word = 0;
+    for (int v = sigma >> 2; c < 0 && v < (2 * sigma + 3) >> 2; ++v) {
+        const int4 x = __ldg(r4 + v);
+        const int32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int u = 3; u >= 0; --u) {  // downwards, so the lowest plane of the vector wins
+            const int p = 4 * v + u - sigma;
+            if (p >= 0 && p < sigma && ((static_cast<uint32_t>(w[u]) >> off) & 1u)) {
+                c = p;
+                word = static_cast<uint32_t>(w[u]);
+            }
+        }
+    }
+    if (c < 0) {  // no plane set: symbol 0, as the reference's argmax
+        c = 0;
+        word = static_cast<uint32_t>(__ldg(r + sigma));
+    }
+    return __ldg(c_arr + c) + __ldg(r + c) + __popc(word & ((1u << off) - 1u));
+}
+__global__ void lf_walk_kernel(const int32_t* __restrict__ occ, int row_ints, const int32_t* __restrict__ c_arr,
+                               const int2* __restrict__ sampled, const int32_t* __restrict__ sample_seq,
+                               const int32_t* __restrict__ sample_pos, int32_t n_samples,
+                               const int32_t* __restrict__ rows, int64_t n_rows, int sigma, int rate,
+                               int32_t* __restrict__ seq_out, int32_t* __restrict__ pos_out) {
+    const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (t >= n_rows) return;
+    int32_t row = __ldg(rows + t);
+    int2 s = __ldg(sampled + (row >> 5));
+    int steps = 0;
+    for (; steps < rate && !((static_cast<uint32_t>(s.y) >> (row & 31)) & 1u); ++steps) {
+        row = lf_step(occ, row_ints, c_arr, sigma, row);
+        s = __ldg(sampled + (row >> 5));
+    }
+    const int32_t slot = s.x + __popc(static_cast<uint32_t>(s.y) & ((1u << (row & 31)) - 1u));
+    const int32_t at = min(max(slot, 0), n_samples - 1);
+    seq_out[t] = __ldg(sample_seq + at);
+    pos_out[t] = __ldg(sample_pos + at) + steps;
+}
+}  // namespace
+extern "C" int sahara_lf_walk(const void* occ, const void* c_arr, const void* sampled, const void* sample_seq,
+                              const void* sample_pos, int32_t n_samples, const void* rows, int64_t n_rows,
+                              int row_ints, int sigma, int rate, void* seq_id, void* pos, void* stream) {
+    if (n_rows <= 0) return 0;
+    if (sigma < 1 || 2 * sigma > row_ints || row_ints % 4 || n_samples < 1) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int block = sahara::balanced_block(n_rows);
+    lf_walk_kernel<<<static_cast<unsigned>((n_rows + block - 1) / block), block, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(occ), row_ints, static_cast<const int32_t*>(c_arr),
+        static_cast<const int2*>(sampled), static_cast<const int32_t*>(sample_seq),
+        static_cast<const int32_t*>(sample_pos), n_samples, static_cast<const int32_t*>(rows), n_rows, sigma, rate,
+        static_cast<int32_t*>(seq_id), static_cast<int32_t*>(pos));
+    return static_cast<int>(cudaGetLastError());
+}
+""",
 }
 
 
@@ -441,16 +591,26 @@ def sm_clocks_s() -> float:
     return torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
 
 
-# The design constants of the K1, K4 and K3h redesigns, each measured on the
-# card beside the value kept: source -> (the constant's line, the value kept,
-# the other values tried; K3h keeps 0, the launcher's pick, and forces each
-# lane count).  A variant is the current source with that one line
-# changed and its headers inlined; it is built with the rest and launched
-# through the current wrapper (``first_version``), as the first versions are.
+# The design constants of the K1, K4, K3h, K6 and K7 redesigns, each
+# measured on the card beside the value kept: name -> (source, the
+# constant's line, the value kept, the other values tried; K3h keeps 0, the
+# launcher's pick, and forces each lane count).  A variant is the current
+# source with that one line changed and its headers inlined, built as
+# ``<name>_<value>`` with the rest and launched through the current wrapper
+# (``first_version``), as the first versions are.
 DESIGN_VARIANTS = {
-    "rank": ("constexpr int kPer = {};", 2, (1, 4)),
-    "rank_smem": ("constexpr int kClusterCtas = {};", 2, (1, 4)),
-    "verify": ("constexpr int kHammingLanes = {};", 0, (1, 2, 4, 8)),
+    "rank": ("rank", "constexpr int kPer = {};", 2, (1, 4)),
+    "rank_smem": ("rank_smem", "constexpr int kClusterCtas = {};", 2, (1, 4)),
+    "verify": ("verify", "constexpr int kHammingLanes = {};", 0, (1, 2, 4, 8)),
+    "exact_tile": ("exact", "constexpr int kTileBytesPerSm = {};", 65536, (0, 204800)),
+    "exact_chains": ("exact", "constexpr int kChains = {};", 1, (2,)),
+    "exact_l1": ("exact", "constexpr int kOccL1 = {};", 2, (0, 1)),
+    "exact_fetch": ("exact", "constexpr int kOccFetch = {};", 0, (64, 128, 256)),
+    "lf_walk_lanes": ("lf_walk", "constexpr int kWalkLanes = {};", 2, (1, 4)),
+    "lf_walk_row": ("lf_walk", "constexpr int kWholeRow = {};", 0, (1,)),
+    "lf_walk_vecs": ("lf_walk", "constexpr int kVecs = {};", 4, (1, 8)),
+    "lf_walk_first": ("lf_walk", "constexpr int kSampledFirst = {};", 1, (0,)),
+    "lf_walk_fetch": ("lf_walk", "constexpr int kOccFetch = {};", 0, (64, 256)),
 }
 
 
@@ -475,10 +635,10 @@ def write_extra_sources() -> dict[str, str]:
     from sahara_tpu_torch.kernels._build import BUILD_DIR, source
 
     texts = dict(LEGACY_SOURCES)
-    for name, (line, kept, tried) in DESIGN_VARIANTS.items():
-        text = inline_headers(source(name), set())
+    for name, (src, line, kept, tried) in DESIGN_VARIANTS.items():
+        text = inline_headers(source(src), set())
         if text.count(line.format(kept)) != 1:
-            raise AssertionError(f"{name}.cu does not hold '{line.format(kept)}' once")
+            raise AssertionError(f"{src}.cu does not hold '{line.format(kept)}' once")
         texts.update({f"{name}_{v}": text.replace(line.format(kept), line.format(v)) for v in tried})
     out_dir = os.path.join(BUILD_DIR, "legacy")
     os.makedirs(out_dir, exist_ok=True)
@@ -490,13 +650,14 @@ def write_extra_sources() -> dict[str, str]:
     return paths
 
 
-def variant_times(module, extra: dict, source: str, call, name: str, flush, want) -> dict:
+def variant_times(module, extra: dict, variant: str, call, name: str, flush, want) -> dict:
     """Device ms per launch, warm and cold, of kernel ``name`` built from
-    each design variant of ``source``, each first held against ``want``."""
-    line, _, tried = DESIGN_VARIANTS[source]
+    each value tried of ``DESIGN_VARIANTS[variant]``, each first held
+    against ``want``."""
+    _, line, _, tried = DESIGN_VARIANTS[variant]
     out = {}
     for v in tried:
-        run = functools.partial(first_version, module, extra[f"{source}_{v}"], call)
+        run = functools.partial(first_version, module, extra[f"{variant}_{v}"], call)
         assert_equal(f"{name} with {line.format(v)}", run(), want)
         out[line.format(v)] = dict(ms=kernel_device_ms(run, name, 20),
                                    cold_ms=kernel_device_ms(run, name, 20, before=flush))
@@ -583,7 +744,10 @@ def bound(n_bytes: float, alu_ops: float, add_ops: float = 0) -> tuple[float, st
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def assert_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> int:
+def assert_equal(name: str, got, want) -> int:
+    """0 where ``got`` equals ``want`` (tensors, or tuples of them compared
+    as one); raises otherwise."""
+    got, want = (torch.cat(x) if isinstance(x, tuple) else x for x in (got, want))
     if got.shape != want.shape or not torch.equal(got, want):
         bad = (got != want).sum().item() if got.shape == want.shape else "shape"
         raise AssertionError(f"{name}: kernel differs from its plain version ({bad} entries)")
@@ -1417,97 +1581,143 @@ def cli_golden_phase(tmp: str) -> dict:
     return out
 
 
-def exact_words(args) -> tuple[int, int]:
-    """(distinct (occ row, symbol) words K6 ranks at, rank steps) on
-    ``exact_search``'s arguments: the plain scan's interval before each
-    step gives the rows that step reads."""
+def exact_words(args, skip: torch.Tensor) -> tuple[int, int, int, int]:
+    """(distinct (occ row, symbol) words K6 ranks at, rank steps, distinct
+    32 B sectors of those words) of the plain full scan on
+    ``exact_search``'s arguments, whatever the kernel starts from, and the
+    occ words the kernel loads, skipping each query's first ``skip`` steps
+    (two a step, four where the ends lie in two rows): the interval before
+    each step gives the rows that step reads."""
     from sahara_tpu_torch.engine.rank import rank_sym
 
-    occ, c_arr, queries, qlens, sigma, n = args
+    occ, c_arr, queries, qlens, sigma, n = args[:6]
     q = queries.long()
     lens = qlens.long().clamp(0, q.shape[1])
     lb = torch.zeros(q.shape[0], dtype=torch.int32, device=q.device)
     rb = torch.full_like(lb, n)
-    keys = []
+    keys, loads = [], 0
     for j in range(q.shape[1]):
         at = lens - 1 - j
         act = at >= 0
         c = q.gather(1, at.clamp(min=0)[:, None])[:, 0].clamp(max=sigma - 1)
         keys += [((lb.long() >> 5) * sigma + c)[act], ((rb.long() >> 5) * sigma + c)[act]]
+        loads += int((2 + 2 * ((lb >> 5) != (rb >> 5)).long())[act & (j >= skip)].sum())
         base = c_arr[c]
         lb = torch.where(act, base + rank_sym(occ, sigma, c, lb), lb)
         rb = torch.where(act, base + rank_sym(occ, sigma, c, rb), rb)
-    return torch.unique(torch.cat(keys)).numel(), int(lens.sum())
+    keys = torch.unique(torch.cat(keys))
+    return keys.numel(), int(lens.sum()), occ_sectors(keys, occ.shape[1], sigma), loads
 
 
-def exact_figures(args, flush) -> dict:
-    """K6 on one recorded call's arguments (``exact_search``'s): held
-    against its plain version; its device time warm and cold, call time,
-    the plain version's time and the bound."""
-    from sahara_tpu_torch.kernels.exact import exact_search, exact_search_plain
+def occ_sectors(keys: torch.Tensor, row_ints: int, sigma: int) -> int:
+    """Distinct 32 B sectors of the checkpoints and bit words of the (occ
+    row, symbol) ``keys`` (row * sigma + symbol)."""
+    row, c = keys // sigma * row_ints, keys % sigma
+    return torch.unique(torch.cat([(row + c) >> 3, (row + sigma + c) >> 3])).numel()
 
-    occ, _, queries, _, sigma, _ = args
-    lb, ln = exact_search(*args)
-    want_lb, want_ln = exact_search_plain(*args)
-    err = assert_equal("exact_search lb", lb, want_lb) + assert_equal("exact_search len", ln, want_ln)
-    words, steps = exact_words(args)
+
+def sector_ms(sectors: int) -> float:
+    """A random-gather floor: ``sectors`` 32 B sectors over the HBM rate."""
+    return sectors * 32 / PEAK_BYTES_S * 1e3
+
+
+def exact_figures(args, flush, extra: dict) -> dict:
+    """K6 on one recorded call's arguments (``exact_search``'s, with the
+    j-mer table where the path passed it): held against its plain full scan,
+    also without the table and as its first version and design variants;
+    device times warm and cold beside theirs, call time, the plain version's
+    time, the bound, the share of queries started from the table and the
+    longest chain of dependent steps."""
+    from sahara_tpu_torch.kernels import exact as k6
+    from sahara_tpu_torch.kernels.exact import exact_search, exact_search_plain, table_start
+
+    occ, _, queries, qlens, sigma, n = args[:6]
+    want = exact_search_plain(*args[:6])
+    err = assert_equal("exact_search", exact_search(*args), want)
+    lens = qlens.long().clamp(0, queries.shape[1])
+    _, _, skip = table_start(queries.long(), lens, *(args[6:8] if len(args) > 6 else (None, 0)), sigma, n)
+    words, steps, sectors, loads = exact_words(args, skip)
     # each (row, symbol) checkpoint and bit word, query char, length and
     # output once; a step ranks both ends: shift, and and popc each on the
     # ALU with the symbol's clamp and the row compare, and six adds (masks,
     # checkpoints, bases)
     b, by = bound(words * 8 + steps + queries.shape[0] * 12, steps * 8, steps * 6)
     call = lambda: exact_search(*args)  # noqa: E731
+    old = functools.partial(first_version, k6, extra["exact_v1"], call)
+    assert_equal("first exact_search", old(), want)
+    variants = {}
+    for name in ("exact_tile", "exact_chains", "exact_l1", "exact_fetch"):
+        variants.update(variant_times(k6, extra, name, call, "exact_kernel", flush, want))
+    if skip.any():
+        scan = lambda: exact_search(*args[:6])  # noqa: E731
+        assert_equal("exact_search without the j-mer table", scan(), want)
+        variants["no j-mer table start"] = dict(ms=kernel_device_ms(scan, "exact_kernel", 20),
+                                                cold_ms=kernel_device_ms(scan, "exact_kernel", 20, before=flush))
+    times = redesign_times(call, "exact_kernel", flush, old)
     return dict(
-        max_abs_err=err, **redesign_times(call, "exact_kernel", flush),
+        max_abs_err=err, **times, variants=variants,
         plain_ms=time_ms(lambda: exact_search_plain(*args), 2), bound_ms=b, bound_by=by, occ_words=words,
-        steps=steps, rows_found=int(ln.sum()),
+        steps=steps, rows_found=int(want[1].sum()), table_share=float((skip > 0).float().mean()),
+        longest_chain=int((lens - skip).max()), steps_run=int((lens - skip).sum()), sectors=sectors,
+        sector_ms=sector_ms(sectors), occ_loads=loads, occ_loads_per_s=loads / times["ms"] * 1e3,
         shape=f"{queries.shape[0]} queries x {queries.shape[1]} symbols, sigma={sigma}, {occ.shape[1]}-int rows",
     )
 
 
-def walk_words(args) -> tuple[int, int, int, int, int]:
-    """(distinct sampled words, distinct (occ row, symbol) words, distinct
-    sample slots, LF steps, bit planes tested) of the sampled walk on
-    ``lf_walk``'s arguments, from the plain walk."""
+def walk_words(args) -> dict:
+    """Distinct sampled words, (occ row, symbol) words and sample slots of
+    the sampled walk on ``lf_walk``'s arguments, its LF steps, bit planes
+    tested, longest walk and distinct 32 B sectors, from the plain walk."""
     from sahara_tpu_torch.engine.rank import lf, occ_row, sampled_bit, sampled_rank, symbol_from_row
 
     occ, c_arr, sampled, sample_seq, _, sigma, rate, rows = args
     live = torch.ones_like(rows, dtype=torch.bool)
-    s_keys, o_keys, steps, planes = [rows.long() >> 5], [], 0, 0
+    walked = torch.zeros_like(rows)
+    s_keys, o_keys, planes = [rows.long() >> 5], [], 0
     for _ in range(rate):
         live &= sampled_bit(sampled, rows) == 0
         c = symbol_from_row(occ_row(occ, rows), sigma, rows)
         o_keys.append(((rows.long() >> 5) * sigma + c)[live])
-        steps += int(live.sum())
+        walked += live
         planes += int((c + 1)[live].sum())
         rows = torch.where(live, lf(occ, c_arr, sigma, rows), rows)
         s_keys.append((rows.long() >> 5)[live])
-    slots = sampled_rank(sampled, rows).clamp(0, sample_seq.shape[0] - 1)
-    return (torch.unique(torch.cat(s_keys)).numel(), torch.unique(torch.cat(o_keys)).numel(),
-            torch.unique(slots).numel(), steps, planes)
+    slots = torch.unique(sampled_rank(sampled, rows).clamp(0, sample_seq.shape[0] - 1))
+    s_words, o_words = torch.unique(torch.cat(s_keys)), torch.unique(torch.cat(o_keys))
+    # sampled words are 8 B, sample_seq and sample_pos entries 4 B each
+    sectors = (torch.unique(s_words >> 2).numel() + occ_sectors(o_words, occ.shape[1], sigma)
+               + 2 * torch.unique(slots >> 3).numel())
+    return dict(sampled_words=s_words.numel(), occ_words=o_words.numel(), slots=slots.numel(),
+                lf_steps=int(walked.sum()), planes=planes, longest_chain=int(walked.max()), sectors=sectors)
 
 
-def walk_figures(args, flush) -> dict:
+def walk_figures(args, flush, extra: dict) -> dict:
     """K7 on one recorded call's arguments (``lf_walk``'s): held against its
-    plain version; its device time warm and cold, call time, the plain
-    version's time and the bound."""
+    plain version, its first version and its design variants; device times warm and cold beside theirs, call time,
+    the plain version's time, the bound and the longest walk."""
+    from sahara_tpu_torch.kernels import lf_walk as k7
     from sahara_tpu_torch.kernels.lf_walk import lf_walk, lf_walk_plain
 
     occ, sigma, rate, rows = args[0], args[5], args[6], args[7]
-    seq_id, pos = lf_walk(*args)
-    want_seq, want_pos = lf_walk_plain(*args)
-    err = assert_equal("lf_walk seq_id", seq_id, want_seq) + assert_equal("lf_walk pos", pos, want_pos)
-    s_words, o_words, slots, steps, planes = walk_words(args)
+    want = lf_walk_plain(*args)
+    err = assert_equal("lf_walk", lf_walk(*args), want)
+    w = walk_words(args)
     # each sampled word, (row, symbol) checkpoint and bit word and sample
     # slot once, each row in and (seq_id, pos) out once; a step tests its
     # sampled bit and each plane up to the symbol's (shift and and), masks
     # and counts; four adds (mask, rank, base, steps)
-    b, by = bound(8 * (s_words + o_words + slots) + 12 * rows.shape[0], steps * 5 + planes * 2, steps * 4)
+    b, by = bound(8 * (w["sampled_words"] + w["occ_words"] + w["slots"]) + 12 * rows.shape[0],
+                  w["lf_steps"] * 5 + w["planes"] * 2, w["lf_steps"] * 4)
     call = lambda: lf_walk(*args)  # noqa: E731
+    old = functools.partial(first_version, k7, extra["lf_walk_v1"], call)
+    assert_equal("first lf_walk", old(), want)
+    variants = {}
+    for name in ("lf_walk_lanes", "lf_walk_row", "lf_walk_vecs", "lf_walk_first", "lf_walk_fetch"):
+        variants.update(variant_times(k7, extra, name, call, "lf_walk_kernel", flush, want))
     return dict(
-        max_abs_err=err, **redesign_times(call, "lf_walk_kernel", flush),
-        plain_ms=time_ms(lambda: lf_walk_plain(*args), 2), bound_ms=b, bound_by=by, lf_steps=steps,
-        sampled_words=s_words, occ_words=o_words,
+        max_abs_err=err, **redesign_times(call, "lf_walk_kernel", flush, old), variants=variants,
+        plain_ms=time_ms(lambda: lf_walk_plain(*args), 2), bound_ms=b, bound_by=by, **w,
+        sector_ms=sector_ms(w["sectors"]),
         shape=f"{rows.shape[0]} rows, sigma={sigma}, {occ.shape[1]}-int rows, rate {rate}",
     )
 
@@ -1524,14 +1734,16 @@ def search_output(path: str, want_sha: str, want_lines: int, what: str) -> tuple
     return np.array(data.decode().split(), dtype=np.int64).reshape(-1, 3), sha, lines
 
 
-def uni_phase(tmp: str, fasta: str, card: str) -> tuple[dict, dict, dict]:
+def uni_phase(tmp: str, fasta: str, card: str, extra: dict) -> tuple[dict, dict, dict]:
     """Phase uni: EXACT_READS error-free reads through ``read_simulator``,
     ``uni-index`` and ``uni-search`` on the card; the output's sha256
-    against the JAX package's CLI, K6 launched there and K1 by the upload
-    (its j-mer table); the same strand queries through ``exact_search`` and
-    ``locate`` on an upload without the full suffix array (the sampled walk,
-    K7 at sigma 6) give the same rows.  Returns the phase's report, K6's
-    figures on the uni-search call and K7's on the sampled locate."""
+    against the JAX package's CLI, K6 launched there, with the j-mer table,
+    and K1 by the upload (the table); the same strand queries through
+    ``exact_search`` and ``locate`` on an upload without the full suffix
+    array (the sampled walk, K7 at sigma 6) give the same rows.  Returns the
+    phase's report (with the share of queries K6 started from the table and
+    K6's and K7's longest chains), K6's figures on the uni-search call and
+    K7's on the sampled locate."""
     from sahara_tpu_torch.alphabet import D_DNA5
     from sahara_tpu_torch.cli.common import load_queries_ranked
     from sahara_tpu_torch.engine.device import DeviceIndex, pad_queries
@@ -1564,19 +1776,23 @@ def uni_phase(tmp: str, fasta: str, card: str) -> tuple[dict, dict, dict]:
         raise AssertionError("exact search with the sampled walk gives other rows than uni-search")
     flush_buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=sampled.device)
     flush = lambda: flush_buf.fill_(1)  # noqa: E731
-    k6_fig, k7_fig = exact_figures(calls[0][0], flush), walk_figures(walks[0][0], flush)
+    k6_fig, k7_fig = exact_figures(calls[0][0], flush, extra), walk_figures(walks[0][0], flush, extra)
+    if not k6_fig["table_share"] > 0:
+        raise AssertionError("uni-search started no query from the j-mer table")
     rep = dict(reads=EXACT_READS, queries=len(queries), read_simulator_s=sim_s, index_s=index_s,
                index_stats=stats_block(index_log), wall_s=wall, reads_per_s=EXACT_READS / wall,
                stats=stats_block(log), launches=launches, lines=lines, sha256=sha,
-               sampled_launches=sampled_launches, card=card)
+               sampled_launches=sampled_launches, k6_table_share=k6_fig["table_share"],
+               k6_longest_chain=k6_fig["longest_chain"], k7_longest_chain=k7_fig["longest_chain"], card=card)
     print(f"uni: uni-index {index_s:.1f} s; uni-search wall {wall:.2f} s, {rep['reads_per_s']:.1f} reads/s end to end "
           f"({EXACT_READS} reads, both strands); stats block s {json.dumps(rep['stats'])}; launches "
           f"{json.dumps(launches)}; the sampled walk gives the same {len(rows)} rows ({json.dumps(sampled_launches)}); "
-          f"{card}", flush=True)
+          f"K6 started {rep['k6_table_share']:.4f} of the queries from the j-mer table, longest chains K6 "
+          f"{rep['k6_longest_chain']}, K7 {rep['k7_longest_chain']} steps; {card}", flush=True)
     return rep, k6_fig, k7_fig
 
 
-def kmer_phase(tmp: str, fasta: str, reads: str, card: str) -> tuple[dict, dict, dict]:
+def kmer_phase(tmp: str, fasta: str, reads: str, card: str, extra: dict) -> tuple[dict, dict, dict]:
     """Phase kmer: ``kmer-index`` of the reference (``KMER_FLAGS``: sigma
     32) and ``kmer-search`` of phase uni's reads on the card; the output's
     sha256 against the JAX package's CLI and K6 and K7 launched at sigma 32.
@@ -1599,7 +1815,7 @@ def kmer_phase(tmp: str, fasta: str, reads: str, card: str) -> tuple[dict, dict,
         raise AssertionError(f"kmer-search ran at sigma {sigmas}, not {KMER_SIGMA}")
     flush_buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=calls[0][0][0].device)
     flush = lambda: flush_buf.fill_(1)  # noqa: E731
-    k6_fig, k7_fig = exact_figures(calls[0][0], flush), walk_figures(walks[0][0], flush)
+    k6_fig, k7_fig = exact_figures(calls[0][0], flush, extra), walk_figures(walks[0][0], flush, extra)
     rep = dict(index_s=index_s, index_stats=stats_block(index_log),
                wall_s=wall, reads_per_s=EXACT_READS / wall, stats=stats_block(log), launches=launches, lines=lines,
                sha256=sha, sigma=KMER_SIGMA, card=card)
@@ -1756,8 +1972,9 @@ def main() -> int:
                          goldens=cli_golden_phase(tmp.name))
 
     # phases uni and kmer: exact search through the CLI (K6, K7)
-    report["uni"], k6, uni_k7 = uni_phase(tmp.name, fasta, card)
-    report["kmer"], kmer_k6, k7 = kmer_phase(tmp.name, fasta, os.path.join(tmp.name, "exact_reads.fasta"), card)
+    report["uni"], k6, uni_k7 = uni_phase(tmp.name, fasta, card, extra)
+    report["kmer"], kmer_k6, k7 = kmer_phase(tmp.name, fasta, os.path.join(tmp.name, "exact_reads.fasta"), card,
+                                             extra)
     tmp.cleanup()
     kernels.append(dict(
         name="exact_search", route="cuda", source="sahara_tpu_torch/kernels/csrc/exact.cu",
@@ -1776,6 +1993,13 @@ def main() -> int:
               f"/ cold {row[other + '_cold_ms']:.4f} ms, call {row[other + '_call_ms']:.4f} ms, plain "
               f"{row[other + '_plain_ms']:.3f} ms, bound {row[other + '_bound_ms']:.5f} ms by {row[other + '_bound_by']}",
               flush=True)
+        print_times(dict({k[len(other) + 1:]: v for k, v in row.items() if k.startswith(other + "_")},
+                         name=f"{row['name']} at the {other} path"))
+        for pre in ("", other + "_"):
+            loads = (f"; {row[pre + 'occ_loads']} occ loads, {row[pre + 'occ_loads_per_s'] / 1e9:.1f} G/s"
+                     if pre + "occ_loads" in row else "")
+            print(f"  {row[pre + 'shape']}: longest chain {row[pre + 'longest_chain']} steps; {row[pre + 'sectors']} "
+                  f"distinct 32 B sectors, {row[pre + 'sector_ms']:.5f} ms at the HBM rate{loads}", flush=True)
 
     # the rank bench: the path that runs K4
     reset_launches()
@@ -1802,10 +2026,10 @@ def main() -> int:
     # version's; K5, K3 and K3h also at the sv_e1 path's shapes, beside that
     # path's launches; K6 also on the kmer path, K7 also on the uni path's
     # sampled walk
-    more = ("cold_ms", "call_ms", "old_ms", "old_cold_ms")
+    more = ("cold_ms", "call_ms", "old_ms", "old_cold_ms", "longest_chain", "sector_ms", "table_share")
     more += tuple(f"{p}_{k}" for p in ("e1", "kmer", "uni") for k in (
         "launches", "max_abs_err", "ms", "cold_ms", "call_ms", "old_ms", "old_cold_ms", "plain_ms", "bound_ms",
-        "bound_by"))
+        "bound_by", "longest_chain", "sector_ms", "table_share"))
     print(json.dumps({"kernels": [{k: row[k] for k in keys + more if k in row} for row in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

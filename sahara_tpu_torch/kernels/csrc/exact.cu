@@ -8,69 +8,228 @@
 // never stops early, so lb matches the reference even for an empty interval;
 // a zero-length query gives (0, n).  Outputs lb and len = rb - lb.
 //
-// Bound on the H100: bytes from HBM on a dependent chain.  A step needs only
-// symbol c's checkpoint and bit word at each end, 8 B of one row, but the
-// rows lie at random in a table far larger than L2 (80 MB of occ16 rows for
-// 40 Mbp; 119 MB of 256 B rows for the 15 M-symbol kmer text), so a step
-// waits on a DRAM fetch.  The bytes the function must move are the distinct
-// (row, symbol) words its lanes rank at, the queries and the outputs.
+// Bound on the H100: the bytes the function must move are the distinct
+// (row, symbol) words the plain scan ranks at (checkpoint and bit word,
+// 8 B), the queries and the outputs.  But each step's words lie in rows at
+// random in a table larger than L2 (80 MB of occ16 rows for 40 Mbp; 119 MB
+// of 256 B rows for the 15 M-symbol kmer text), and the kernel runs at about
+// the rate the memory system completes such scattered loads: the loads a
+// step issues and where they are cached set the pace, not the bytes, nor the
+// chain's latency (all queries of a call are resident at once, and two
+// queries a thread, kChains, gain nothing; PERF.md).
 //
-// Design: one thread per query with the whole scan in a register loop, as K2
-// does, so a batch keeps its row reads in flight together.  Past the first
-// steps an interval spans few rows and an empty one has lb == rb, so both
-// ends mostly fall in one row: its two words are then fetched once for both
-// ends (the idea of occ.cuh's rank_sym_pair).  Rows are row_ints int32 wide
-// (16 for sigma <= 8, up to 256 for sigma = 128) at 64-bit offsets: (pos >>
-// 5) * 256 passes 2^31 from pos = 2^28.  The row width and sigma are runtime
-// arguments, not template parameters: a step only indexes by them, so there
-// is no per-symbol loop to unroll.  A symbol at or above sigma is clamped to
-// sigma - 1, as in the plain version, so no read leaves the row.
+// Design: one thread per query with the whole scan in a register loop; a
+// step issues the two occ words of each end and nothing else of global
+// memory but a query word every fourth step:
+//   - past the first steps an interval spans few rows and an empty one has
+//     lb == rb, so both ends mostly fall in one row: its two words are then
+//     fetched once for both ends;
+//   - the occ words of a step whose ends lie in two rows are cached in L1
+//     (wide intervals: other queries share their rows), those of the other
+//     steps are not (kOccL1 = 2): a row that one query alone visits would
+//     only push the query words and the shared rows out of L1;
+//   - the query's chars come from 32-bit words of global memory, one load
+//     per 4 chars (query.cuh, as K2 reads them), or, where the grid's query
+//     tiles take at most kTileBytesPerSm of an SM's shared memory (narrow
+//     queries: the kmer strings), from the block's tile in shared memory,
+//     staged by one TMA bulk copy (16 B aligned around it); a larger tile
+//     costs more in L1 than it saves (PERF.md).  The C array sits in shared
+//     memory;
+//   - a query whose last lut_j chars are all DNA ranks (1..4, below sigma)
+//     starts at step lut_j from the j-mer table (index/jmer.py, the same
+//     recursion from [0, n), so lb and rb are those of the scan, empty
+//     intervals included); it skips the widest steps, whose ends lie in two
+//     rows.  A window with $ (0), N (5) or a symbol at or above sigma takes
+//     the full scan.
+// Rows are row_ints int32 wide (16 for sigma <= 8, up to 256 for sigma =
+// 128) at 64-bit offsets: (pos >> 5) * 256 passes 2^31 from pos = 2^28.  The
+// row width and sigma are runtime arguments: a step only indexes by them.  A
+// symbol at or above sigma is clamped to sigma - 1, as in the plain version,
+// so no read leaves the row.
 
+#include <type_traits>
+
+#include "bulk.cuh"
 #include "launch.cuh"
+#include "load.cuh"
+#include "query.cuh"
 
 namespace {
 
+// Design constants, each measured on the card beside the values tried
+// (PERF.md): the shared memory the grid's query tiles may take on an SM (more
+// and the chars come from 32-bit words of global memory), the queries a
+// thread searches side by side, interleaved step by step, which occ words
+// are cached in L1 (1 all, 0 none, 2 those of the steps whose ends lie in
+// two rows), and the L2's fetch on an occ word's miss (0 the hardware's, or
+// 64, 128, 256 B).
+constexpr int kTileBytesPerSm = 65536;
+constexpr int kChains = 1;
+constexpr int kOccL1 = 2;
+constexpr int kOccFetch = 0;
+
+// One occ word, through L1 or around it.
+__device__ __forceinline__ int32_t occ_word(const int32_t* p, bool wide) {
+    if (kOccL1 == 1 || (kOccL1 == 2 && wide)) return sahara::ld_nc<kOccFetch, true>(p);
+    return sahara::ld_nc<kOccFetch, false>(p);
+}
+
+// A query's chars in the staged tile, read backwards from its last.
+struct TileStream {
+    const uint8_t* at;
+
+    TileStream() = default;
+
+    __device__ __forceinline__ explicit TileStream(const uint8_t* last) : at(last) {}
+
+    __device__ __forceinline__ int next(bool) { return *at--; }
+};
+
+template <bool TILE, int CHAINS>
 __global__ void exact_kernel(const int32_t* __restrict__ occ, int row_ints, const int32_t* __restrict__ c_arr,
-                             const uint8_t* __restrict__ queries, const int32_t* __restrict__ qlens, int64_t nq,
-                             int width, int sigma, int32_t n, int32_t* __restrict__ lb_out,
-                             int32_t* __restrict__ len_out) {
-    const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (t >= nq) return;
-    const uint8_t* q = queries + t * width;
-    int32_t lb = 0;
-    int32_t rb = n;
-    for (int j = min(max(__ldg(qlens + t), 0), width) - 1; j >= 0; --j) {
-        const int c = min(static_cast<int>(__ldg(q + j)), sigma - 1);
-        const int32_t* row_lb = occ + static_cast<int64_t>(lb >> 5) * row_ints;
-        const int32_t ckpt_lb = __ldg(row_lb + c);
-        const uint32_t bits_lb = static_cast<uint32_t>(__ldg(row_lb + sigma + c));
-        int32_t ckpt_rb = ckpt_lb;
-        uint32_t bits_rb = bits_lb;
-        if ((rb >> 5) != (lb >> 5)) {
-            const int32_t* row_rb = occ + static_cast<int64_t>(rb >> 5) * row_ints;
-            ckpt_rb = __ldg(row_rb + c);
-            bits_rb = static_cast<uint32_t>(__ldg(row_rb + sigma + c));
-        }
-        const int32_t base = __ldg(c_arr + c);
-        lb = base + ckpt_lb + __popc(bits_lb & ((1u << (lb & 31)) - 1u));
-        rb = base + ckpt_rb + __popc(bits_rb & ((1u << (rb & 31)) - 1u));
+                             const int32_t* __restrict__ lut, int lut_j, const uint8_t* __restrict__ queries,
+                             const int32_t* __restrict__ qlens, int64_t nq, int width, int sigma, int32_t n,
+                             int32_t* __restrict__ lb_out, int32_t* __restrict__ len_out) {
+    using Stream = std::conditional_t<TILE, TileStream, sahara::BackStream>;
+    extern __shared__ __align__(16) int32_t smem[];  // C[sigma + 1], then the query tile at 16 B
+    __shared__ __align__(8) uint64_t full;
+    const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x * CHAINS;
+    const int64_t end = min(first + static_cast<int64_t>(blockDim.x) * CHAINS, nq);
+    const uint8_t* tile = reinterpret_cast<const uint8_t*>(smem + ((sigma + 4) & ~3));
+    const uintptr_t g0 = reinterpret_cast<uintptr_t>(queries + first * width) & ~uintptr_t{15};
+    const uint32_t bar = sahara::smem_u32(&full);
+    if (TILE && threadIdx.x == 0) {
+        // every 16 B chunk copied holds a byte of the tile, so none crosses a page
+        const uintptr_t g1 = (reinterpret_cast<uintptr_t>(queries + end * width) + 15) & ~uintptr_t{15};
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+                     "r"(static_cast<uint32_t>(g1 - g0))
+                     : "memory");
+        asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+                         sahara::smem_u32(tile)),
+                     "l"(g0), "r"(static_cast<uint32_t>(g1 - g0)), "r"(bar)
+                     : "memory");
     }
-    lb_out[t] = lb;
-    len_out[t] = rb - lb;
+    for (int i = threadIdx.x; i <= sigma; i += blockDim.x) smem[i] = __ldg(c_arr + i);
+
+    int32_t lb[CHAINS], rb[CHAINS];
+    int left[CHAINS];  // chars still to consume
+    int64_t qi[CHAINS];
+    int steps = 0;
+#pragma unroll
+    for (int k = 0; k < CHAINS; ++k) {
+        qi[k] = first + k * blockDim.x + threadIdx.x;
+        left[k] = qi[k] < nq ? min(max(__ldg(qlens + qi[k]), 0), width) : 0;
+        lb[k] = 0;
+        rb[k] = n;
+    }
+    __syncthreads();  // the C array is in place, the barrier initialised
+    if (TILE) sahara::wait_parity0(bar);
+
+    Stream chars[CHAINS];
+    const int64_t shift = static_cast<int64_t>(reinterpret_cast<uintptr_t>(queries)) - static_cast<int64_t>(g0);
+    const unsigned digits = min(4, sigma - 1);  // table digits: ranks 1..digits
+#pragma unroll
+    for (int k = 0; k < CHAINS; ++k) {
+        if (left[k] == 0) continue;
+        const int64_t last = qi[k] * width + left[k] - 1;
+        chars[k] = Stream(TILE ? tile + shift + last : queries + last);
+        if (lut != nullptr && left[k] >= lut_j) {
+            Stream probe = chars[k];
+            int32_t code = 0;
+            bool ok = true;
+            for (int s = 0; s < lut_j; ++s) {
+                const unsigned d = static_cast<unsigned>(probe.next(s + 1 < left[k]) - 1);
+                ok &= d < digits;
+                code |= static_cast<int32_t>(d & 3u) << (2 * s);
+            }
+            if (ok) {
+                lb[k] = __ldg(lut + code);
+                rb[k] = __ldg(lut + code + (1 << (2 * lut_j)));
+                left[k] -= lut_j;
+                chars[k] = probe;
+            }
+        }
+        steps = max(steps, left[k]);
+    }
+
+    for (int s = 0; s < steps; ++s) {
+        int c[CHAINS];
+        int32_t ckpt_lb[CHAINS], ckpt_rb[CHAINS];
+        uint32_t bits_lb[CHAINS], bits_rb[CHAINS];
+#pragma unroll
+        for (int k = 0; k < CHAINS; ++k) {  // every chain's loads first, then every chain's update
+            if (s >= left[k]) continue;
+            c[k] = min(chars[k].next(s + 1 < left[k]), sigma - 1);
+            const bool wide = (rb[k] >> 5) != (lb[k] >> 5);
+            const int32_t* row_lb = occ + static_cast<int64_t>(lb[k] >> 5) * row_ints;
+            ckpt_lb[k] = occ_word(row_lb + c[k], wide);
+            bits_lb[k] = static_cast<uint32_t>(occ_word(row_lb + sigma + c[k], wide));
+            ckpt_rb[k] = ckpt_lb[k];
+            bits_rb[k] = bits_lb[k];
+            if (wide) {
+                const int32_t* row_rb = occ + static_cast<int64_t>(rb[k] >> 5) * row_ints;
+                ckpt_rb[k] = occ_word(row_rb + c[k], wide);
+                bits_rb[k] = static_cast<uint32_t>(occ_word(row_rb + sigma + c[k], wide));
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < CHAINS; ++k) {
+            if (s >= left[k]) continue;
+            const int32_t base = smem[c[k]];
+            lb[k] = base + ckpt_lb[k] + __popc(bits_lb[k] & ((1u << (lb[k] & 31)) - 1u));
+            rb[k] = base + ckpt_rb[k] + __popc(bits_rb[k] & ((1u << (rb[k] & 31)) - 1u));
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < CHAINS; ++k) {
+        if (qi[k] < nq) {
+            lb_out[qi[k]] = lb[k];
+            len_out[qi[k]] = rb[k] - lb[k];
+        }
+    }
+}
+
+// The C array's bytes in shared memory, padded to 16 B.
+inline int64_t c_bytes(int sigma) { return static_cast<int64_t>((sigma + 4) & ~3) * 4; }
+
+template <bool TILE>
+int launch(const void* occ, const void* c_arr, const void* lut, int lut_j, const void* queries, const void* qlens,
+           int64_t nq, int width, int row_ints, int sigma, int32_t n, void* lb, void* len, int block,
+           int64_t grid, size_t smem, cudaStream_t stream) {
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        exact_kernel<TILE, kChains>, cudaFuncAttributeMaxDynamicSharedMemorySize, max(kTileBytesPerSm, 48 << 10));
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    exact_kernel<TILE, kChains><<<static_cast<unsigned>(grid), block, smem, stream>>>(
+        static_cast<const int32_t*>(occ), row_ints, static_cast<const int32_t*>(c_arr),
+        static_cast<const int32_t*>(lut), lut_j, static_cast<const uint8_t*>(queries),
+        static_cast<const int32_t*>(qlens), nq, width, sigma, n, static_cast<int32_t*>(lb),
+        static_cast<int32_t*>(len));
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// queries: uint8[nq, width] left-aligned; occ: int32[W, row_ints].
-extern "C" int sahara_exact_search(const void* occ, const void* c_arr, const void* queries, const void* qlens,
-                                   int64_t nq, int width, int row_ints, int sigma, int32_t n, void* lb, void* len,
-                                   void* stream) {
+// queries: uint8[nq, width] left-aligned; occ: int32[W, row_ints]; lut:
+// int32[2 * 4^lut_j] (lo | hi of every j-mer code) or null.
+extern "C" int sahara_exact_search(const void* occ, const void* c_arr, const void* lut, int lut_j,
+                                   const void* queries, const void* qlens, int64_t nq, int width, int row_ints,
+                                   int sigma, int32_t n, void* lb, void* len, void* stream) {
     if (nq <= 0) return 0;
-    if (sigma < 1 || 2 * sigma > row_ints) return static_cast<int>(cudaErrorInvalidValue);
-    const int block = sahara::balanced_block(nq);
-    exact_kernel<<<static_cast<unsigned>((nq + block - 1) / block), block, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(occ), row_ints, static_cast<const int32_t*>(c_arr),
-        static_cast<const uint8_t*>(queries), static_cast<const int32_t*>(qlens), nq, width, sigma, n,
-        static_cast<int32_t*>(lb), static_cast<int32_t*>(len));
-    return static_cast<int>(cudaGetLastError());
+    if (sigma < 1 || 2 * sigma > row_ints || sigma > 128 || (lut != nullptr && (lut_j < 1 || lut_j > 15))) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int64_t threads = (nq + kChains - 1) / kChains;
+    const int block = sahara::balanced_block(threads);
+    const int64_t grid = (threads + block - 1) / block;
+    const int64_t per_sm = (grid + sahara::sm_count() - 1) / sahara::sm_count();
+    const int64_t tile = static_cast<int64_t>(block) * kChains * width + 32;  // with its 16 B alignment
+    const auto s = static_cast<cudaStream_t>(stream);
+    if (width > 0 && per_sm * (c_bytes(sigma) + tile) <= kTileBytesPerSm) {
+        return launch<true>(occ, c_arr, lut, lut_j, queries, qlens, nq, width, row_ints, sigma, n, lb, len, block,
+                            grid, static_cast<size_t>(c_bytes(sigma) + tile), s);
+    }
+    return launch<false>(occ, c_arr, lut, lut_j, queries, qlens, nq, width, row_ints, sigma, n, lb, len, block,
+                         grid, static_cast<size_t>(c_bytes(sigma)), s);
 }

@@ -10,72 +10,202 @@
 // the lowest plane whose bit is set at the row, 0 where none is (the argmax
 // of the reference); exactly one is set at every row of the text.
 //
-// Bound on the H100: bytes from HBM on a dependent chain of up to rate - 1
-// steps (the text layout puts a sampled row within rate - 1 steps of every
-// hit row).  A step reads the row's sampled word (8 B) and the bit words of
-// its occ row up to the symbol's plane, then one checkpoint; the rows lie at
-// random in tables far larger than L2, so each step waits on DRAM.  The bytes
-// the function must move are the distinct sampled words and occ bit words
-// its rows visit, the rows in, and seq_id and pos out.
-//
-// Design: one thread per row, the walk in a register loop that stops at the
-// first sampled row, so the rows of a call keep their fetches in flight
-// together.  The bit words are read as 16 B vectors from the one holding
-// plane 0 up to the one that holds the symbol's plane, and the rank reuses
-// the bit word found.  Rows are row_ints int32 wide (16 for sigma <= 8, up
-// to 256 for sigma = 128) at 64-bit offsets.  The row width and sigma are
-// runtime arguments, not template parameters: the scan stops at the
-// symbol's vector, so a fixed trip count would not unroll it either.
+// Bound on the H100: the bytes the function must move are the distinct
+// sampled words and (row, symbol) occ words its rows visit, the sample slots,
+// the rows in, and seq_id and pos out.  A walk is a chain of up to rate - 1
+// dependent steps (the text layout puts a sampled row within rate - 1 steps
+// of every hit row), but the chain does not set the time: each step loads a
+// sampled word and words of an occ row at random in tables larger than L2,
+// and the kernel runs at about the rate the memory system completes such
+// scattered loads (a version that issues a step's loads in one round trip,
+// kWholeRow, is the slowest measured; PERF.md).  So the design cuts the
+// loads and the L1 passes a step costs, not the round trips:
+//   - two lanes walk a row (kWalkLanes): each loads 16 B vectors of the
+//     row's bit planes from the one that holds plane 0, kVecs vectors a
+//     batch between them (sigma <= 8: both plane vectors in one batch), so
+//     a warp's load touches one 128 B line a walk, not one a vector;
+//   - the sampled word is tested before the planes are loaded
+//     (kSampledFirst): a walk's last row loads no planes;
+//   - the lowest set plane by a shuffle between the two lanes, then the
+//     checkpoint and the bit word of the symbol by one load each (L1 hits
+//     where the planes' sector holds them);
+//   - the C array in shared memory.
+// The whole-row kernel (kWholeRow), one or four lanes, one or eight vectors
+// a batch, planes loaded beside the sampled word and a 64 or 256 B L2 fetch
+// (kOccFetch) are the variants measured beside it.  Rows are row_ints int32
+// wide at 64-bit offsets; the row width and sigma are runtime arguments.
 
 #include "launch.cuh"
+#include "load.cuh"
 
 namespace {
 
-// The row one text position earlier: C[c] + rank_c(row).
-__device__ __forceinline__ int32_t lf_step(const int32_t* __restrict__ occ, int row_ints,
-                                           const int32_t* __restrict__ c_arr, int sigma, int32_t row) {
-    const int32_t* r = occ + static_cast<int64_t>(row >> 5) * row_ints;
-    const int4* r4 = reinterpret_cast<const int4*>(r);
-    const int off = row & 31;
-    int c = -1;
-    uint32_t word = 0;
-    for (int v = sigma >> 2; c < 0 && v < (2 * sigma + 3) >> 2; ++v) {
-        const int4 x = __ldg(r4 + v);
-        const int32_t w[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-        for (int u = 3; u >= 0; --u) {  // downwards, so the lowest plane of the vector wins
-            const int p = 4 * v + u - sigma;
-            if (p >= 0 && p < sigma && ((static_cast<uint32_t>(w[u]) >> off) & 1u)) {
-                c = p;
-                word = static_cast<uint32_t>(w[u]);
-            }
-        }
+// Design constants, each measured on the card beside the values tried (PERF.md).
+constexpr int kWalkLanes = 2;     // lanes that walk one row
+constexpr int kSampledFirst = 1;  // 1: test a row's sampled bit before loading its planes
+constexpr int kWholeRow = 0;      // 1: rows of up to 64 int32 read whole, one round trip a step
+constexpr int kVecs = 4;          // 16 B vectors of bit planes a walk loads at once (at least one a lane)
+constexpr int kOccFetch = 0;      // the L2's fetch on a plane vector's miss: 0 the hardware's, or 64, 256 B
+constexpr int kNone = 1 << 30;  // no plane set
+
+struct Out {
+    const int32_t* __restrict__ sample_seq;
+    const int32_t* __restrict__ sample_pos;
+    int32_t n_samples;
+    int32_t* __restrict__ seq;
+    int32_t* __restrict__ pos;
+
+    // The sample a sampled (or last) row ranks to, and its text position.
+    __device__ __forceinline__ void put(int64_t t, int32_t row, int2 s, int steps) const {
+        const int32_t slot = s.x + __popc(static_cast<uint32_t>(s.y) & ((1u << (row & 31)) - 1u));
+        const int32_t at = min(max(slot, 0), n_samples - 1);
+        seq[t] = __ldg(sample_seq + at);
+        pos[t] = __ldg(sample_pos + at) + steps;
     }
-    if (c < 0) {  // no plane set: symbol 0, as the reference's argmax
-        c = 0;
-        word = static_cast<uint32_t>(__ldg(r + sigma));
-    }
-    return __ldg(c_arr + c) + __ldg(r + c) + __popc(word & ((1u << off) - 1u));
+};
+
+__device__ __forceinline__ bool is_sampled(int2 s, int32_t row) {
+    return (static_cast<uint32_t>(s.y) >> (row & 31)) & 1u;
 }
 
+// Rows read whole: RV 16 B vectors of a row of at most 4 RV int32.
+template <int RV>
 __global__ void lf_walk_kernel(const int32_t* __restrict__ occ, int row_ints, const int32_t* __restrict__ c_arr,
-                               const int2* __restrict__ sampled, const int32_t* __restrict__ sample_seq,
-                               const int32_t* __restrict__ sample_pos, int32_t n_samples,
-                               const int32_t* __restrict__ rows, int64_t n_rows, int sigma, int rate,
-                               int32_t* __restrict__ seq_out, int32_t* __restrict__ pos_out) {
+                               const int2* __restrict__ sampled, Out out, const int32_t* __restrict__ rows,
+                               int64_t n_rows, int sigma, int rate) {
+    __shared__ int32_t c_s[129];
+    for (int i = threadIdx.x; i <= sigma; i += blockDim.x) c_s[i] = __ldg(c_arr + i);
+    __syncthreads();
     const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
     if (t >= n_rows) return;
+    const int nv = row_ints >> 2;
     int32_t row = __ldg(rows + t);
-    int2 s = __ldg(sampled + (row >> 5));
     int steps = 0;
-    for (; steps < rate && !((static_cast<uint32_t>(s.y) >> (row & 31)) & 1u); ++steps) {
-        row = lf_step(occ, row_ints, c_arr, sigma, row);
+    int2 s;
+    for (;; ++steps) {
+        const int4* r4 = reinterpret_cast<const int4*>(occ + static_cast<int64_t>(row >> 5) * row_ints);
         s = __ldg(sampled + (row >> 5));
+        int32_t w[4 * RV];
+#pragma unroll
+        for (int v = 0; v < RV; ++v) {
+            const int4 x = v < nv ? __ldg(r4 + v) : make_int4(0, 0, 0, 0);
+            w[4 * v] = x.x;
+            w[4 * v + 1] = x.y;
+            w[4 * v + 2] = x.z;
+            w[4 * v + 3] = x.w;
+        }
+        if (steps == rate || is_sampled(s, row)) break;
+        const int off = row & 31;
+        int c = 0;  // no plane set: symbol 0, as the reference's argmax
+#pragma unroll
+        for (int i = 4 * RV - 1; i >= 0; --i) {  // downwards, so the lowest plane wins
+            if (i >= sigma && i < 2 * sigma && ((static_cast<uint32_t>(w[i]) >> off) & 1u)) c = i - sigma;
+        }
+        int32_t ckpt = 0;
+        uint32_t word = 0;
+#pragma unroll
+        for (int i = 0; i < 4 * RV; ++i) {  // selects, not an indexed read, which would go to local memory
+            if (i == c) ckpt = w[i];
+            if (i == sigma + c) word = static_cast<uint32_t>(w[i]);
+        }
+        row = c_s[c] + ckpt + __popc(word & ((1u << off) - 1u));
     }
-    const int32_t slot = s.x + __popc(static_cast<uint32_t>(s.y) & ((1u << (row & 31)) - 1u));
-    const int32_t at = min(max(slot, 0), n_samples - 1);
-    seq_out[t] = __ldg(sample_seq + at);
-    pos_out[t] = __ldg(sample_pos + at) + steps;
+    out.put(t, row, s, steps);
+}
+
+// The bit planes kVecs 16 B vectors at a time, from the vector that holds
+// plane 0 up to the one that holds the symbol's, spread over G lanes (the
+// lowest plane by a shuffle reduction).  The first vectors come with the
+// sampled word and, on one lane, also give the checkpoint where they hold it.
+template <int G>
+__global__ void lf_walk_kernel_planes(const int32_t* __restrict__ occ, int row_ints,
+                                       const int32_t* __restrict__ c_arr, const int2* __restrict__ sampled,
+                                       Out out, const int32_t* __restrict__ rows, int64_t n_rows, int sigma,
+                                       int rate) {
+    constexpr int kPer = kVecs > G ? kVecs / G : 1;  // 16 B vectors a lane loads a batch
+    __shared__ int32_t c_s[129];
+    for (int i = threadIdx.x; i <= sigma; i += blockDim.x) c_s[i] = __ldg(c_arr + i);
+    __syncthreads();
+    const int64_t t = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / G;
+    if (t >= n_rows) return;  // whole groups: blocks are whole warps and G divides 32
+    const int g = threadIdx.x % G;
+    const unsigned group = ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+    const int v0 = sigma >> 2, v1 = (2 * sigma + 3) >> 2;  // the vectors that hold planes
+    int32_t row = __ldg(rows + t);
+    int steps = 0;
+    int2 s;
+    for (;; ++steps) {
+        const int32_t* r = occ + static_cast<int64_t>(row >> 5) * row_ints;
+        const int4* r4 = reinterpret_cast<const int4*>(r);
+        const int off = row & 31;
+        s = __ldg(sampled + (row >> 5));
+        if (kSampledFirst && (steps == rate || is_sampled(s, row))) break;
+        int c = kNone;
+        uint32_t word = 0;
+        int4 first[kPer];
+        for (int vb = v0; vb < v1; vb += G * kPer) {
+            int4 x[kPer];
+#pragma unroll
+            for (int i = 0; i < kPer; ++i) {
+                const int v = vb + g + G * i;
+                x[i] = v < v1 ? sahara::ld_nc4<kOccFetch>(r4 + v) : make_int4(0, 0, 0, 0);
+            }
+            if (vb == v0) {
+                if (steps == rate || is_sampled(s, row)) break;
+#pragma unroll
+                for (int i = 0; i < kPer; ++i) first[i] = x[i];
+            }
+#pragma unroll
+            for (int i = kPer - 1; i >= 0; --i) {  // downwards, so the lowest plane wins
+                const int32_t w[4] = {x[i].x, x[i].y, x[i].z, x[i].w};
+#pragma unroll
+                for (int u = 3; u >= 0; --u) {
+                    const int p = 4 * (vb + g + G * i) + u - sigma;
+                    if (p >= 0 && p < sigma && ((static_cast<uint32_t>(w[u]) >> off) & 1u)) {
+                        c = p;
+                        word = static_cast<uint32_t>(w[u]);
+                    }
+                }
+            }
+#pragma unroll
+            for (int o = G / 2; o > 0; o >>= 1) c = min(c, __shfl_xor_sync(group, c, o));
+            if (c != kNone) break;
+        }
+        if (steps == rate || is_sampled(s, row)) break;
+        if (c == kNone) {  // no plane set: symbol 0, as the reference's argmax
+            c = 0;
+            word = static_cast<uint32_t>(__ldg(r + sigma));
+        } else if (G > 1) {  // the lane that found the plane may be another
+            word = static_cast<uint32_t>(__ldg(r + sigma + c));
+        }
+        int32_t ckpt;
+        if (G == 1 && c >= 4 * v0 && c < 4 * (v0 + kPer)) {
+            ckpt = 0;
+#pragma unroll
+            for (int i = 0; i < kPer; ++i) {  // selects, not an indexed read, which would go to local memory
+                const int32_t w[4] = {first[i].x, first[i].y, first[i].z, first[i].w};
+#pragma unroll
+                for (int u = 0; u < 4; ++u) {
+                    if (4 * (v0 + i) + u == c) ckpt = w[u];
+                }
+            }
+        } else {
+            ckpt = __ldg(r + c);
+        }
+        row = c_s[c] + ckpt + __popc(word & ((1u << off) - 1u));
+    }
+    if (g == 0) out.put(t, row, s, steps);
+}
+
+template <class Kernel>
+int launch(Kernel kernel, int lanes, const void* occ, const void* c_arr, const void* sampled, Out out,
+           const void* rows, int64_t n_rows, int row_ints, int sigma, int rate, cudaStream_t stream) {
+    const int64_t threads = n_rows * lanes;
+    const int block = sahara::balanced_block(threads);
+    kernel<<<static_cast<unsigned>((threads + block - 1) / block), block, 0, stream>>>(
+        static_cast<const int32_t*>(occ), row_ints, static_cast<const int32_t*>(c_arr),
+        static_cast<const int2*>(sampled), out, static_cast<const int32_t*>(rows), n_rows, sigma, rate);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -86,15 +216,18 @@ extern "C" int sahara_lf_walk(const void* occ, const void* c_arr, const void* sa
                               int row_ints, int sigma, int rate, void* seq_id, void* pos, void* stream) {
     if (n_rows <= 0) return 0;
     // 16 B vector loads: rows of a multiple of 4 int32 on a 16 B aligned table
-    if (sigma < 1 || 2 * sigma > row_ints || row_ints % 4 || n_samples < 1) {
+    if (sigma < 1 || sigma > 128 || 2 * sigma > row_ints || row_ints % 4 || n_samples < 1) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
-    const int block = sahara::balanced_block(n_rows);
-    lf_walk_kernel<<<static_cast<unsigned>((n_rows + block - 1) / block), block, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(occ), row_ints, static_cast<const int32_t*>(c_arr),
-        static_cast<const int2*>(sampled), static_cast<const int32_t*>(sample_seq),
-        static_cast<const int32_t*>(sample_pos), n_samples, static_cast<const int32_t*>(rows), n_rows, sigma, rate,
-        static_cast<int32_t*>(seq_id), static_cast<int32_t*>(pos));
-    return static_cast<int>(cudaGetLastError());
+    const Out out{static_cast<const int32_t*>(sample_seq), static_cast<const int32_t*>(sample_pos), n_samples,
+                  static_cast<int32_t*>(seq_id), static_cast<int32_t*>(pos)};
+    const auto s = static_cast<cudaStream_t>(stream);
+    if (kWholeRow && row_ints <= 16) {
+        return launch(lf_walk_kernel<4>, 1, occ, c_arr, sampled, out, rows, n_rows, row_ints, sigma, rate, s);
+    }
+    if (kWholeRow && row_ints <= 64) {
+        return launch(lf_walk_kernel<16>, 1, occ, c_arr, sampled, out, rows, n_rows, row_ints, sigma, rate, s);
+    }
+    return launch(lf_walk_kernel_planes<kWalkLanes>, kWalkLanes, occ, c_arr, sampled, out, rows, n_rows, row_ints,
+                  sigma, rate, s);
 }

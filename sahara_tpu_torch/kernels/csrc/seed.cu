@@ -26,6 +26,7 @@
 
 #include "launch.cuh"
 #include "occ.cuh"
+#include "query.cuh"
 
 namespace {
 
@@ -34,30 +35,6 @@ constexpr int kMaxParts = 16;
 struct Parts {
     int32_t off[kMaxParts];
     int32_t len[kMaxParts];
-};
-
-// The chars of a query row read backwards from one char, a 32-bit aligned
-// word at a time.  A word is loaded only while chars of the part remain, so
-// every word read holds a char of the part.
-struct BackStream {
-    const uint32_t* word;  // the aligned word that holds the next char
-    uint32_t cur;
-    int byte;  // the next char's byte in cur
-
-    __device__ __forceinline__ explicit BackStream(const uint8_t* last) {
-        const uintptr_t a = reinterpret_cast<uintptr_t>(last);
-        word = reinterpret_cast<const uint32_t*>(a & ~uintptr_t{3});
-        cur = __ldg(word);
-        byte = static_cast<int>(a & 3);
-    }
-
-    // The next char; `more` says whether another char of the part follows.
-    __device__ __forceinline__ int next(bool more) {
-        const int c = static_cast<int>((cur >> (8 * byte)) & 0xFFu);
-        if (byte == 0 && more) cur = __ldg(--word);
-        byte = (byte - 1) & 3;
-        return c;
-    }
 };
 
 __global__ void seed_scan_kernel(const int32_t* __restrict__ occ16, const int32_t* __restrict__ c_arr,
@@ -78,7 +55,7 @@ __global__ void seed_scan_kernel(const int32_t* __restrict__ occ16, const int32_
             len = parts.len[i];
         }
     }
-    BackStream chars(queries + static_cast<int64_t>(qi) * m + off + len - 1);
+    sahara::BackStream chars(queries + static_cast<int64_t>(qi) * m + off + len - 1);
 
     int32_t lo = 0;
     int32_t hi = n;

@@ -57,7 +57,7 @@ def lf_walk(occ, c_arr, sampled, sample_seq, sample_pos, sigma: int, rate: int, 
     for name, t, ndim in zip(("occ", "c_arr", "sampled", "sample_seq", "sample_pos", "rows"), tensors,
                              (2, 1, 2, 1, 1, 1)):
         check(name, t, torch.int32, ndim)
-    if (not 1 <= sigma <= occ.shape[1] // 2 or c_arr.shape[0] != sigma + 1 or sampled.shape[1] != 2
+    if (not 1 <= sigma <= min(occ.shape[1] // 2, 128) or c_arr.shape[0] != sigma + 1 or sampled.shape[1] != 2
             or sample_seq.shape != sample_pos.shape or sample_seq.shape[0] < 1 or rate < 1
             or occ.data_ptr() % 16):
         raise ValueError(f"lf_walk: sigma {sigma}, occ rows of {occ.shape[1]} (16 B aligned), "

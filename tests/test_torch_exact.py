@@ -23,6 +23,8 @@ from sahara_tpu_torch.engine.driver import search_queries
 from sahara_tpu_torch.engine.exact import exact_search
 from sahara_tpu_torch.engine.locate import lf_walk, locate
 from sahara_tpu_torch.index.build import build_fmindex
+from sahara_tpu_torch.index.jmer import pick_lut_j
+from sahara_tpu_torch.kernels.exact import table_start
 
 CASES = [(6, True), (6, False), (16, False), (32, False), (64, False), (128, False)]
 
@@ -51,6 +53,31 @@ def _queries(seqs: list[np.ndarray], sigma: int) -> list[np.ndarray]:
     return out + [seqs[0][200:320].copy(), np.full(3, sigma - 1, dtype=np.uint8), np.zeros(0, dtype=np.uint8)]
 
 
+def _edge_queries(seqs: list[np.ndarray], j: int) -> list[np.ndarray]:
+    """Queries at the edges of the j-mer table start, all ending in a stretch
+    of DNA ranks (1..4) of the text: lengths 0, j - 1, j and j + 1; a
+    3j-symbol substring with an N (5) or a $ (0) at its last symbol, at its
+    j-th from the end (both inside the table's window) and at its (j+1)-th
+    (just outside); and absent DNA strings, whose empty intervals must keep
+    the reference's lb.  ``_edge_skips`` gives the steps each skips."""
+    s = seqs[0]
+    dna = ((s >= 1) & (s <= 4)).astype(np.int64)
+    runs = np.flatnonzero(np.convolve(dna, np.ones(j + 1, dtype=np.int64), "valid") == j + 1)
+    end = int(runs[runs >= 2 * j - 1][0]) + j + 1  # s[end - j - 1 : end] are DNA ranks
+    out = [s[end - ln : end].copy() for ln in (0, j - 1, j, j + 1)]
+    for sym in (5, 0):
+        for at in (1, j, j + 1):
+            q = s[end - 3 * j : end].copy()
+            q[-at] = sym
+            out.append(q)
+    rng = np.random.default_rng(j)
+    return out + [rng.integers(1, 5, size=3 * j + i).astype(np.uint8) for i in range(4)]
+
+
+def _edge_skips(j: int) -> list[int]:
+    return [0, 0, j, j] + [0, 0, j] * 2 + [j] * 4
+
+
 @pytest.fixture(scope="module", params=CASES, ids=[f"sigma{s}-{'full_sa' if f else 'sampled'}" for s, f in CASES])
 def case(request):
     """(sigma, seqs, the port's index on the CPU, the JAX package's)."""
@@ -75,14 +102,28 @@ def _jax_intervals(jdev, queries):
 
 
 def test_exact_search_matches_jax(case):
+    """At sigma 6 the index holds the j-mer table (its text is DNA ranks),
+    so the plain scan starts the queries it covers from the table: the edge
+    queries of ``_edge_queries`` first, each taking the table or not as
+    ``_edge_skips`` says, then the rest."""
     sigma, seqs, port, jdev = case
-    queries = _queries(seqs, sigma)
-    lb, ln = exact_search(port, *pad_queries(queries))
+    j = port.lut_j
+    assert (port.lut is not None) == (sigma == 6) and j == (pick_lut_j(port.n) if sigma == 6 else 0)
+    edges = _edge_queries(seqs, j) if sigma == 6 else []
+    queries = edges + _queries(seqs, sigma)
+    q, lens = pad_queries(queries)
+    lb, ln = exact_search(port, q, lens)
     want_lb, want_ln = _jax_intervals(jdev, queries)
     np.testing.assert_array_equal(lb.numpy(), want_lb)
     np.testing.assert_array_equal(ln.numpy(), want_ln)
     assert (lb[-1].item(), ln[-1].item()) == (0, port.n)  # the zero-length query
     assert (ln == 0).any() and ln[-3].item() >= 2  # empty intervals, the repeat
+    if edges:
+        qt, lt = torch.from_numpy(q).long(), torch.from_numpy(lens).long()
+        skip = table_start(qt, lt, port.lut, j, sigma, port.n)[2]
+        assert skip[: len(edges)].tolist() == _edge_skips(j)
+        assert skip[len(edges) :].any()  # substrings of the text take it too
+        assert (ln[1:4] > 0).all() and (ln[len(edges) - 4 : len(edges)] == 0).all()  # present, absent
 
 
 def test_locate_matches_jax(case):

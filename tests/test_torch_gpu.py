@@ -20,14 +20,15 @@ from sahara_tpu_torch.engine.device import DeviceIndex
 from sahara_tpu_torch.engine.driver import load_scheme, search_queries
 from sahara_tpu_torch.engine.exact import exact_search as engine_exact_search
 from sahara_tpu_torch.engine.locate import locate
-from sahara_tpu_torch.engine.rank import sampled_bit
+from sahara_tpu_torch.engine.rank import lf, sampled_bit
 from sahara_tpu_torch.engine.seedverify import plan_parts
 from sahara_tpu_torch.engine.tape import compile_tape
 from sahara_tpu_torch.index.build import build_bifmindex, build_fmindex
+from sahara_tpu_torch.index.jmer import pick_lut_j
 from sahara_tpu_torch.index.textstore import unpack_text4
 from sahara_tpu_torch.io.fasta import FastaRecord, write_fasta
 from sahara_tpu_torch.kernels import LAUNCHES
-from sahara_tpu_torch.kernels.exact import exact_search, exact_search_plain
+from sahara_tpu_torch.kernels.exact import exact_search, exact_search_plain, table_start
 from sahara_tpu_torch.kernels.lf_walk import lf_walk, lf_walk_plain
 from sahara_tpu_torch.kernels.rank import rank_all, rank_all_plain
 from sahara_tpu_torch.kernels.rank_smem import (
@@ -541,26 +542,55 @@ def test_exact_cli_on_card_matches_cpu(cli_corpus, argv, kernels):
 def exact_host(request):
     """A host index over symbols 1..sigma-1 (DNA ranks at sigma 6, occ16
     rows; wide rows at 17, 48 int32 with the bit words off a 16 B boundary,
-    and at 32 and 128), a repeat in it, and its sequences."""
+    and at 32 and 128), a repeat and a stretch of DNA ranks 1..4 (for the
+    j-mer table start) in it, and its sequences."""
     sigma = request.param
     rng = np.random.default_rng(90 + sigma)
     seqs = [rng.integers(1, sigma, int(rng.integers(500, 3000))).astype(np.uint8) for _ in range(20)]
     seqs[3][:400] = seqs[2][-400:]
+    seqs[5][:300] = rng.integers(1, 5, 300)
     return build_fmindex(seqs, sigma, "d_dna5" if sigma == 6 else f"kmer{sigma}"), seqs
 
 
+def _scan_lut(index, j):
+    """The j-mer table by the plain full scan of every code's j symbols
+    (digit d, plus 1, is the d-th symbol consumed), on any row width."""
+    d = torch.arange(j, device=index.occ.device)
+    codes = torch.arange(4**j, device=index.occ.device)
+    q = (((codes[:, None] >> (2 * d)) & 3) + 1).flip(1).to(torch.uint8).contiguous()
+    lb, ln = exact_search_plain(index.occ, index.c_arr, q, torch.full_like(codes, j, dtype=torch.int32),
+                                index.sigma, index.n)
+    return torch.cat([lb, lb + ln])
+
+
 def _exact_queries(seqs, sigma, rng):
-    """Substrings of 1-60 symbols, random strings, a zero-length query (its
-    interval stays [0, n): rb = n at every step of the others' first), a
-    query of symbols at and above sigma (clamped to sigma - 1), and a
-    length past the matrix width (clamped to it)."""
+    """Substrings of 1-60 symbols, substrings of the DNA stretch, random
+    strings, queries at the edges of the j-mer table start (lengths 0 to
+    12 ending in the DNA stretch; N (5), $ (0) or sigma placed at each of
+    the last 12 symbols of a DNA substring, inside and just outside the
+    table's window at any j up to 11; absent DNA strings), a zero-length
+    query (its interval stays [0, n): rb = n at every step of the others'
+    first), a query of symbols at and above sigma (clamped to sigma - 1),
+    and a length past the matrix width (clamped to it)."""
     out = []
     for _ in range(3000):
         s = seqs[int(rng.integers(0, len(seqs)))]
         ln = int(rng.integers(1, 61))
         p = int(rng.integers(0, max(len(s) - ln, 1)))
         out.append(s[p : p + ln])
+    dna = seqs[5][:300]
+    for _ in range(500):
+        ln = int(rng.integers(1, 61))
+        p = int(rng.integers(0, 300 - ln))
+        out.append(dna[p : p + ln])
     out += [rng.integers(1, sigma, int(rng.integers(1, 40))).astype(np.uint8) for _ in range(500)]
+    out += [dna[200 - ln : 200] for ln in range(13)]
+    for sym in sorted({5, 0, min(sigma, 255)}):
+        for at in range(1, 13):
+            q = dna[150:190].copy()
+            q[-at] = sym
+            out.append(q)
+    out += [rng.integers(1, 5, int(rng.integers(10, 40))).astype(np.uint8) for _ in range(100)]
     out += [np.zeros(0, dtype=np.uint8), np.array([sigma - 1, sigma, 255, 1], dtype=np.uint8)]
     width = max(len(q) for q in out)
     q = np.zeros((len(out), width), dtype=np.uint8)
@@ -571,14 +601,27 @@ def _exact_queries(seqs, sigma, rng):
     return q, lens
 
 
-def test_exact_search_kernel_matches_plain(exact_host):
+@pytest.mark.parametrize("use_lut", [True, False])
+def test_exact_search_kernel_matches_plain(exact_host, use_lut):
+    """K6 against the plain full scan, with the j-mer table start (the
+    index's own table at sigma 6, built by K1, which must equal the scan's;
+    a table by the scan at the wide rows) and without it."""
     dev = _card()
     host, seqs = exact_host
     index = DeviceIndex.from_host(host, device=dev)
     q, lens = _exact_queries(seqs, host.sigma, np.random.default_rng(1))
     args = (index.occ, index.c_arr, torch.from_numpy(q).to(dev), torch.from_numpy(lens).to(dev), index.sigma, index.n)
+    j = pick_lut_j(index.n)
+    table = (None, 0)
+    if use_lut:
+        table = (_scan_lut(index, j), j)
+        assert (index.lut is not None) == (host.sigma == 6)
+        if index.lut is not None:
+            assert index.lut_j == j and torch.equal(index.lut, table[0])
+        skip = table_start(args[2].long(), args[3].long().clamp(0, q.shape[1]), *table, index.sigma, index.n)[2]
+        assert skip.any() and not skip.all()
     before = LAUNCHES["exact_search"]
-    lb, ln = exact_search(*args)
+    lb, ln = exact_search(*args, *table)
     torch.cuda.synchronize()
     assert LAUNCHES["exact_search"] == before + 1
     lb_p, ln_p = exact_search_plain(*args)
@@ -587,6 +630,24 @@ def test_exact_search_kernel_matches_plain(exact_host):
     assert (ln > 1).any() and (ln == 0).any()
     with pytest.raises(TypeError):
         exact_search(args[0], args[1], args[2], args[3].long(), index.sigma, index.n)
+    if use_lut:
+        with pytest.raises(ValueError, match="j-mer table"):
+            exact_search(*args, table[0][1:], j)
+
+
+def test_exact_search_kernel_wide_queries():
+    """Queries too wide for the grid's tiles in shared memory (the chars
+    then come from global memory) against the plain scan, with the table."""
+    dev = _card()
+    rng = np.random.default_rng(5)
+    seqs = [rng.integers(1, 5, 40000).astype(np.uint8)]
+    index = DeviceIndex.from_host(build_fmindex(seqs, 6, "d_dna5"), device=dev)
+    q = np.stack([seqs[0][p : p + 8000] for p in rng.integers(0, 32000, 300)])  # 32 x 8000 B > 200 KB a block
+    lens = rng.integers(0, 8001, 300).astype(np.int32)
+    q[np.arange(0, 300, 3), np.maximum(lens[::3] - 3, 0)] = 5  # an N in every third query's table window
+    args = (index.occ, index.c_arr, torch.from_numpy(q).to(dev), torch.from_numpy(lens).to(dev), index.sigma, index.n)
+    got = exact_search(*args, index.lut, index.lut_j)
+    assert all(torch.equal(a, b) for a, b in zip(got, exact_search_plain(*args)))
 
 
 def test_lf_walk_kernel_matches_plain(exact_host):
@@ -603,7 +664,13 @@ def test_lf_walk_kernel_matches_plain(exact_host):
     assert LAUNCHES["lf_walk"] == before + 1
     want_seq, want_pos = lf_walk_plain(*args)
     assert torch.equal(seq_id, want_seq) and torch.equal(pos, want_pos)
-    assert (sampled_bit(index.sampled, rows) == 1).any()
+    steps = torch.zeros_like(rows)  # each row's walk, by the plain LF step
+    live = torch.ones_like(rows, dtype=torch.bool)
+    for _ in range(index.rate):
+        live &= sampled_bit(index.sampled, rows) == 0
+        steps += live
+        rows = torch.where(live, lf(index.occ, index.c_arr, index.sigma, rows), rows)
+    assert (steps == 0).any() and (steps == index.rate - 1).any()  # rows already sampled, the longest walks
     with pytest.raises(TypeError):
         lf_walk(*args[:-1], rows.long())
 
