@@ -98,8 +98,10 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
    other kernels and beside their first versions and design variants (K6
    also without the j-mer table start, where the call has the table), with
    each call's longest chain of dependent steps and the distinct 32 B
-   sectors its plain version touches; phase ``uni`` checks that K6 started
-   queries from the j-mer table and reports their share;
+   sectors its plain version touches (model figures, from the inputs);
+   phase ``uni`` runs K6 with a table of empty intervals, which takes away
+   the hit of every query the kernel starts from the table, and checks that
+   those are the queries the rule names;
 12. runs the rank bench (``sahara_tpu_torch/bench_rank.py``: K1 and K4 at
    100,000 characters, K1 alone at 4.6 million; device time and call time);
 13. prints the kernels' JSON line (each kernel's figures at the sv_e1
@@ -602,15 +604,9 @@ DESIGN_VARIANTS = {
     "rank": ("rank", "constexpr int kPer = {};", 2, (1, 4)),
     "rank_smem": ("rank_smem", "constexpr int kClusterCtas = {};", 2, (1, 4)),
     "verify": ("verify", "constexpr int kHammingLanes = {};", 0, (1, 2, 4, 8)),
-    "exact_tile": ("exact", "constexpr int kTileBytesPerSm = {};", 65536, (0, 204800)),
-    "exact_chains": ("exact", "constexpr int kChains = {};", 1, (2,)),
     "exact_l1": ("exact", "constexpr int kOccL1 = {};", 2, (0, 1)),
-    "exact_fetch": ("exact", "constexpr int kOccFetch = {};", 0, (64, 128, 256)),
     "lf_walk_lanes": ("lf_walk", "constexpr int kWalkLanes = {};", 2, (1, 4)),
-    "lf_walk_row": ("lf_walk", "constexpr int kWholeRow = {};", 0, (1,)),
     "lf_walk_vecs": ("lf_walk", "constexpr int kVecs = {};", 4, (1, 8)),
-    "lf_walk_first": ("lf_walk", "constexpr int kSampledFirst = {};", 1, (0,)),
-    "lf_walk_fetch": ("lf_walk", "constexpr int kOccFetch = {};", 0, (64, 256)),
 }
 
 
@@ -1625,9 +1621,16 @@ def exact_figures(args, flush, extra: dict) -> dict:
     """K6 on one recorded call's arguments (``exact_search``'s, with the
     j-mer table where the path passed it): held against its plain full scan,
     also without the table and as its first version and design variants;
-    device times warm and cold beside theirs, call time, the plain version's
-    time, the bound, the share of queries started from the table and the
-    longest chain of dependent steps."""
+    device times warm and cold beside theirs (the kept design's warm time
+    taken again last, the spread of one configuration in the run), call
+    time, the plain version's time and the bound.  Where the call has the
+    table, K6 also runs with a table of empty intervals: a query it starts
+    from the table then finds nothing, so the queries whose hit vanishes are
+    the ones the kernel started there (``table_start_k6``), held against
+    the rule (``table_start``) on every query with a hit.  ``model``: what
+    the plain scan's run implies, not measured (longest chain, steps run,
+    distinct 32 B sectors and their time at the HBM rate, occ loads the
+    design issues)."""
     from sahara_tpu_torch.kernels import exact as k6
     from sahara_tpu_torch.kernels.exact import exact_search, exact_search_plain, table_start
 
@@ -1635,7 +1638,8 @@ def exact_figures(args, flush, extra: dict) -> dict:
     want = exact_search_plain(*args[:6])
     err = assert_equal("exact_search", exact_search(*args), want)
     lens = qlens.long().clamp(0, queries.shape[1])
-    _, _, skip = table_start(queries.long(), lens, *(args[6:8] if len(args) > 6 else (None, 0)), sigma, n)
+    lut, lut_j = args[6:8] if len(args) > 6 else (None, 0)
+    _, _, skip = table_start(queries.long(), lens, lut, lut_j, sigma, n)
     words, steps, sectors, loads = exact_words(args, skip)
     # each (row, symbol) checkpoint and bit word, query char, length and
     # output once; a step ranks both ends: shift, and and popc each on the
@@ -1645,21 +1649,30 @@ def exact_figures(args, flush, extra: dict) -> dict:
     call = lambda: exact_search(*args)  # noqa: E731
     old = functools.partial(first_version, k6, extra["exact_v1"], call)
     assert_equal("first exact_search", old(), want)
-    variants = {}
-    for name in ("exact_tile", "exact_chains", "exact_l1", "exact_fetch"):
-        variants.update(variant_times(k6, extra, name, call, "exact_kernel", flush, want))
-    if skip.any():
+    times = redesign_times(call, "exact_kernel", flush, old)
+    variants = variant_times(k6, extra, "exact_l1", call, "exact_kernel", flush, want)
+    started = {}
+    if lut is not None:
         scan = lambda: exact_search(*args[:6])  # noqa: E731
         assert_equal("exact_search without the j-mer table", scan(), want)
         variants["no j-mer table start"] = dict(ms=kernel_device_ms(scan, "exact_kernel", 20),
                                                 cold_ms=kernel_device_ms(scan, "exact_kernel", 20, before=flush))
-    times = redesign_times(call, "exact_kernel", flush, old)
+        empty = (*args[:6], torch.zeros_like(lut), lut_j)
+        got = exact_search(*empty)
+        assert_equal("exact_search with a table of empty intervals", got, exact_search_plain(*empty))
+        hit = want[1] > 0
+        took = hit & (got[1] == 0)
+        if not torch.equal(took, hit & (skip > 0)):
+            raise AssertionError(f"K6 started {int(took.sum())} queries with a hit from the j-mer table, the rule "
+                                 f"{int((hit & (skip > 0)).sum())}")
+        started = dict(table_start_k6=int(took.sum()), queries_with_hit=int(hit.sum()))
     return dict(
-        max_abs_err=err, **times, variants=variants,
+        max_abs_err=err, **times, ms_again=kernel_device_ms(call, "exact_kernel", 20), variants=variants, **started,
         plain_ms=time_ms(lambda: exact_search_plain(*args), 2), bound_ms=b, bound_by=by, occ_words=words,
-        steps=steps, rows_found=int(want[1].sum()), table_share=float((skip > 0).float().mean()),
-        longest_chain=int((lens - skip).max()), steps_run=int((lens - skip).sum()), sectors=sectors,
-        sector_ms=sector_ms(sectors), occ_loads=loads, occ_loads_per_s=loads / times["ms"] * 1e3,
+        steps=steps, rows_found=int(want[1].sum()),
+        model=dict(table_start_rule=int((skip > 0).sum()), longest_chain=int((lens - skip).max()),
+                   steps_run=int((lens - skip).sum()), sectors=sectors, sector_ms=sector_ms(sectors),
+                   occ_loads=loads, occ_loads_per_s=loads / times["ms"] * 1e3),
         shape=f"{queries.shape[0]} queries x {queries.shape[1]} symbols, sigma={sigma}, {occ.shape[1]}-int rows",
     )
 
@@ -1688,13 +1701,16 @@ def walk_words(args) -> dict:
     sectors = (torch.unique(s_words >> 2).numel() + occ_sectors(o_words, occ.shape[1], sigma)
                + 2 * torch.unique(slots >> 3).numel())
     return dict(sampled_words=s_words.numel(), occ_words=o_words.numel(), slots=slots.numel(),
-                lf_steps=int(walked.sum()), planes=planes, longest_chain=int(walked.max()), sectors=sectors)
+                lf_steps=int(walked.sum()), planes=planes,
+                model=dict(longest_chain=int(walked.max()), sectors=sectors, sector_ms=sector_ms(sectors)))
 
 
 def walk_figures(args, flush, extra: dict) -> dict:
     """K7 on one recorded call's arguments (``lf_walk``'s): held against its
-    plain version, its first version and its design variants; device times warm and cold beside theirs, call time,
-    the plain version's time, the bound and the longest walk."""
+    plain version, its first version and its design variants; device times
+    warm and cold beside theirs (the kept design's warm time taken again
+    last), call time, the plain version's time and the bound; ``model``:
+    the longest walk and the distinct 32 B sectors of the plain walk."""
     from sahara_tpu_torch.kernels import lf_walk as k7
     from sahara_tpu_torch.kernels.lf_walk import lf_walk, lf_walk_plain
 
@@ -1711,13 +1727,13 @@ def walk_figures(args, flush, extra: dict) -> dict:
     call = lambda: lf_walk(*args)  # noqa: E731
     old = functools.partial(first_version, k7, extra["lf_walk_v1"], call)
     assert_equal("first lf_walk", old(), want)
+    times = redesign_times(call, "lf_walk_kernel", flush, old)
     variants = {}
-    for name in ("lf_walk_lanes", "lf_walk_row", "lf_walk_vecs", "lf_walk_first", "lf_walk_fetch"):
+    for name in ("lf_walk_lanes", "lf_walk_vecs"):
         variants.update(variant_times(k7, extra, name, call, "lf_walk_kernel", flush, want))
     return dict(
-        max_abs_err=err, **redesign_times(call, "lf_walk_kernel", flush, old), variants=variants,
+        max_abs_err=err, **times, ms_again=kernel_device_ms(call, "lf_walk_kernel", 20), variants=variants,
         plain_ms=time_ms(lambda: lf_walk_plain(*args), 2), bound_ms=b, bound_by=by, **w,
-        sector_ms=sector_ms(w["sectors"]),
         shape=f"{rows.shape[0]} rows, sigma={sigma}, {occ.shape[1]}-int rows, rate {rate}",
     )
 
@@ -1741,8 +1757,8 @@ def uni_phase(tmp: str, fasta: str, card: str, extra: dict) -> tuple[dict, dict,
     and K1 by the upload (the table); the same strand queries through
     ``exact_search`` and ``locate`` on an upload without the full suffix
     array (the sampled walk, K7 at sigma 6) give the same rows.  Returns the
-    phase's report (with the share of queries K6 started from the table and
-    K6's and K7's longest chains), K6's figures on the uni-search call and
+    phase's report (with the queries K6 started from the table and the
+    plain runs' longest chains), K6's figures on the uni-search call and
     K7's on the sampled locate."""
     from sahara_tpu_torch.alphabet import D_DNA5
     from sahara_tpu_torch.cli.common import load_queries_ranked
@@ -1777,18 +1793,20 @@ def uni_phase(tmp: str, fasta: str, card: str, extra: dict) -> tuple[dict, dict,
     flush_buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=sampled.device)
     flush = lambda: flush_buf.fill_(1)  # noqa: E731
     k6_fig, k7_fig = exact_figures(calls[0][0], flush, extra), walk_figures(walks[0][0], flush, extra)
-    if not k6_fig["table_share"] > 0:
-        raise AssertionError("uni-search started no query from the j-mer table")
+    if not k6_fig["table_start_k6"] > 0:
+        raise AssertionError("K6 started no query of uni-search from the j-mer table")
     rep = dict(reads=EXACT_READS, queries=len(queries), read_simulator_s=sim_s, index_s=index_s,
                index_stats=stats_block(index_log), wall_s=wall, reads_per_s=EXACT_READS / wall,
                stats=stats_block(log), launches=launches, lines=lines, sha256=sha,
-               sampled_launches=sampled_launches, k6_table_share=k6_fig["table_share"],
-               k6_longest_chain=k6_fig["longest_chain"], k7_longest_chain=k7_fig["longest_chain"], card=card)
+               sampled_launches=sampled_launches, k6_table_start=k6_fig["table_start_k6"],
+               k6_queries_with_hit=k6_fig["queries_with_hit"], k6_longest_chain=k6_fig["model"]["longest_chain"],
+               k7_longest_chain=k7_fig["model"]["longest_chain"], card=card)
     print(f"uni: uni-index {index_s:.1f} s; uni-search wall {wall:.2f} s, {rep['reads_per_s']:.1f} reads/s end to end "
           f"({EXACT_READS} reads, both strands); stats block s {json.dumps(rep['stats'])}; launches "
           f"{json.dumps(launches)}; the sampled walk gives the same {len(rows)} rows ({json.dumps(sampled_launches)}); "
-          f"K6 started {rep['k6_table_share']:.4f} of the queries from the j-mer table, longest chains K6 "
-          f"{rep['k6_longest_chain']}, K7 {rep['k7_longest_chain']} steps; {card}", flush=True)
+          f"K6 started {rep['k6_table_start']} of the {rep['k6_queries_with_hit']} queries with a hit from the j-mer "
+          f"table (the queries whose hit a table of empty intervals takes away, as the rule says); longest chains "
+          f"of the plain runs: K6 {rep['k6_longest_chain']}, K7 {rep['k7_longest_chain']} steps; {card}", flush=True)
     return rep, k6_fig, k7_fig
 
 
@@ -1996,10 +2014,11 @@ def main() -> int:
         print_times(dict({k[len(other) + 1:]: v for k, v in row.items() if k.startswith(other + "_")},
                          name=f"{row['name']} at the {other} path"))
         for pre in ("", other + "_"):
-            loads = (f"; {row[pre + 'occ_loads']} occ loads, {row[pre + 'occ_loads_per_s'] / 1e9:.1f} G/s"
-                     if pre + "occ_loads" in row else "")
-            print(f"  {row[pre + 'shape']}: longest chain {row[pre + 'longest_chain']} steps; {row[pre + 'sectors']} "
-                  f"distinct 32 B sectors, {row[pre + 'sector_ms']:.5f} ms at the HBM rate{loads}", flush=True)
+            m, again = row[pre + "model"], row[pre + "ms_again"]
+            loads = f"; {m['occ_loads']} occ loads, {m['occ_loads_per_s'] / 1e9:.1f} G/s" if "occ_loads" in m else ""
+            print(f"  {row[pre + 'shape']}: warm again {again:.4f} ms; model of the plain run: longest chain "
+                  f"{m['longest_chain']} steps, {m['sectors']} distinct 32 B sectors, {m['sector_ms']:.5f} ms at "
+                  f"the HBM rate{loads}", flush=True)
 
     # the rank bench: the path that runs K4
     reset_launches()
@@ -2026,10 +2045,10 @@ def main() -> int:
     # version's; K5, K3 and K3h also at the sv_e1 path's shapes, beside that
     # path's launches; K6 also on the kmer path, K7 also on the uni path's
     # sampled walk
-    more = ("cold_ms", "call_ms", "old_ms", "old_cold_ms", "longest_chain", "sector_ms", "table_share")
+    more = ("cold_ms", "call_ms", "old_ms", "old_cold_ms")
     more += tuple(f"{p}_{k}" for p in ("e1", "kmer", "uni") for k in (
         "launches", "max_abs_err", "ms", "cold_ms", "call_ms", "old_ms", "old_cold_ms", "plain_ms", "bound_ms",
-        "bound_by", "longest_chain", "sector_ms", "table_share"))
+        "bound_by"))
     print(json.dumps({"kernels": [{k: row[k] for k in keys + more if k in row} for row in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -16,7 +16,7 @@
 // the rate the memory system completes such scattered loads: the loads a
 // step issues and where they are cached set the pace, not the bytes, nor the
 // chain's latency (all queries of a call are resident at once, and two
-// queries a thread, kChains, gain nothing; PERF.md).
+// queries a thread, interleaved, gained nothing; PERF.md).
 //
 // Design: one thread per query with the whole scan in a register loop; a
 // step issues the two occ words of each end and nothing else of global
@@ -29,11 +29,7 @@
 //     steps are not (kOccL1 = 2): a row that one query alone visits would
 //     only push the query words and the shared rows out of L1;
 //   - the query's chars come from 32-bit words of global memory, one load
-//     per 4 chars (query.cuh, as K2 reads them), or, where the grid's query
-//     tiles take at most kTileBytesPerSm of an SM's shared memory (narrow
-//     queries: the kmer strings), from the block's tile in shared memory,
-//     staged by one TMA bulk copy (16 B aligned around it); a larger tile
-//     costs more in L1 than it saves (PERF.md).  The C array sits in shared
+//     per 4 chars (query.cuh, as K2 reads them); the C array sits in shared
 //     memory;
 //   - a query whose last lut_j chars are all DNA ranks (1..4, below sigma)
 //     starts at step lut_j from the j-mer table (index/jmer.py, the same
@@ -47,166 +43,75 @@
 // symbol at or above sigma is clamped to sigma - 1, as in the plain version,
 // so no read leaves the row.
 
-#include <type_traits>
-
-#include "bulk.cuh"
 #include "launch.cuh"
-#include "load.cuh"
 #include "query.cuh"
 
 namespace {
 
-// Design constants, each measured on the card beside the values tried
-// (PERF.md): the shared memory the grid's query tiles may take on an SM (more
-// and the chars come from 32-bit words of global memory), the queries a
-// thread searches side by side, interleaved step by step, which occ words
-// are cached in L1 (1 all, 0 none, 2 those of the steps whose ends lie in
-// two rows), and the L2's fetch on an occ word's miss (0 the hardware's, or
-// 64, 128, 256 B).
-constexpr int kTileBytesPerSm = 65536;
-constexpr int kChains = 1;
+// Which occ words are cached in L1: 1 all, 0 none, 2 those of the steps whose
+// ends lie in two rows (measured on the card beside the others; PERF.md).
 constexpr int kOccL1 = 2;
-constexpr int kOccFetch = 0;
 
 // One occ word, through L1 or around it.
 __device__ __forceinline__ int32_t occ_word(const int32_t* p, bool wide) {
-    if (kOccL1 == 1 || (kOccL1 == 2 && wide)) return sahara::ld_nc<kOccFetch, true>(p);
-    return sahara::ld_nc<kOccFetch, false>(p);
+    if (kOccL1 == 1 || (kOccL1 == 2 && wide)) return __ldg(p);
+    int32_t v;
+    asm("ld.global.nc.L1::no_allocate.b32 %0, [%1];" : "=r"(v) : "l"(p));
+    return v;
 }
 
-// A query's chars in the staged tile, read backwards from its last.
-struct TileStream {
-    const uint8_t* at;
-
-    TileStream() = default;
-
-    __device__ __forceinline__ explicit TileStream(const uint8_t* last) : at(last) {}
-
-    __device__ __forceinline__ int next(bool) { return *at--; }
-};
-
-template <bool TILE, int CHAINS>
 __global__ void exact_kernel(const int32_t* __restrict__ occ, int row_ints, const int32_t* __restrict__ c_arr,
                              const int32_t* __restrict__ lut, int lut_j, const uint8_t* __restrict__ queries,
                              const int32_t* __restrict__ qlens, int64_t nq, int width, int sigma, int32_t n,
                              int32_t* __restrict__ lb_out, int32_t* __restrict__ len_out) {
-    using Stream = std::conditional_t<TILE, TileStream, sahara::BackStream>;
-    extern __shared__ __align__(16) int32_t smem[];  // C[sigma + 1], then the query tile at 16 B
-    __shared__ __align__(8) uint64_t full;
-    const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x * CHAINS;
-    const int64_t end = min(first + static_cast<int64_t>(blockDim.x) * CHAINS, nq);
-    const uint8_t* tile = reinterpret_cast<const uint8_t*>(smem + ((sigma + 4) & ~3));
-    const uintptr_t g0 = reinterpret_cast<uintptr_t>(queries + first * width) & ~uintptr_t{15};
-    const uint32_t bar = sahara::smem_u32(&full);
-    if (TILE && threadIdx.x == 0) {
-        // every 16 B chunk copied holds a byte of the tile, so none crosses a page
-        const uintptr_t g1 = (reinterpret_cast<uintptr_t>(queries + end * width) + 15) & ~uintptr_t{15};
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
-        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-                     "r"(static_cast<uint32_t>(g1 - g0))
-                     : "memory");
-        asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
-                         sahara::smem_u32(tile)),
-                     "l"(g0), "r"(static_cast<uint32_t>(g1 - g0)), "r"(bar)
-                     : "memory");
-    }
-    for (int i = threadIdx.x; i <= sigma; i += blockDim.x) smem[i] = __ldg(c_arr + i);
-
-    int32_t lb[CHAINS], rb[CHAINS];
-    int left[CHAINS];  // chars still to consume
-    int64_t qi[CHAINS];
-    int steps = 0;
-#pragma unroll
-    for (int k = 0; k < CHAINS; ++k) {
-        qi[k] = first + k * blockDim.x + threadIdx.x;
-        left[k] = qi[k] < nq ? min(max(__ldg(qlens + qi[k]), 0), width) : 0;
-        lb[k] = 0;
-        rb[k] = n;
-    }
-    __syncthreads();  // the C array is in place, the barrier initialised
-    if (TILE) sahara::wait_parity0(bar);
-
-    Stream chars[CHAINS];
-    const int64_t shift = static_cast<int64_t>(reinterpret_cast<uintptr_t>(queries)) - static_cast<int64_t>(g0);
-    const unsigned digits = min(4, sigma - 1);  // table digits: ranks 1..digits
-#pragma unroll
-    for (int k = 0; k < CHAINS; ++k) {
-        if (left[k] == 0) continue;
-        const int64_t last = qi[k] * width + left[k] - 1;
-        chars[k] = Stream(TILE ? tile + shift + last : queries + last);
-        if (lut != nullptr && left[k] >= lut_j) {
-            Stream probe = chars[k];
+    __shared__ int32_t c_s[129];
+    for (int i = threadIdx.x; i <= sigma; i += blockDim.x) c_s[i] = __ldg(c_arr + i);
+    __syncthreads();
+    const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (t >= nq) return;
+    int left = min(max(__ldg(qlens + t), 0), width);  // chars still to consume
+    int32_t lb = 0;
+    int32_t rb = n;
+    sahara::BackStream chars;
+    if (left > 0) {
+        chars = sahara::BackStream(queries + t * width + left - 1);
+        if (lut != nullptr && left >= lut_j) {
+            const unsigned digits = min(4, sigma - 1);  // table digits: ranks 1..digits
+            sahara::BackStream probe = chars;
             int32_t code = 0;
             bool ok = true;
             for (int s = 0; s < lut_j; ++s) {
-                const unsigned d = static_cast<unsigned>(probe.next(s + 1 < left[k]) - 1);
+                const unsigned d = static_cast<unsigned>(probe.next(s + 1 < left) - 1);
                 ok &= d < digits;
                 code |= static_cast<int32_t>(d & 3u) << (2 * s);
             }
             if (ok) {
-                lb[k] = __ldg(lut + code);
-                rb[k] = __ldg(lut + code + (1 << (2 * lut_j)));
-                left[k] -= lut_j;
-                chars[k] = probe;
+                lb = __ldg(lut + code);
+                rb = __ldg(lut + code + (1 << (2 * lut_j)));
+                left -= lut_j;
+                chars = probe;
             }
         }
-        steps = max(steps, left[k]);
     }
-
-    for (int s = 0; s < steps; ++s) {
-        int c[CHAINS];
-        int32_t ckpt_lb[CHAINS], ckpt_rb[CHAINS];
-        uint32_t bits_lb[CHAINS], bits_rb[CHAINS];
-#pragma unroll
-        for (int k = 0; k < CHAINS; ++k) {  // every chain's loads first, then every chain's update
-            if (s >= left[k]) continue;
-            c[k] = min(chars[k].next(s + 1 < left[k]), sigma - 1);
-            const bool wide = (rb[k] >> 5) != (lb[k] >> 5);
-            const int32_t* row_lb = occ + static_cast<int64_t>(lb[k] >> 5) * row_ints;
-            ckpt_lb[k] = occ_word(row_lb + c[k], wide);
-            bits_lb[k] = static_cast<uint32_t>(occ_word(row_lb + sigma + c[k], wide));
-            ckpt_rb[k] = ckpt_lb[k];
-            bits_rb[k] = bits_lb[k];
-            if (wide) {
-                const int32_t* row_rb = occ + static_cast<int64_t>(rb[k] >> 5) * row_ints;
-                ckpt_rb[k] = occ_word(row_rb + c[k], wide);
-                bits_rb[k] = static_cast<uint32_t>(occ_word(row_rb + sigma + c[k], wide));
-            }
+    for (; left > 0; --left) {
+        const int c = min(chars.next(left > 1), sigma - 1);
+        const bool wide = (rb >> 5) != (lb >> 5);
+        const int32_t* row_lb = occ + static_cast<int64_t>(lb >> 5) * row_ints;
+        const int32_t ckpt_lb = occ_word(row_lb + c, wide);
+        const uint32_t bits_lb = static_cast<uint32_t>(occ_word(row_lb + sigma + c, wide));
+        int32_t ckpt_rb = ckpt_lb;
+        uint32_t bits_rb = bits_lb;
+        if (wide) {
+            const int32_t* row_rb = occ + static_cast<int64_t>(rb >> 5) * row_ints;
+            ckpt_rb = occ_word(row_rb + c, wide);
+            bits_rb = static_cast<uint32_t>(occ_word(row_rb + sigma + c, wide));
         }
-#pragma unroll
-        for (int k = 0; k < CHAINS; ++k) {
-            if (s >= left[k]) continue;
-            const int32_t base = smem[c[k]];
-            lb[k] = base + ckpt_lb[k] + __popc(bits_lb[k] & ((1u << (lb[k] & 31)) - 1u));
-            rb[k] = base + ckpt_rb[k] + __popc(bits_rb[k] & ((1u << (rb[k] & 31)) - 1u));
-        }
+        const int32_t base = c_s[c];
+        lb = base + ckpt_lb + __popc(bits_lb & ((1u << (lb & 31)) - 1u));
+        rb = base + ckpt_rb + __popc(bits_rb & ((1u << (rb & 31)) - 1u));
     }
-#pragma unroll
-    for (int k = 0; k < CHAINS; ++k) {
-        if (qi[k] < nq) {
-            lb_out[qi[k]] = lb[k];
-            len_out[qi[k]] = rb[k] - lb[k];
-        }
-    }
-}
-
-// The C array's bytes in shared memory, padded to 16 B.
-inline int64_t c_bytes(int sigma) { return static_cast<int64_t>((sigma + 4) & ~3) * 4; }
-
-template <bool TILE>
-int launch(const void* occ, const void* c_arr, const void* lut, int lut_j, const void* queries, const void* qlens,
-           int64_t nq, int width, int row_ints, int sigma, int32_t n, void* lb, void* len, int block,
-           int64_t grid, size_t smem, cudaStream_t stream) {
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        exact_kernel<TILE, kChains>, cudaFuncAttributeMaxDynamicSharedMemorySize, max(kTileBytesPerSm, 48 << 10));
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    exact_kernel<TILE, kChains><<<static_cast<unsigned>(grid), block, smem, stream>>>(
-        static_cast<const int32_t*>(occ), row_ints, static_cast<const int32_t*>(c_arr),
-        static_cast<const int32_t*>(lut), lut_j, static_cast<const uint8_t*>(queries),
-        static_cast<const int32_t*>(qlens), nq, width, sigma, n, static_cast<int32_t*>(lb),
-        static_cast<int32_t*>(len));
-    return static_cast<int>(cudaGetLastError());
+    lb_out[t] = lb;
+    len_out[t] = rb - lb;
 }
 
 }  // namespace
@@ -220,16 +125,11 @@ extern "C" int sahara_exact_search(const void* occ, const void* c_arr, const voi
     if (sigma < 1 || 2 * sigma > row_ints || sigma > 128 || (lut != nullptr && (lut_j < 1 || lut_j > 15))) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
-    const int64_t threads = (nq + kChains - 1) / kChains;
-    const int block = sahara::balanced_block(threads);
-    const int64_t grid = (threads + block - 1) / block;
-    const int64_t per_sm = (grid + sahara::sm_count() - 1) / sahara::sm_count();
-    const int64_t tile = static_cast<int64_t>(block) * kChains * width + 32;  // with its 16 B alignment
-    const auto s = static_cast<cudaStream_t>(stream);
-    if (width > 0 && per_sm * (c_bytes(sigma) + tile) <= kTileBytesPerSm) {
-        return launch<true>(occ, c_arr, lut, lut_j, queries, qlens, nq, width, row_ints, sigma, n, lb, len, block,
-                            grid, static_cast<size_t>(c_bytes(sigma) + tile), s);
-    }
-    return launch<false>(occ, c_arr, lut, lut_j, queries, qlens, nq, width, row_ints, sigma, n, lb, len, block,
-                         grid, static_cast<size_t>(c_bytes(sigma)), s);
+    const int block = sahara::balanced_block(nq);
+    exact_kernel<<<static_cast<unsigned>((nq + block - 1) / block), block, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(occ), row_ints, static_cast<const int32_t*>(c_arr),
+        static_cast<const int32_t*>(lut), lut_j, static_cast<const uint8_t*>(queries),
+        static_cast<const int32_t*>(qlens), nq, width, sigma, n, static_cast<int32_t*>(lb),
+        static_cast<int32_t*>(len));
+    return static_cast<int>(cudaGetLastError());
 }

@@ -17,35 +17,30 @@
 // of every hit row), but the chain does not set the time: each step loads a
 // sampled word and words of an occ row at random in tables larger than L2,
 // and the kernel runs at about the rate the memory system completes such
-// scattered loads (a version that issues a step's loads in one round trip,
-// kWholeRow, is the slowest measured; PERF.md).  So the design cuts the
-// loads and the L1 passes a step costs, not the round trips:
+// scattered loads (a version that loaded a step's whole row beside its
+// sampled word, one round trip a step, was the slowest measured; PERF.md).
+// So the design cuts the loads and the L1 passes a step costs, not the round
+// trips:
 //   - two lanes walk a row (kWalkLanes): each loads 16 B vectors of the
 //     row's bit planes from the one that holds plane 0, kVecs vectors a
 //     batch between them (sigma <= 8: both plane vectors in one batch), so
 //     a warp's load touches one 128 B line a walk, not one a vector;
-//   - the sampled word is tested before the planes are loaded
-//     (kSampledFirst): a walk's last row loads no planes;
-//   - the lowest set plane by a shuffle between the two lanes, then the
+//   - the sampled word is tested before the planes are loaded: a walk's
+//     last row loads no planes;
+//   - the lowest set plane by a shuffle between the lanes, then the
 //     checkpoint and the bit word of the symbol by one load each (L1 hits
 //     where the planes' sector holds them);
 //   - the C array in shared memory.
-// The whole-row kernel (kWholeRow), one or four lanes, one or eight vectors
-// a batch, planes loaded beside the sampled word and a 64 or 256 B L2 fetch
-// (kOccFetch) are the variants measured beside it.  Rows are row_ints int32
-// wide at 64-bit offsets; the row width and sigma are runtime arguments.
+// Rows are row_ints int32 wide at 64-bit offsets; the row width and sigma
+// are runtime arguments.
 
 #include "launch.cuh"
-#include "load.cuh"
 
 namespace {
 
 // Design constants, each measured on the card beside the values tried (PERF.md).
-constexpr int kWalkLanes = 2;     // lanes that walk one row
-constexpr int kSampledFirst = 1;  // 1: test a row's sampled bit before loading its planes
-constexpr int kWholeRow = 0;      // 1: rows of up to 64 int32 read whole, one round trip a step
-constexpr int kVecs = 4;          // 16 B vectors of bit planes a walk loads at once (at least one a lane)
-constexpr int kOccFetch = 0;      // the L2's fetch on a plane vector's miss: 0 the hardware's, or 64, 256 B
+constexpr int kWalkLanes = 2;   // lanes that walk one row
+constexpr int kVecs = 4;        // 16 B vectors of bit planes a walk loads at once (at least one a lane)
 constexpr int kNone = 1 << 30;  // no plane set
 
 struct Out {
@@ -64,64 +59,13 @@ struct Out {
     }
 };
 
-__device__ __forceinline__ bool is_sampled(int2 s, int32_t row) {
-    return (static_cast<uint32_t>(s.y) >> (row & 31)) & 1u;
-}
-
-// Rows read whole: RV 16 B vectors of a row of at most 4 RV int32.
-template <int RV>
+// The bit planes kVecs 16 B vectors at a time, from the vector that holds
+// plane 0 up to the one that holds the symbol's, spread over G lanes (the
+// lowest plane by a shuffle reduction).
+template <int G>
 __global__ void lf_walk_kernel(const int32_t* __restrict__ occ, int row_ints, const int32_t* __restrict__ c_arr,
                                const int2* __restrict__ sampled, Out out, const int32_t* __restrict__ rows,
                                int64_t n_rows, int sigma, int rate) {
-    __shared__ int32_t c_s[129];
-    for (int i = threadIdx.x; i <= sigma; i += blockDim.x) c_s[i] = __ldg(c_arr + i);
-    __syncthreads();
-    const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (t >= n_rows) return;
-    const int nv = row_ints >> 2;
-    int32_t row = __ldg(rows + t);
-    int steps = 0;
-    int2 s;
-    for (;; ++steps) {
-        const int4* r4 = reinterpret_cast<const int4*>(occ + static_cast<int64_t>(row >> 5) * row_ints);
-        s = __ldg(sampled + (row >> 5));
-        int32_t w[4 * RV];
-#pragma unroll
-        for (int v = 0; v < RV; ++v) {
-            const int4 x = v < nv ? __ldg(r4 + v) : make_int4(0, 0, 0, 0);
-            w[4 * v] = x.x;
-            w[4 * v + 1] = x.y;
-            w[4 * v + 2] = x.z;
-            w[4 * v + 3] = x.w;
-        }
-        if (steps == rate || is_sampled(s, row)) break;
-        const int off = row & 31;
-        int c = 0;  // no plane set: symbol 0, as the reference's argmax
-#pragma unroll
-        for (int i = 4 * RV - 1; i >= 0; --i) {  // downwards, so the lowest plane wins
-            if (i >= sigma && i < 2 * sigma && ((static_cast<uint32_t>(w[i]) >> off) & 1u)) c = i - sigma;
-        }
-        int32_t ckpt = 0;
-        uint32_t word = 0;
-#pragma unroll
-        for (int i = 0; i < 4 * RV; ++i) {  // selects, not an indexed read, which would go to local memory
-            if (i == c) ckpt = w[i];
-            if (i == sigma + c) word = static_cast<uint32_t>(w[i]);
-        }
-        row = c_s[c] + ckpt + __popc(word & ((1u << off) - 1u));
-    }
-    out.put(t, row, s, steps);
-}
-
-// The bit planes kVecs 16 B vectors at a time, from the vector that holds
-// plane 0 up to the one that holds the symbol's, spread over G lanes (the
-// lowest plane by a shuffle reduction).  The first vectors come with the
-// sampled word and, on one lane, also give the checkpoint where they hold it.
-template <int G>
-__global__ void lf_walk_kernel_planes(const int32_t* __restrict__ occ, int row_ints,
-                                       const int32_t* __restrict__ c_arr, const int2* __restrict__ sampled,
-                                       Out out, const int32_t* __restrict__ rows, int64_t n_rows, int sigma,
-                                       int rate) {
     constexpr int kPer = kVecs > G ? kVecs / G : 1;  // 16 B vectors a lane loads a batch
     __shared__ int32_t c_s[129];
     for (int i = threadIdx.x; i <= sigma; i += blockDim.x) c_s[i] = __ldg(c_arr + i);
@@ -139,21 +83,15 @@ __global__ void lf_walk_kernel_planes(const int32_t* __restrict__ occ, int row_i
         const int4* r4 = reinterpret_cast<const int4*>(r);
         const int off = row & 31;
         s = __ldg(sampled + (row >> 5));
-        if (kSampledFirst && (steps == rate || is_sampled(s, row))) break;
+        if (steps == rate || ((static_cast<uint32_t>(s.y) >> off) & 1u)) break;
         int c = kNone;
         uint32_t word = 0;
-        int4 first[kPer];
         for (int vb = v0; vb < v1; vb += G * kPer) {
             int4 x[kPer];
 #pragma unroll
             for (int i = 0; i < kPer; ++i) {
                 const int v = vb + g + G * i;
-                x[i] = v < v1 ? sahara::ld_nc4<kOccFetch>(r4 + v) : make_int4(0, 0, 0, 0);
-            }
-            if (vb == v0) {
-                if (steps == rate || is_sampled(s, row)) break;
-#pragma unroll
-                for (int i = 0; i < kPer; ++i) first[i] = x[i];
+                x[i] = v < v1 ? __ldg(r4 + v) : make_int4(0, 0, 0, 0);
             }
 #pragma unroll
             for (int i = kPer - 1; i >= 0; --i) {  // downwards, so the lowest plane wins
@@ -171,41 +109,15 @@ __global__ void lf_walk_kernel_planes(const int32_t* __restrict__ occ, int row_i
             for (int o = G / 2; o > 0; o >>= 1) c = min(c, __shfl_xor_sync(group, c, o));
             if (c != kNone) break;
         }
-        if (steps == rate || is_sampled(s, row)) break;
         if (c == kNone) {  // no plane set: symbol 0, as the reference's argmax
             c = 0;
             word = static_cast<uint32_t>(__ldg(r + sigma));
         } else if (G > 1) {  // the lane that found the plane may be another
             word = static_cast<uint32_t>(__ldg(r + sigma + c));
         }
-        int32_t ckpt;
-        if (G == 1 && c >= 4 * v0 && c < 4 * (v0 + kPer)) {
-            ckpt = 0;
-#pragma unroll
-            for (int i = 0; i < kPer; ++i) {  // selects, not an indexed read, which would go to local memory
-                const int32_t w[4] = {first[i].x, first[i].y, first[i].z, first[i].w};
-#pragma unroll
-                for (int u = 0; u < 4; ++u) {
-                    if (4 * (v0 + i) + u == c) ckpt = w[u];
-                }
-            }
-        } else {
-            ckpt = __ldg(r + c);
-        }
-        row = c_s[c] + ckpt + __popc(word & ((1u << off) - 1u));
+        row = c_s[c] + __ldg(r + c) + __popc(word & ((1u << off) - 1u));
     }
     if (g == 0) out.put(t, row, s, steps);
-}
-
-template <class Kernel>
-int launch(Kernel kernel, int lanes, const void* occ, const void* c_arr, const void* sampled, Out out,
-           const void* rows, int64_t n_rows, int row_ints, int sigma, int rate, cudaStream_t stream) {
-    const int64_t threads = n_rows * lanes;
-    const int block = sahara::balanced_block(threads);
-    kernel<<<static_cast<unsigned>((threads + block - 1) / block), block, 0, stream>>>(
-        static_cast<const int32_t*>(occ), row_ints, static_cast<const int32_t*>(c_arr),
-        static_cast<const int2*>(sampled), out, static_cast<const int32_t*>(rows), n_rows, sigma, rate);
-    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -221,13 +133,11 @@ extern "C" int sahara_lf_walk(const void* occ, const void* c_arr, const void* sa
     }
     const Out out{static_cast<const int32_t*>(sample_seq), static_cast<const int32_t*>(sample_pos), n_samples,
                   static_cast<int32_t*>(seq_id), static_cast<int32_t*>(pos)};
-    const auto s = static_cast<cudaStream_t>(stream);
-    if (kWholeRow && row_ints <= 16) {
-        return launch(lf_walk_kernel<4>, 1, occ, c_arr, sampled, out, rows, n_rows, row_ints, sigma, rate, s);
-    }
-    if (kWholeRow && row_ints <= 64) {
-        return launch(lf_walk_kernel<16>, 1, occ, c_arr, sampled, out, rows, n_rows, row_ints, sigma, rate, s);
-    }
-    return launch(lf_walk_kernel_planes<kWalkLanes>, kWalkLanes, occ, c_arr, sampled, out, rows, n_rows, row_ints,
-                  sigma, rate, s);
+    const int64_t threads = n_rows * kWalkLanes;
+    const int block = sahara::balanced_block(threads);
+    lf_walk_kernel<kWalkLanes><<<static_cast<unsigned>((threads + block - 1) / block), block, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(occ), row_ints, static_cast<const int32_t*>(c_arr),
+        static_cast<const int2*>(sampled), out, static_cast<const int32_t*>(rows), n_rows, sigma, rate);
+    return static_cast<int>(cudaGetLastError());
 }

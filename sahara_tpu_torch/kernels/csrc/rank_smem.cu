@@ -33,7 +33,6 @@
 // refuses larger ones, and a card that cannot hold a cluster of such CTAs
 // makes the launch fail.
 
-#include "bulk.cuh"
 #include "occ.cuh"
 #include "rank_io.cuh"
 
@@ -42,10 +41,30 @@ namespace {
 constexpr int kThreads = 1024;
 constexpr int kClusterCtas = 2;  // N, kept by measurement on the H100 (PERF.md)
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
 __device__ __forceinline__ uint32_t cluster_rank() {
     uint32_t r;
     asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
     return r;
+}
+
+// Wait for phase 0 of the mbarrier at shared address bar to complete.
+__device__ __forceinline__ void wait_parity0(uint32_t bar) {
+    for (uint32_t done = 0, spin = 0; !done; ++spin) {
+        asm volatile(
+            "{\n"
+            ".reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n"
+            "}\n"
+            : "=r"(done)
+            : "r"(bar), "r"(0)
+            : "memory");
+        if (spin == (1u << 26)) __trap();  // the table never arrived: fail the launch rather than hang
+    }
 }
 
 template <int SIGMA>
@@ -55,7 +74,7 @@ __global__ void __launch_bounds__(kThreads, 1) rank_smem_kernel(const int4* __re
     extern __shared__ __align__(16) int4 table[];
     __shared__ __align__(8) uint64_t full;
     const int lane = threadIdx.x & 31;
-    const uint32_t bar = sahara::smem_u32(&full);
+    const uint32_t bar = smem_u32(&full);
     if (threadIdx.x == 0) {
         asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
         asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -72,7 +91,7 @@ __global__ void __launch_bounds__(kThreads, 1) rank_smem_kernel(const int4* __re
         if (cnt > 0) {
             asm volatile(
                 "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
-                " [%0], [%1], %2, [%3], %4;" ::"r"(sahara::smem_u32(table + lo)),
+                " [%0], [%1], %2, [%3], %4;" ::"r"(smem_u32(table + lo)),
                 "l"(occ16 + lo), "r"(cnt * 16), "r"(bar), "h"(static_cast<uint16_t>((1 << kClusterCtas) - 1))
                 : "memory");
         }
@@ -81,7 +100,7 @@ __global__ void __launch_bounds__(kThreads, 1) rank_smem_kernel(const int4* __re
     const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
     int64_t base = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) & ~int64_t{31};
     int32_t pos = base + lane < n ? sahara::load_int(idx + base + lane, first) : 0;
-    sahara::wait_parity0(bar);
+    wait_parity0(bar);
     // this CTA's copy of the table is whole: no peer writes into it any more
     asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
     const sahara::WarpTranspose<SIGMA> tp(lane);

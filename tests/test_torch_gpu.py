@@ -636,13 +636,13 @@ def test_exact_search_kernel_matches_plain(exact_host, use_lut):
 
 
 def test_exact_search_kernel_wide_queries():
-    """Queries too wide for the grid's tiles in shared memory (the chars
-    then come from global memory) against the plain scan, with the table."""
+    """Queries of up to 8,000 chars (2,000 query words a thread, read
+    backwards) against the plain scan, with the table."""
     dev = _card()
     rng = np.random.default_rng(5)
     seqs = [rng.integers(1, 5, 40000).astype(np.uint8)]
     index = DeviceIndex.from_host(build_fmindex(seqs, 6, "d_dna5"), device=dev)
-    q = np.stack([seqs[0][p : p + 8000] for p in rng.integers(0, 32000, 300)])  # 32 x 8000 B > 200 KB a block
+    q = np.stack([seqs[0][p : p + 8000] for p in rng.integers(0, 32000, 300)])
     lens = rng.integers(0, 8001, 300).astype(np.int32)
     q[np.arange(0, 300, 3), np.maximum(lens[::3] - 3, 0)] = 5  # an N in every third query's table window
     args = (index.occ, index.c_arr, torch.from_numpy(q).to(dev), torch.from_numpy(lens).to(dev), index.sigma, index.n)
