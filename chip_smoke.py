@@ -107,7 +107,9 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
 13. prints the kernels' JSON line (each kernel's figures at the sv_e1
    path's shape as its ``e1_*`` keys, beside that path's launches; K6's on
    the kmer path as ``kmer_*``, K7's on the uni path as ``uni_*``), the
-   card line, and as the last line
+   count of profiler sessions and the kernels timed by CUDA events because
+   the profiler recorded nothing (``timing.kernel_device_ms``), the card
+   line, and as the last line
    ``{"ok": true, "device": {...}}``.  The full report goes to
    ``chiprun_out/chip_smoke.json``.
 
@@ -133,6 +135,7 @@ import warnings
 import numpy as np
 import torch
 
+from sahara_tpu_torch import timing
 from sahara_tpu_torch.timing import dev_ms, kernel_device_ms, kernel_device_total, time_ms
 
 # The JAX package's hit set for this workload, recorded on the CPU with
@@ -2033,13 +2036,15 @@ def main() -> int:
                      "lf_walk": report["kmer"]["launches"]["lf_walk"]}
     for row in kernels:
         row["launches"] = path_launches[row["name"]]
-    report.update(card=card, kernels=kernels, total_s=time.perf_counter() - t_start)
+    report.update(card=card, kernels=kernels, total_s=time.perf_counter() - t_start,
+                  profiler_sessions=timing.PROFILER_SESSIONS, event_timed=timing.EVENT_TIMED)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as fh:
         json.dump(report, fh, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
-    print(f"total {report['total_s']:.1f} s")
+    print(f"total {report['total_s']:.1f} s; {timing.PROFILER_SESSIONS} profiler sessions; kernel times from CUDA "
+          f"events where the profiler recorded nothing: {timing.EVENT_TIMED or 'none'}")
     print(card)
     # device times also cold and the call time; K1, K4 and K3h their first
     # version's; K5, K3 and K3h also at the sv_e1 path's shapes, beside that

@@ -37,6 +37,7 @@ from sahara_tpu_torch.kernels.rank_smem import (
 from sahara_tpu_torch.kernels.seed import seed_scan, seed_scan_plain
 from sahara_tpu_torch.kernels.verify import hamming_lanes, verify, verify_plain
 from sahara_tpu_torch.kernels.workq import EPOCHS, TILE, workq_step, workq_step_plain
+from sahara_tpu_torch.timing import event_device_ms, kernel_device_ms
 
 pytestmark = pytest.mark.gpu
 
@@ -79,6 +80,20 @@ def test_rank_all_kernel_matches_plain(host):
     assert torch.equal(got, rank_all_plain(index.occ, index.sigma, idx))
     with pytest.raises(TypeError):
         rank_all(index.occ, index.sigma, idx.long())
+
+
+def test_event_device_ms_near_profiler_time(host):
+    """The CUDA-event time that stands in for the profiler's (the span of
+    one rank_all call behind a sleep) is near the kernel's profiler time:
+    no host time in it, at most a few microseconds of events."""
+    dev = _card()
+    idx_host, _ = host
+    index = DeviceIndex.from_host(idx_host, device=dev)
+    idx = torch.from_numpy(np.random.default_rng(2).integers(0, idx_host.n, 1 << 20).astype(np.int32)).to(dev)
+    call = lambda: rank_all(index.occ, index.sigma, idx)  # noqa: E731
+    traced = kernel_device_ms(call, "rank_all_kernel", 20)
+    events = event_device_ms(call, 20)
+    assert 0.5 * traced < events < 1.5 * traced + 0.01, (traced, events)
 
 
 @pytest.mark.parametrize("use_lut", [True, False])
