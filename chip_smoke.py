@@ -4,7 +4,7 @@
 
 Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
 
-1. prints the card's name and power limit, builds the seven CUDA kernels
+1. prints the card's name and power limit, builds the eight CUDA kernels
    from ``sahara_tpu_torch/kernels/csrc``, the first versions of the K1, K4,
    K3h, K6 and K7 kernels (``LEGACY_SOURCES``) and their design variants
    (``DESIGN_VARIANTS``), all nvcc runs at once, and prints each kernel's
@@ -71,6 +71,16 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
    same reads under Hamming distance against the JAX package's hit set
    with every hit's mismatches recounted, and K3h timed on that run's
    largest verify call like its 100 bp row;
+   then phase ``approx``: the frontier engine (``engine="approx"``,
+   ``generator_name="optimum"``, one K8 launch a step) over the whole
+   workload on the same upload, the rows of its first 16,384 queries
+   against the JAX package's (``JAX_APPROX_PREFIX_*``) and the whole row
+   set beside seed-and-verify's, the difference printed; K8 against its
+   plain step at every step of the first chunk's first attempt, timed on
+   the widest of them (warm, cold, call, plain, bound) and over a pass;
+   the attempts (retries), three timed passes, a profiled pass; the CLI's
+   ``search --engine approx`` of the first 4,096 strand queries against the
+   JAX CLI's (``JAX_APPROX_CLI_*``);
 10. phase ``cli`` goes on, the CLI run in this process (``run_cli``) so
    that the launch counts can be read: ``search -e 2 -d lev`` of the
    workload's reads on the card, its output byte-equal to the JAX
@@ -83,6 +93,16 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
    golden cases with ``--device cuda``, each byte-equal to
    ``tests/goldens/``, and r2 with ``--engine workq`` on the card and on
    the CPU, byte-equal (K5 through the CLI);
+   then phase ``sharded``: ``index --max_shard_mb 16`` of the same
+   reference (3 shards, windows of 16,000,000 characters overlapping by
+   4,096), the shards' sizes, the resident views' bytes beside the card's
+   free memory and the budget, the CLI's ``search -e 2 -d lev`` on it
+   byte-equal to ``JAX_SHARD_*`` and ``JAX_CLI_*``; ``search_queries_sharded``
+   in process: resident (the 80,248 rows; K1 at each shard's upload, K2,
+   K3; a warm pass, three timed, a profiled one), swap
+   (``resident_budget=0``: the same rows, one pass, each shard's upload
+   seconds), and phase 8's N reads, whose deferred fallback runs K5 on
+   whole shards and gives phase 8's rows;
 11. phase ``uni``: 65,536 error-free 100 bp reads through the port's
    ``read_simulator`` (read seed 99), ``uni-index`` of the reference and
    ``uni-search`` of the 131,072 strand queries on the card, its output
@@ -106,7 +126,8 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
    100,000 characters, K1 alone at 4.6 million; device time and call time);
 13. prints the kernels' JSON line (each kernel's figures at the sv_e1
    path's shape as its ``e1_*`` keys, beside that path's launches; K6's on
-   the kmer path as ``kmer_*``, K7's on the uni path as ``uni_*``), the
+   the kmer path as ``kmer_*``, K7's on the uni path as ``uni_*``; K1's
+   launches on the sharded paths, K8's device time in an approx pass), the
    count of profiler sessions and the kernels timed by CUDA events because
    the profiler recorded nothing (``timing.kernel_device_ms``), the card
    line, and as the last line
@@ -186,6 +207,33 @@ JAX_E1_WORKQ_PREFIX_SHA256 = "e44d9c07db5a3fd633346408031cc550cab5e95f41cedc8055
 # sha256 of out.txt's bytes and its line count.
 JAX_CLI_SHA256 = "e6ba548efad46fc5065aa50ea7e50e7224722d532033ec92cd8b2c45e5ee1325"
 JAX_CLI_LINES = 80248
+
+# The JAX package's CLI output on the interval-sharded index (phase
+# sharded), recorded on the CPU with sahara_tpu as JAX_CLI_* was, on the same
+# ref.fasta and reads.fasta:
+#   python -m sahara_tpu index ref.fasta --max_shard_mb 16
+#   python -m sahara_tpu search -q reads.fasta -i ref.fasta.idx -o out.txt -e 2 -d lev
+# (3 shards of 16,000,000-char windows overlapping by 4,096).  The sharded
+# search finds the unsharded hit set: the same bytes as JAX_CLI_*.
+JAX_SHARD_SHA256 = "e6ba548efad46fc5065aa50ea7e50e7224722d532033ec92cd8b2c45e5ee1325"
+JAX_SHARD_LINES = 80248
+SHARD_MB = 16
+
+# The JAX package's frontier engine (phase approx), recorded on the CPU with
+# sahara_tpu: the workload's strand queries as for JAX_HITS, their first
+# APPROX_PREFIX (one chunk: the JAX frontier engine on the CPU is too slow for
+# the whole workload), search_queries(k=2, engine="approx", generator_name="optimum",
+# chunk=16384) on DeviceIndex.from_host(build_bifmindex([ref], 6, "d_dna5",
+# rate=16)); rows and sha256 as for JAX_HITS.  And its CLI output, recorded as
+# JAX_CLI_* was, on the first APPROX_CLI_QUERIES strand queries:
+#   python -m sahara_tpu search -q reads.fasta -i ref.fasta.idx -o out.txt -e 2 -d lev \
+#       --engine approx --limit_queries 4096
+APPROX_PREFIX = 16384
+JAX_APPROX_PREFIX_HITS = 10054
+JAX_APPROX_PREFIX_SHA256 = "60bf0ba07b1bb964024ab658a745242c2062d6359dca3394df623af148dbdab6"
+APPROX_CLI_QUERIES = 4096
+JAX_APPROX_CLI_SHA256 = "ea5f3ab402de89b16eab7853634157431156f6c48239b16178d5d4ffca2a94d3"
+JAX_APPROX_CLI_LINES = 2526
 
 # The JAX package's CLI output of exact search (phase uni) and kmer search
 # (phase kmer), recorded on the CPU with sahara_tpu as JAX_CLI_* was, on the
@@ -1255,10 +1303,11 @@ def workq_path(host, queries: np.ndarray, sv_rows: np.ndarray):
     return index, out
 
 
-def fallback_phase(index, queries: np.ndarray, sv_rows: np.ndarray) -> dict:
+def fallback_phase(index, queries: np.ndarray, sv_rows: np.ndarray) -> tuple[dict, np.ndarray, np.ndarray]:
     """An N in a seed part of every 8th read sends it from seed-and-verify
     to the work-queue engine: ``auto`` must equal ``workq`` on all reads,
-    and the seed-and-verify rows on the reads without N."""
+    and the seed-and-verify rows on the reads without N.  Returns the
+    report, the strand queries and their ``auto`` rows."""
     from sahara_tpu_torch.alphabet import D_DNA5
     from sahara_tpu_torch.engine.driver import search_queries
     from sahara_tpu_torch.engine.seedverify import plan_parts
@@ -1284,7 +1333,7 @@ def fallback_phase(index, queries: np.ndarray, sv_rows: np.ndarray) -> dict:
     out = dict(reads=FALLBACK_READS, n_queries=int(len(sub) - len(clean)), hits=len(auto), launches=launches)
     print(f"fallback: {out['n_queries']} strand queries with N, {len(auto)} hits, auto == workq, "
           f"clean reads == seed-and-verify", flush=True)
-    return out
+    return out, sub, auto
 
 
 @contextlib.contextmanager
@@ -1846,6 +1895,243 @@ def kmer_phase(tmp: str, fasta: str, reads: str, card: str, extra: dict) -> tupl
     return rep, k6_fig, k7_fig
 
 
+def frontier_bound(ctx, state, hits_before: int, hits_after: int, out) -> tuple[float, str, dict]:
+    """The bound of one K8 step on ``state``: the sz plane read; each live
+    slot's other planes, tape word and query char, and each distinct occ
+    row its two ranks read once; the children, the new hits and every other
+    slot's sz written, and the counts and flags."""
+    from sahara_tpu_torch.kernels.frontier import D, LB, LBR, SZ, n_kinds
+
+    lanes, s_cap, m = ctx.lanes, ctx.s_cap, ctx.m
+    live = state[SZ] > 0
+    ranked = live & (state[D] < m)
+    lane = torch.nonzero(ranked)[:, 0]
+    d = state[D][ranked]
+    side = ctx.tape[lane % ctx.ns, d] & 1
+    primary = torch.where(side == 1, state[LBR][ranked], state[LB][ranked]).long()
+    woff = side.long() * ctx.rev_off
+    rows = torch.unique(torch.cat([(primary >> 5) + woff, ((primary + state[SZ][ranked]) >> 5) + woff])).numel()
+    children = int((out[SZ] > 0).sum())
+    n_live = int(live.sum())
+    n_bytes = (lanes * s_cap * 4 + n_live * 20 + int(ranked.sum()) * 8 + rows * 64 + children * 24
+               + (lanes * s_cap - children) * 4 + (hits_after - hits_before) * 12 + lanes * 12)
+    b, by = bound(n_bytes, int(ranked.sum()) * (6 * ctx.sigma + 4 * n_kinds(ctx.sigma, ctx.edit)))
+    return b, by, dict(live=n_live, ranked=int(ranked.sum()), occ_rows=rows, children=children,
+                       new_hits=hits_after - hits_before)
+
+
+def approx_phase(index, queries: np.ndarray, sv_rows: np.ndarray, tmp: str, fasta: str, reads: str) -> dict:
+    """The frontier engine (``engine="approx"``, K8) over the workload on the
+    upload with both tables: the rows of its first APPROX_PREFIX queries
+    against the JAX package's, the whole row set beside seed-and-verify's,
+    K8 against its plain step at every step of the first chunk's first
+    attempt, K8 timed on the widest of those steps and in a pass, three
+    timed passes, and the CLI's ``--engine approx`` against the JAX CLI's."""
+    from sahara_tpu_torch.engine import approx
+    from sahara_tpu_torch.engine.driver import load_scheme, search_queries
+    from sahara_tpu_torch.engine.tape import compile_tape
+    from sahara_tpu_torch.kernels import LAUNCHES, reset_launches
+    from sahara_tpu_torch.kernels.frontier import SZ, frontier_step, frontier_step_plain, pack_tape
+
+    kw = dict(k=K, edit=True, chunk=CHUNK, engine="approx", generator_name=WORKQ_GENERATOR)
+    attempts = []
+    reset_launches()
+    with recorded(approx, "scheme_search") as calls:
+        t0 = time.perf_counter()
+        res = search_queries(index, queries, **kw)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    require_launches(launches, ("frontier_step",), "approx")
+    for _, ckw, (_, _, flags) in calls:
+        attempts.append(dict(s_cap=ckw["s_cap"], h_cap=ckw["h_cap"], overflow_lanes=int(flags.any(dim=0).sum())))
+    rows = sorted_rows(res)
+    prefix = rows[rows[:, 0] < APPROX_PREFIX]
+    out = dict(hits=len(rows), sha256=rows_sha(rows), prefix_hits=len(prefix), prefix_sha256=rows_sha(prefix),
+               first_pass_s=first_s, launches=launches, attempts=attempts,
+               retries=len(attempts) - -(-len(queries) // CHUNK))
+    print(f"approx: {len(rows)} rows; first {APPROX_PREFIX} queries {len(prefix)} rows sha256 {out['prefix_sha256']} "
+          f"(JAX package {JAX_APPROX_PREFIX_HITS}, {JAX_APPROX_PREFIX_SHA256}); {len(attempts)} attempts over "
+          f"{-(-len(queries) // CHUNK)} chunks, {launches['frontier_step']} K8 launches", flush=True)
+    if len(prefix) != JAX_APPROX_PREFIX_HITS or out["prefix_sha256"] != JAX_APPROX_PREFIX_SHA256:
+        raise AssertionError("the frontier engine's rows differ from the JAX package's")
+    mine, theirs = ({tuple(r) for r in x[:, :3].tolist()} for x in (rows, sv_rows))
+    err_of = {tuple(r[:3]): r[3] for r in sv_rows.tolist()}
+    out.update(only_approx=len(mine - theirs), only_sv=len(theirs - mine),
+               other_errors=sum(err_of[tuple(r[:3])] != r[3] for r in rows.tolist() if tuple(r[:3]) in err_of),
+               only_approx_first=sorted(mine - theirs)[:5], only_sv_first=sorted(theirs - mine)[:5])
+    print(f"approx against seed-and-verify ({len(sv_rows)} rows): {out['only_approx']} rows only in approx, "
+          f"{out['only_sv']} only in seed-and-verify, {out['other_errors']} with another error count; first "
+          f"{out['only_approx_first']} / {out['only_sv_first']}", flush=True)
+
+    # K8 against its plain step, every step of the first chunk's first attempt
+    steps, kernel = [], approx.frontier_step
+
+    def check(ctx, state, nxt, hits, hit_cnt, flags):
+        before = (hits.clone(), hit_cnt.clone(), flags.clone())
+        want = [torch.empty_like(nxt), *(x.clone() for x in before)]
+        kernel(ctx, state, nxt, hits, hit_cnt, flags)
+        frontier_step_plain(ctx, state, *want)
+        live = nxt[SZ] > 0
+        if not torch.equal(live, want[0][SZ] > 0):
+            raise AssertionError("frontier_step: live slots differ from its plain version")
+        err = assert_equal("frontier_step frontier", torch.where(live, nxt, 0), torch.where(live, want[0], 0))
+        err += sum(assert_equal(f"frontier_step {name}", a, b)
+                   for name, a, b in zip(("hits", "hit counts", "flags"), (hits, hit_cnt, flags), want[1:]))
+        n_in = int((state[SZ] > 0).sum())
+        if not steps or n_in > steps[0][1]:
+            steps[:] = [(check.n, n_in, ctx, state.clone(), before, int(hit_cnt.sum()))]
+        check.n += 1
+        check.err += err
+
+    check.n = check.err = 0
+    q0 = np.ascontiguousarray(queries[:CHUNK])
+    t = compile_tape(load_scheme(WORKQ_GENERATOR, 0, K, q0.shape[1], edit=True, sigma=index.sigma, n_text=index.n))
+    tape = pack_tape(t.side, t.qpos, t.lo, t.hi)
+    approx.frontier_step = check
+    try:
+        approx.scheme_search(index, torch.from_numpy(q0.astype(np.int32)).to(index.device),
+                             torch.from_numpy(tape).to(index.device), torch.ones(CHUNK, dtype=torch.bool,
+                                                                                 device=index.device),
+                             edit=True, s_cap=64, h_cap=32, k=K)
+    finally:
+        approx.frontier_step = kernel
+    step, live_in, ctx, state, (hits0, cnt0, flags0), hits_after = steps[0]
+    nxt = torch.empty_like(state)
+    hits, hit_cnt, flags = (x.clone() for x in (hits0, cnt0, flags0))
+
+    def call():
+        hit_cnt.copy_(cnt0)
+        frontier_step(ctx, state, nxt, hits, hit_cnt, flags)
+
+    call()
+    b, by, fig = frontier_bound(ctx, state, int(cnt0.sum()), hits_after, nxt)
+    flush_buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=index.device)
+    row = dict(
+        name="frontier_step", route="cuda", source="sahara_tpu_torch/kernels/csrc/frontier.cu",
+        replaces="sahara_tpu/engine/approx.py:161", max_abs_err=check.err, steps_checked=check.n,
+        **redesign_times(call, "frontier_kernel", lambda: flush_buf.fill_(1)),
+        plain_ms=time_ms(lambda: frontier_step_plain(ctx, state, torch.empty_like(nxt), hits.clone(), cnt0.clone(),
+                                                     flags.clone()), 5),
+        bound_ms=b, bound_by=by, library_ms=None, launches=launches["frontier_step"], **fig,
+        shape=f"{ctx.lanes} lanes x s_cap {ctx.s_cap}, {live_in} live slots in (step {step}, the first attempt's "
+              f"widest), sigma={ctx.sigma}, m={ctx.m}",
+    )
+    run = lambda: search_queries(index, queries, **kw)  # noqa: E731
+    row["pass_ms"], row["pass_launches"] = kernel_device_total(run, "frontier_kernel")
+    print(f"frontier_step: {check.n} steps of chunk 0 equal to the plain step; widest {row['shape']}: device warm "
+          f"{row['ms']:.4f} / cold {row['cold_ms']:.4f} ms, call {row['call_ms']:.4f} ms, plain {row['plain_ms']:.3f} "
+          f"ms, bound {b:.5f} ms by {by}; a pass {row['pass_ms']:.2f} ms in {row['pass_launches']} launches", flush=True)
+
+    passes = timed_passes(run, rows, "approx")
+    dt = sorted(passes)[1]
+    out.update(passes_s=passes, pass_s=dt, reads_per_s=len(queries) / 2 / dt, profile=profile_pass(run))
+    busy = out["profile"]["device_busy_ms"]
+    print(f"approx path: {out['reads_per_s']:.1f} reads/s (median of 3: {dt * 1e3:.1f} ms), device busy {busy:.1f} ms "
+          f"({busy / (dt * 1e3) * 100:.1f}%)", flush=True)
+
+    # the CLI's --engine approx on the first APPROX_CLI_QUERIES strand queries
+    path = os.path.join(tmp, "approx_out.txt")
+    reset_launches()
+    wall, log = run_cli(["search", "-q", reads, "-i", fasta + ".idx", "-o", path, "-e", str(K), "-d", "lev",
+                         "--engine", "approx", "--limit_queries", str(APPROX_CLI_QUERIES)])
+    require_launches(LAUNCHES, ("frontier_step",), "CLI approx")
+    _, sha, lines = search_output(path, JAX_APPROX_CLI_SHA256, JAX_APPROX_CLI_LINES, "the CLI's --engine approx")
+    out["cli"] = dict(wall_s=wall, lines=lines, sha256=sha, stats=stats_block(log), launches=dict(LAUNCHES))
+    print(f"cli search --engine approx: {lines} lines equal the JAX CLI's, wall {wall:.2f} s", flush=True)
+    return out, row
+
+
+def sharded_phase(tmp: str, fasta: str, reads: str, queries: np.ndarray, sv_rows: np.ndarray,
+                  n_queries: np.ndarray, n_rows: np.ndarray) -> dict:
+    """The interval-sharded index: ``index --max_shard_mb 16`` of the
+    workload's reference, the CLI's ``search`` on it against the JAX CLI's,
+    then ``search_queries_sharded`` in process: resident (three timed passes
+    after a warm one, a profiled pass), swap (one pass, with each shard's
+    upload seconds), and the N reads, whose fallback is deferred to K5."""
+    from sahara_tpu_torch.engine.device import device_bytes
+    from sahara_tpu_torch.engine.driver import RESIDENT_MARGIN, search_queries_sharded
+    from sahara_tpu_torch.index.shard import ShardedIndex, load_any_index
+    from sahara_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    sdir = os.path.join(tmp, "sharded")
+    os.makedirs(sdir)
+    sfasta = os.path.join(sdir, "ref.fasta")
+    os.link(fasta, sfasta)
+    index_s, log = run_cli(["index", sfasta, "--max_shard_mb", str(SHARD_MB)])
+    sh = load_any_index(sfasta + ".idx")
+    if not isinstance(sh, ShardedIndex) or sh.num_shards != 3 or "  shards: 3" not in log:
+        raise AssertionError("index --max_shard_mb 16 did not write three shards")
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    resident_bytes = sum(device_bytes(h, include_rev=False) for h in sh.shards)
+    out = dict(index_s=index_s, index_stats=stats_block(log), shards_n=[h.n for h in sh.shards],
+               windows=[o.tolist() for o in sh.seq_off], resident_bytes=resident_bytes, free_bytes=free,
+               budget=free - RESIDENT_MARGIN, whole_shard_bytes=[device_bytes(h) for h in sh.shards])
+    print(f"sharded: index {index_s:.1f} s, {sh.num_shards} shards n={out['shards_n']} windows {out['windows']}; "
+          f"resident views {resident_bytes} B, free {free} B, budget {out['budget']} B (margin {RESIDENT_MARGIN} B)",
+          flush=True)
+
+    path = os.path.join(sdir, "out.txt")
+    reset_launches()
+    wall, log = run_cli(["search", "-q", reads, "-i", sfasta + ".idx", "-o", path, "-e", str(K), "-d", "lev"])
+    require_launches(LAUNCHES, ("rank_all", "seed_scan", "verify"), "CLI sharded search")
+    _, sha, lines = search_output(path, JAX_SHARD_SHA256, JAX_SHARD_LINES, "the CLI's sharded search")
+    if sha != JAX_CLI_SHA256:
+        raise AssertionError("the sharded CLI output differs from the unsharded JAX CLI output")
+    out["cli"] = dict(wall_s=wall, reads_per_s=len(queries) / 2 / wall, stats=stats_block(log),
+                      launches=dict(LAUNCHES), lines=lines, sha256=sha)
+    print(f"cli sharded search: {lines} lines, sha256 {sha} (JAX_SHARD_* and JAX_CLI_*), wall {wall:.2f} s; stats "
+          f"{json.dumps(out['cli']['stats'])}", flush=True)
+
+    kw = dict(k=K, edit=True, chunk=CHUNK)
+    sh = load_any_index(sfasta + ".idx")
+    reset_launches()
+    t0 = time.perf_counter()
+    res = search_queries_sharded(sh, queries, **kw)
+    torch.cuda.synchronize()
+    out["resident_first_s"] = time.perf_counter() - t0
+    out["resident_launches"] = dict(LAUNCHES)
+    require_launches(out["resident_launches"], ("rank_all", "seed_scan", "verify"), "sharded resident")
+    if sh.resident is None or not np.array_equal(sorted_rows(res), sv_rows):
+        raise AssertionError("the resident sharded search differs from the seed-and-verify rows")
+    run = lambda: search_queries_sharded(sh, queries, **kw)  # noqa: E731
+    run()
+    torch.cuda.reset_peak_memory_stats()
+    passes = timed_passes(run, sv_rows, "sharded resident")
+    dt = sorted(passes)[1]
+    out.update(resident_passes_s=passes, resident_pass_s=dt, resident_reads_per_s=len(queries) / 2 / dt,
+               resident_max_memory_allocated=torch.cuda.max_memory_allocated(), resident_profile=profile_pass(run))
+    busy = out["resident_profile"]["device_busy_ms"]
+    print(f"sharded resident: {out['resident_reads_per_s']:.1f} reads/s (median of 3: {dt * 1e3:.1f} ms), device busy "
+          f"{busy:.1f} ms ({busy / (dt * 1e3) * 100:.1f}%), first pass {out['resident_first_s']:.2f} s with the uploads, "
+          f"launches {json.dumps(out['resident_launches'])}, max_memory_allocated "
+          f"{out['resident_max_memory_allocated']} B", flush=True)
+
+    lines_cb: list[str] = []
+    reset_launches()
+    t0 = time.perf_counter()
+    res = search_queries_sharded(sh, queries, resident_budget=0, verbose_cb=lines_cb.append, **kw)
+    torch.cuda.synchronize()
+    out["swap_pass_s"] = time.perf_counter() - t0
+    out["swap_launches"] = dict(LAUNCHES)
+    out["swap_upload_s"] = [float(m.group(1)) for m in map(re.compile(r"uploaded in ([\d.]+)s").search, lines_cb) if m]
+    if len(out["swap_upload_s"]) != 3 or not np.array_equal(sorted_rows(res), sv_rows):
+        raise AssertionError("the swapped sharded search differs from the seed-and-verify rows")
+    print(f"sharded swap: one pass {out['swap_pass_s']:.2f} s ({len(queries) / 2 / out['swap_pass_s']:.1f} reads/s), "
+          f"uploads s {out['swap_upload_s']}, launches {json.dumps(out['swap_launches'])}", flush=True)
+
+    reset_launches()
+    res = search_queries_sharded(sh, n_queries, **kw)
+    out["fallback_launches"] = dict(LAUNCHES)
+    require_launches(out["fallback_launches"], ("workq_step",), "sharded deferred fallback")
+    if sh.resident is not None or not np.array_equal(sorted_rows(res), n_rows):
+        raise AssertionError("the sharded N reads differ from the unsharded auto rows")
+    print(f"sharded N reads: {len(n_rows)} rows equal the unsharded auto rows; the fallback went to K5 on whole shards "
+          f"({out['fallback_launches']['workq_step']} launches)", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1971,8 +2257,10 @@ def main() -> int:
         print(f"{row['name']}: {row['ms']:.4f} ms (plain {row['plain_ms']:.3f} ms, "
               f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}) at {row['shape']}", flush=True)
     index_bi, report["workq"] = workq_path(host, queries, rows)
-    report["fallback"] = fallback_phase(index_bi, queries, rows)
+    report["fallback"], n_queries, n_rows = fallback_phase(index_bi, queries, rows)
     report["sv_e1"] = sv_e1_phase(index_bi, ref, extra)
+    report["approx"], k8 = approx_phase(index_bi, queries, rows, tmp.name, fasta, reads)
+    kernels.append(dict(k8, registers=register_row(ptxas, "frontier", "frontier_kernelILi6ELb1E")))
     del index_bi
     # each kernel of the sv_e1 path: its figures there beside that path's launches
     e1_path, e1 = report["sv_e1"], report["sv_e1"]["hamming"]["k3h"]
@@ -1991,6 +2279,10 @@ def main() -> int:
     # phase cli: the search through the CLI, then the goldens
     report["cli"].update(search=cli_search_phase(tmp.name, fasta, reads, len(queries) // 2, rows, card),
                          goldens=cli_golden_phase(tmp.name))
+    # phase sharded: the interval-sharded index of the same reference
+    report["sharded"] = sharded_phase(tmp.name, fasta, reads, queries, rows, n_queries, n_rows)
+    kernels[0].update(sharded_launches=report["sharded"]["resident_launches"]["rank_all"],
+                      swap_launches=report["sharded"]["swap_launches"]["rank_all"])
 
     # phases uni and kmer: exact search through the CLI (K6, K7)
     report["uni"], k6, uni_k7 = uni_phase(tmp.name, fasta, card, extra)
@@ -2033,7 +2325,8 @@ def main() -> int:
                      "rank_all_smem": rank_bench_launches["rank_all_smem"],
                      "workq_step": report["workq"]["launches"]["workq_step"],
                      "exact_search": report["uni"]["launches"]["exact_search"],
-                     "lf_walk": report["kmer"]["launches"]["lf_walk"]}
+                     "lf_walk": report["kmer"]["launches"]["lf_walk"],
+                     "frontier_step": report["approx"]["launches"]["frontier_step"]}
     for row in kernels:
         row["launches"] = path_launches[row["name"]]
     report.update(card=card, kernels=kernels, total_s=time.perf_counter() - t_start,
@@ -2050,7 +2343,8 @@ def main() -> int:
     # version's; K5, K3 and K3h also at the sv_e1 path's shapes, beside that
     # path's launches; K6 also on the kmer path, K7 also on the uni path's
     # sampled walk
-    more = ("cold_ms", "call_ms", "old_ms", "old_cold_ms")
+    more = ("cold_ms", "call_ms", "old_ms", "old_cold_ms", "sharded_launches", "swap_launches", "pass_ms",
+            "pass_launches")
     more += tuple(f"{p}_{k}" for p in ("e1", "kmer", "uni") for k in (
         "launches", "max_abs_err", "ms", "cold_ms", "call_ms", "old_ms", "old_cold_ms", "plain_ms", "bound_ms",
         "bound_by"))

@@ -5,11 +5,11 @@ output, stats block.
 The counterpart of ``sahara_tpu/cli/search_cmd.py`` on one device.
 ``--device`` (default ``cuda``) is where the index is uploaded and searched;
 without a card the search commands raise unless ``--device cpu`` is given.
+``search`` on an interval-sharded index runs ``search_queries_sharded``.
 ``uni-search`` is exact search and locate on a unidirectional index (K6,
 and K7 where the index has no full suffix array).  What is not ported
-raises ``NotImplementedError`` naming its ROADMAP.md item: ``--engine
-approx`` (item 14), ``--devices`` above 1 and ``--mh_num_processes`` above
-1 (item 15), sharded indexes (item 13)."""
+raises ``NotImplementedError`` naming ROADMAP.md queue 1 item 15:
+``--devices`` above 1 and ``--mh_num_processes`` above 1."""
 
 from __future__ import annotations
 
@@ -24,11 +24,11 @@ import torch
 from sahara_tpu_torch.alphabet import D_DNA5, DR_DNA4, DR_DNA5, INVALID_RANK, by_sigma
 from sahara_tpu_torch.cli.common import format_hit_block, load_queries_ranked, write_hits
 from sahara_tpu_torch.engine.device import DeviceIndex, pad_queries, resolve_device
-from sahara_tpu_torch.engine.driver import SearchResult, _merge_results, search_queries
+from sahara_tpu_torch.engine.driver import SearchResult, _merge_results, search_queries, search_queries_sharded
 from sahara_tpu_torch.engine.exact import exact_search
 from sahara_tpu_torch.engine.locate import locate
 from sahara_tpu_torch.index.fmindex import load_index, peek_sigma
-from sahara_tpu_torch.index.shard import load_any_index, peek_index_kind
+from sahara_tpu_torch.index.shard import ShardedIndex, load_any_index, peek_index_kind
 from sahara_tpu_torch.io.fasta import NotSimpleFasta, iter_fasta_seq_matrix_blocks, read_fasta
 from sahara_tpu_torch.utils.errors import SaharaError
 from sahara_tpu_torch.utils.stopwatch import Timings
@@ -37,8 +37,6 @@ STREAM_MIN_BYTES = 128 << 20  # read files from this size stream by default
 
 
 def _refuse_unported(args) -> None:
-    if args.engine == "approx":
-        raise NotImplementedError("--engine approx (the frontier engine) is not ported; see ROADMAP.md queue 1 item 14")
     if args.devices > 1:
         raise NotImplementedError("--devices above 1 (multi-device search) is not ported; "
                                   "see ROADMAP.md queue 1 item 15")
@@ -110,7 +108,7 @@ def _try_stream_search(args, alphabet, dev) -> bool:
     if force != "1" and fsize < STREAM_MIN_BYTES:
         return False
     if peek_index_kind(args.index) == "sharded":
-        return False  # the buffered path names the unported container
+        return False  # the sharded driver has its own resident regime
     gen = iter_fasta_seq_matrix_blocks(args.query)
     try:
         first_mat = next(gen)
@@ -240,10 +238,15 @@ def cmd_search(args):
     print(f"fwd queries: {fwd}")
     print(f"bwd queries: {len(queries) - fwd}")
 
-    index = DeviceIndex.from_host(load_any_index(args.index), device=dev)
-    timing.mark("ld index")
-
-    result = search_queries(index, queries, verbose_cb=print, **_search_kw(args, dev, edit=args.distance_metric == "lev"))
+    host = load_any_index(args.index)
+    kw = _search_kw(args, dev, edit=args.distance_metric == "lev")
+    if isinstance(host, ShardedIndex):
+        timing.mark("ld index")
+        result = search_queries_sharded(host, queries, verbose_cb=print, **kw)
+    else:
+        index = DeviceIndex.from_host(host, device=dev)
+        timing.mark("ld index")
+        result = search_queries(index, queries, verbose_cb=print, **kw)
     timing.mark("search")
     timing.mark("locate")
 
@@ -315,6 +318,8 @@ def _rbi_search(args, alphabet, unknown_random_ranks: bool):
 
     _check_index_path(args.index)
     host = load_any_index(args.index)
+    if isinstance(host, ShardedIndex):
+        raise SaharaError(f"{args.index} is a sharded index; rbi search takes a plain one")
     index = DeviceIndex.from_host(host, device=dev)
     timing.mark("ld index")
 
@@ -371,7 +376,7 @@ def _add_search_flags(p, *, metric: bool, reverse: bool, limit: bool):
     p.add_argument("--engine", choices=["auto", "sv", "workq", "approx"], default="auto",
                    help="search engine: auto (seed-verify when eligible, else workq), "
                         "sv (seed-and-verify), workq (work-queue scheme engine), "
-                        "approx (frontier scheme engine; not ported: ROADMAP.md queue 1 item 14)")
+                        "approx (per-lane frontier scheme engine)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the index is uploaded and searched: the CUDA card (default) or the CPU")
     p.add_argument("--devices", type=int, default=0,

@@ -21,7 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from sahara_tpu_torch.engine.rank import pack_occ
+from sahara_tpu_torch.engine.rank import pack_occ, row_ints
 from sahara_tpu_torch.index.fmindex import BiFMIndex, FMIndex
 from sahara_tpu_torch.index.jmer import build_jmer_lut, pick_lut_j
 
@@ -134,6 +134,24 @@ class DeviceIndex:
             sigma_live=sigma_live,
             mirrored=mirrored,
         )
+
+
+def device_bytes(index: FMIndex, full_sa: bool = True, include_rev: bool = True) -> int:
+    """Bytes ``DeviceIndex.from_host(index, full_sa=..., include_rev=...)``
+    puts on the card: the occ rows at their device width, the reversed
+    table where it is stacked, the sampled suffix array, the packed text,
+    the sequence starts, the j-mer table and the full suffix array."""
+    n_words = index.occ.shape[0] * row_ints(index.sigma)
+    if isinstance(index, BiFMIndex) and index.occ_rev is not None and not index.mirrored and include_rev:
+        n_words *= 2
+    n_words += len(index.c_arr) + index.sampled.size + len(index.sample_seq) + len(index.sample_pos)
+    if index.text4 is not None:
+        n_words += index.text4.size + len(index.seq_lens)
+        if index.sigma <= 6:
+            n_words += 2 * 4 ** pick_lut_j(index.n)
+        if full_sa and index.sa_abs is not None:
+            n_words += index.sa_abs.size
+    return 4 * n_words
 
 
 def pad_queries(queries: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:

@@ -13,21 +13,26 @@ device.  Engines:
   merged, as the reference does.
 - ``workq`` (the scheme engine, ``engine/workq.py``) for every other bucket
   under ``auto``, and for every bucket under ``engine="workq"``.
+- ``approx`` (the frontier engine, ``engine/approx.py``) for every bucket
+  under ``engine="approx"``.
 
-What is not ported raises ``NotImplementedError`` naming its ROADMAP.md
-item: the frontier engine (item 14) and meshes (item 15).  Interval-sharded
-indexes (item 13) have no entry point in the port yet.
+``search_queries_sharded`` searches an interval-sharded index
+(``index/shard.py``) shard by shard and maps the rows back to global
+coordinates.  Meshes are not ported and raise ``NotImplementedError``
+naming ROADMAP.md queue 1 item 15.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
 from sahara_tpu_torch.engine import workq
-from sahara_tpu_torch.engine.device import DeviceIndex, resolve_device
+from sahara_tpu_torch.engine.approx import SearchHits, run_scheme_search_chunked
+from sahara_tpu_torch.engine.device import DeviceIndex, device_bytes, resolve_device
 from sahara_tpu_torch.engine.locate import expand_intervals, lf_walk
 from sahara_tpu_torch.engine.rank import ROW_INTS
 from sahara_tpu_torch.engine.seedverify import (
@@ -42,6 +47,8 @@ from sahara_tpu_torch.engine.seedverify import (
     sv_fused,
 )
 from sahara_tpu_torch.engine.tape import SchemeTape, compile_tape
+from sahara_tpu_torch.index.shard import ShardedIndex
+from sahara_tpu_torch.kernels.verify import MAX_K
 from sahara_tpu_torch.schemes import expand, get_generator, limit_to_hamming
 from sahara_tpu_torch.schemes.costs import node_count, optimize_by_wnc_topdown, weighted_node_count
 from sahara_tpu_torch.schemes.types import Scheme
@@ -300,29 +307,37 @@ def _run_workq_grouped(
     return _cap_hits_per_query(_merge_results(results), max_hits)
 
 
+def _run_sv(
+    index: DeviceIndex, qarr: np.ndarray, qids: np.ndarray, *, k: int, edit: bool, chunk: int,
+    timer: StageTimer | None,
+) -> tuple[SearchResult, np.ndarray]:
+    """Seed-and-verify over the bucket, with exact parts where they are
+    long enough and one-error parts otherwise.  Returns the rows and
+    bool[nq]: the queries it cannot search exactly alone (a seed over
+    ``PART_CAP``; under exact parts also N in a table-covered seed, which
+    the one-error plan's work-queue seeds search), which gave no rows."""
+    m = qarr.shape[1]
+    parts = plan_parts(m, k)
+    if parts is None:
+        return _run_sv_chunks(index, qarr, qids, k=k, edit=edit, chunk=chunk, run=_sv_e1_chunk,
+                              parts=plan_parts_e1(m, k), timer=timer)
+    bad = seed_bad_mask(index, qarr, parts)
+    fallback = np.zeros(qarr.shape[0], dtype=bool) if bad is None else bad.copy()
+    keep = np.flatnonzero(~fallback)
+    sv_q, sv_ids = (qarr, qids) if bad is None else (qarr[keep], qids[keep])
+    res, over = _run_sv_chunks(index, sv_q, sv_ids, k=k, edit=edit, chunk=chunk, run=sv_fused, parts=parts,
+                               timer=timer)
+    fallback[keep[over]] = True
+    return res, fallback
+
+
 def _run_sv_with_fallback(
     index: DeviceIndex, qarr: np.ndarray, qids: np.ndarray, *, k: int, edit: bool, chunk: int, scheme_kw: dict,
     timer: StageTimer | None, verbose_cb=None,
 ) -> SearchResult:
-    """Seed-and-verify over the bucket, with exact parts where they are
-    long enough and one-error parts otherwise; queries it cannot search
-    exactly alone (a seed over ``PART_CAP``; under exact parts also N in a
-    table-covered seed, which the one-error plan's work-queue seeds search)
-    go through the work-queue engine instead, and the row sets are
-    concatenated."""
-    m = qarr.shape[1]
-    parts = plan_parts(m, k)
-    if parts is None:
-        res, fallback = _run_sv_chunks(index, qarr, qids, k=k, edit=edit, chunk=chunk, run=_sv_e1_chunk,
-                                       parts=plan_parts_e1(m, k), timer=timer)
-    else:
-        bad = seed_bad_mask(index, qarr, parts)
-        fallback = np.zeros(qarr.shape[0], dtype=bool) if bad is None else bad.copy()
-        keep = np.flatnonzero(~fallback)
-        sv_q, sv_ids = (qarr, qids) if bad is None else (qarr[keep], qids[keep])
-        res, over = _run_sv_chunks(index, sv_q, sv_ids, k=k, edit=edit, chunk=chunk, run=sv_fused, parts=parts,
-                                   timer=timer)
-        fallback[keep[over]] = True
+    """``_run_sv``, with the queries it cannot search alone re-searched
+    through the work-queue engine; the row sets are concatenated."""
+    res, fallback = _run_sv(index, qarr, qids, k=k, edit=edit, chunk=chunk, timer=timer)
     if not fallback.any():
         return res
     if verbose_cb:
@@ -331,6 +346,41 @@ def _run_sv_with_fallback(
     res_fb = _run_workq_grouped(index, qarr[fallback], tape, qids[fallback], edit=edit, active=None,
                                 max_hits=0, chunk=chunk)
     return _concat([res, res_fb])
+
+
+def _locate_hits(index: DeviceIndex, hits: SearchHits, query_ids: np.ndarray, max_hits: int = 0) -> SearchResult:
+    """Expand a frontier-engine result's hit intervals to located rows:
+    query-major, then search, then hit discovery order, then SA row; at
+    most ``max_hits`` rows a query (0: all) in that order."""
+    h_cap = hits.lb.shape[2]
+    valid = torch.arange(h_cap, device=hits.lb.device) < hits.count[:, :, None]
+    q_idx = torch.nonzero(valid)[:, 0]
+    if q_idx.numel() == 0:
+        return _empty()
+    lb, sz, err = hits.lb[valid], hits.sz[valid], hits.err[valid]
+    rows, src, ok, _ = expand_intervals(lb, sz, int(sz.sum(dtype=torch.int64)))
+    seq_id, pos = lf_walk(index, rows, ok)
+    src, seq_id, pos, q_of, err_of = (t.cpu().numpy().astype(np.int64) for t in (src, seq_id, pos, q_idx[src],
+                                                                                 err[src]))
+    result = SearchResult(query_id=query_ids[q_of].astype(np.int64), seq_id=seq_id, pos=pos, errors=err_of)
+    return _cap_hits_per_query(result, max_hits)
+
+
+def _run_scheme_engine(
+    index: DeviceIndex, qarr: np.ndarray, tape: SchemeTape, qids: np.ndarray, *, engine: str, edit: bool,
+    active: np.ndarray | None, max_hits: int, chunk: int, s_cap: int, h_cap: int,
+) -> SearchResult:
+    """One tape through the work-queue engine or the frontier engine
+    (``engine="approx"``); the frontier engine raises ``RuntimeError`` when
+    a lane still overflows its buffers after the retries."""
+    if engine == "workq":
+        return _run_workq_grouped(index, qarr, tape, qids, edit=edit, active=active, max_hits=max_hits, chunk=chunk)
+    hits = run_scheme_search_chunked(index, qarr, tape, edit=edit, active=active, s_cap=s_cap, h_cap=h_cap,
+                                     chunk=chunk)
+    if hits.any_overflow:
+        raise RuntimeError("scheme search overflowed its frontier/hit buffers after retries; "
+                           "hits would be silently dropped")
+    return _locate_hits(index, hits, qids, max_hits=max_hits)
 
 
 def search_queries(
@@ -343,6 +393,8 @@ def search_queries(
     mode: str = "all",
     max_hits: int = 0,
     dynamic: bool = False,
+    s_cap: int = 64,
+    h_cap: int = 32,
     chunk: int = 16384,
     engine: str = "auto",
     query_ids: np.ndarray | None = None,
@@ -355,8 +407,10 @@ def search_queries(
     one 2-D array of equal-length queries) against a device index.
 
     ``engine``: ``auto`` (seed-and-verify where it applies, else the
-    work-queue engine), ``sv`` or ``workq``.  ``generator_name`` and
-    ``dynamic`` choose the work-queue engine's search scheme.  ``device``
+    work-queue engine), ``sv``, ``workq`` or ``approx`` (the frontier
+    engine, whose first frontier and hit buffers hold ``s_cap`` and
+    ``h_cap`` states a lane).  ``generator_name`` and ``dynamic`` choose the
+    scheme engines' search scheme.  ``device``
     (default: the CUDA card) must be the index's device.  ``timer``
     collects the seed-and-verify stages' milliseconds.  ``verbose_cb``
     gets a line per bucket (its engine) and the schemes' node counts.
@@ -364,10 +418,8 @@ def search_queries(
     dev = resolve_device(device)
     if index.device.type != dev.type:
         raise ValueError(f"index lies on {index.device}, search asked for {dev}")
-    if engine not in ("auto", "sv", "workq"):
-        raise NotImplementedError(
-            f"engine {engine!r} is not ported; the frontier engine is ROADMAP.md queue 1 item 14"
-        )
+    if engine not in ("auto", "sv", "workq", "approx"):
+        raise ValueError(f"unknown search engine {engine!r}")
     if mesh is not None:
         raise NotImplementedError("multi-device search is not ported; see ROADMAP.md queue 1 item 15")
     if mode not in ("all", "besthits"):
@@ -405,9 +457,11 @@ def search_queries(
                 "seed-verify engine not applicable (index lacks a text store, "
                 f"or parts too short for m={length}, k={k})"
             )
+        bucket_engine = "workq" if engine == "auto" else engine
         if verbose_cb:
-            verbose_cb(f"engine: {'seed-verify' if use_sv else 'workq'} (single-device, m={length}, "
+            verbose_cb(f"engine: {'seed-verify' if use_sv else bucket_engine} (single-device, m={length}, "
                        f"{len(qarr)} queries)")
+        run = dict(engine=bucket_engine, edit=edit, max_hits=max_hits, chunk=chunk, s_cap=s_cap, h_cap=h_cap)
         if use_sv:
             res = _run_sv_with_fallback(index, qarr, qids, k=k, edit=edit, chunk=chunk, scheme_kw=scheme_kw,
                                         timer=timer, verbose_cb=verbose_cb)
@@ -421,8 +475,7 @@ def search_queries(
         elif mode == "all":
             tape = compile_tape(load_scheme(min_k=0, max_k=k, length=length, edit=edit, verbose_cb=verbose_cb,
                                             **scheme_kw))
-            results.append(_run_workq_grouped(index, qarr, tape, qids, edit=edit, active=None,
-                                              max_hits=max_hits, chunk=chunk))
+            results.append(_run_scheme_engine(index, qarr, tape, qids, active=None, **run))
         else:
             # strata j = 0..k: a query stops at the first stratum with hits
             active = np.ones(len(qarr), dtype=bool)
@@ -431,8 +484,166 @@ def search_queries(
                     break
                 tape = compile_tape(load_scheme(min_k=j, max_k=j, length=length, edit=edit, verbose_cb=verbose_cb,
                                                 **scheme_kw))
-                res = _run_workq_grouped(index, qarr, tape, qids, edit=edit, active=active,
-                                         max_hits=max_hits, chunk=chunk)
+                res = _run_scheme_engine(index, qarr, tape, qids, active=active, **run)
                 results.append(res)
                 active &= ~np.isin(qids, res.query_id)
     return _merge_results(results)
+
+
+# Card memory the resident regime leaves free beside the shards' views, for
+# the search's own workspace (PERF.md states what a pass takes).
+RESIDENT_MARGIN = 4 << 30
+
+
+def _shard_to_global(res: SearchResult, sharded: ShardedIndex, i: int) -> SearchResult:
+    gid = sharded.seq_gid[i][res.seq_id]
+    pos = res.pos + sharded.seq_off[i][res.seq_id]
+    return SearchResult(res.query_id, gid.astype(np.int64), pos.astype(np.int64), res.errors)
+
+
+def _resident_views(sharded: ShardedIndex, dev: torch.device, budget: int | None, verbose_cb=None) -> list | None:
+    """The seed-and-verify views of every shard on ``dev`` (no reversed
+    table), uploaded once and kept on ``sharded``; None when their bytes
+    exceed ``budget`` (None: no limit)."""
+    total = sum(device_bytes(h, include_rev=False) for h in sharded.shards)
+    if budget is not None and total > budget:
+        return None
+    if sharded.resident is not None and sharded.resident[0].device.type == dev.type:
+        return sharded.resident
+    if verbose_cb:
+        verbose_cb(f"resident SV views: {sharded.num_shards} shards, {total / 1e9:.1f}GB (no shard swapping)")
+    sharded.resident = [DeviceIndex.from_host(h, device=dev, include_rev=False) for h in sharded.shards]
+    return sharded.resident
+
+
+def _free_card(dev: torch.device) -> None:
+    """Return the blocks freed tensors held to the card, so that
+    ``mem_get_info`` and the next upload see them."""
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def search_queries_sharded(
+    sharded: ShardedIndex,
+    queries,
+    *,
+    query_ids: np.ndarray | None = None,
+    device=None,
+    resident_budget: int | None = None,
+    verbose_cb=None,
+    **kw,
+) -> SearchResult:
+    """Search an interval-sharded index (``index/shard.py``): each shard's
+    rows map back through its (global seqId, window offset) tables, and the
+    merge keeps one row of each hit found in two overlapping windows.
+    ``kw`` are ``search_queries``' keywords.
+
+    Two regimes:
+
+    - resident: where the bucket is one length, the engine ``auto`` or
+      ``sv``, exact seed parts apply and every shard has a text store, the
+      seed-and-verify views of all shards (no reversed table) are uploaded
+      once, kept on ``sharded.resident``, and searched without swapping.
+      The queries seed-and-verify cannot search alone are deferred: the
+      views are freed, then each shard concerned is uploaded whole and
+      they are searched by the work-queue engine.  ``max_hits`` caps the
+      merged rows.
+    - swap: otherwise, or where the views' bytes exceed the budget, one
+      whole shard at a time is uploaded and searched by ``search_queries``
+      (one stream: a shard's search queues behind its copy).  ``max_hits``
+      caps each shard's rows, so a query can get up to ``max_hits`` rows
+      from each shard.
+
+    ``resident_budget`` is the card memory the views may take: by default
+    the free memory less ``RESIDENT_MARGIN`` on a card, no limit on the CPU.
+    ``verbose_cb`` also gets each swapped shard's upload seconds."""
+    dev = resolve_device(device)
+    k, mode, engine = kw.get("k", 0), kw.get("mode", "all"), kw.get("engine", "auto")
+    lengths = {queries.shape[1]} if isinstance(queries, np.ndarray) else {len(q) for q in queries}
+    sv_ok = (
+        len(lengths) == 1
+        and engine in ("auto", "sv")
+        and mode in ("all", "besthits")
+        and k <= MAX_K
+        and all(h.text4 is not None for h in sharded.shards)
+        and plan_parts(next(iter(lengths)), k) is not None
+    )
+    if sv_ok:
+        budget = resident_budget
+        if budget is None and dev.type == "cuda" and sharded.resident is None:
+            _free_card(dev)
+            budget = torch.cuda.mem_get_info(dev)[0] - RESIDENT_MARGIN
+        if _resident_views(sharded, dev, budget, verbose_cb) is not None:
+            return _search_sharded_resident(sharded, queries, query_ids=query_ids, dev=dev, verbose_cb=verbose_cb,
+                                            **kw)
+
+    parts: list[SearchResult] = []
+    for i, host in enumerate(sharded.shards):
+        if verbose_cb:
+            verbose_cb(f"shard {i + 1}/{sharded.num_shards}: n={host.n}")
+        t0 = time.perf_counter()
+        index = DeviceIndex.from_host(host, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        if verbose_cb:
+            verbose_cb(f"shard {i + 1}: uploaded in {time.perf_counter() - t0:.3f}s")
+        res = search_queries(index, queries, query_ids=query_ids, device=dev, verbose_cb=verbose_cb, **kw)
+        del index
+        _free_card(dev)
+        parts.append(_shard_to_global(res, sharded, i))
+    merged = _merge_results(parts)
+    # each shard's best hits hold its own least error: filter again after the merge
+    return _besthits_filter(merged) if mode == "besthits" else merged
+
+
+def _search_sharded_resident(
+    sharded: ShardedIndex,
+    queries,
+    *,
+    query_ids: np.ndarray | None,
+    dev: torch.device,
+    verbose_cb,
+    k: int = 0,
+    generator_name: str = "h2-k2",
+    edit: bool = True,
+    mode: str = "all",
+    max_hits: int = 0,
+    dynamic: bool = False,
+    chunk: int = 16384,
+    timer: StageTimer | None = None,
+    **_ignored,
+) -> SearchResult:
+    """The resident regime of ``search_queries_sharded``."""
+    qarr = (np.ascontiguousarray(queries, dtype=np.uint8) if isinstance(queries, np.ndarray)
+            else np.stack(queries).astype(np.uint8, copy=False))
+    m = qarr.shape[1]
+    qids = np.arange(len(qarr), dtype=np.int64) if query_ids is None else np.asarray(query_ids, dtype=np.int64)
+    parts: list[SearchResult] = []
+    fallback: list[np.ndarray] = []
+    for i in range(sharded.num_shards):
+        if verbose_cb:
+            verbose_cb(f"shard {i + 1}/{sharded.num_shards} (resident): n={sharded.shards[i].n}")
+        res, fb = _run_sv(sharded.resident[i], qarr, qids, k=k, edit=edit, chunk=chunk, timer=timer)
+        fallback.append(fb)
+        parts.append(_shard_to_global(res, sharded, i))
+    if any(fb.any() for fb in fallback):
+        # a whole shard also holds the reversed table: free the views first, so that it fits where they did
+        sharded.resident = None
+        _free_card(dev)
+        for i, fb in enumerate(fallback):
+            if not fb.any():
+                continue
+            if verbose_cb:
+                verbose_cb(f"shard {i + 1}: {int(fb.sum())} repeat-saturated queries re-searched via the scheme "
+                           "engine (full index swap-in)")
+            full = DeviceIndex.from_host(sharded.shards[i], device=dev)
+            tape = compile_tape(load_scheme(generator_name, 0, k, m, edit=edit, sigma=full.sigma, n_text=full.n,
+                                            dynamic=dynamic))
+            res_fb = _run_workq_grouped(full, qarr, tape, qids, edit=edit, active=fb, max_hits=0, chunk=chunk)
+            del full
+            _free_card(dev)
+            parts.append(_shard_to_global(res_fb, sharded, i))
+    merged = _merge_results(parts)
+    if mode == "besthits":
+        merged = _besthits_filter(merged)
+    return _cap_hits_per_query(merged, max_hits)

@@ -22,7 +22,7 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-KERNEL_SOURCES = ("rank", "seed", "verify", "rank_smem", "workq", "exact", "lf_walk")
+KERNEL_SOURCES = ("rank", "seed", "verify", "rank_smem", "workq", "exact", "lf_walk", "frontier")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

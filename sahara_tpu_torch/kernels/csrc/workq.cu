@@ -144,34 +144,6 @@ __device__ uint64_t look_back(const unsigned long long* status, int64_t tile, ui
     }
 }
 
-// rank-all at lo and hi on one table: the occ rows' vectors that hold the sigma checkpoints and bit
-// planes (at most eight 16 B loads) are all started first.
-template <int SIGMA>
-__device__ __forceinline__ void rank_pair(const int32_t* __restrict__ table, int32_t lo, int32_t hi,
-                                          int32_t r_lo[SIGMA], int32_t r_hi[SIGMA]) {
-    constexpr int kVecs = (2 * SIGMA + 3) / 4;
-    const int4* a = reinterpret_cast<const int4*>(table + static_cast<int64_t>(lo >> 5) * sahara::kRowInts);
-    const int4* b = reinterpret_cast<const int4*>(table + static_cast<int64_t>(hi >> 5) * sahara::kRowInts);
-    int4 va[kVecs], vb[kVecs];
-#pragma unroll
-    for (int v = 0; v < kVecs; ++v) {
-        va[v] = __ldg(a + v);
-        vb[v] = __ldg(b + v);
-    }
-    int32_t ra[4 * kVecs], rb[4 * kVecs];
-#pragma unroll
-    for (int v = 0; v < kVecs; ++v) {
-        ra[4 * v] = va[v].x, ra[4 * v + 1] = va[v].y, ra[4 * v + 2] = va[v].z, ra[4 * v + 3] = va[v].w;
-        rb[4 * v] = vb[v].x, rb[4 * v + 1] = vb[v].y, rb[4 * v + 2] = vb[v].z, rb[4 * v + 3] = vb[v].w;
-    }
-    const uint32_t mask_lo = (1u << (lo & 31)) - 1u, mask_hi = (1u << (hi & 31)) - 1u;
-#pragma unroll
-    for (int s = 0; s < SIGMA; ++s) {
-        r_lo[s] = ra[s] + __popc(static_cast<uint32_t>(ra[SIGMA + s]) & mask_lo);
-        r_hi[s] = rb[s] + __popc(static_cast<uint32_t>(rb[SIGMA + s]) & mask_hi);
-    }
-}
-
 template <int SIGMA, bool EDIT, bool DRAIN>
 __global__ void __launch_bounds__(kThreads) step_kernel(const Params p) {
     // children staging: lb | lbr | sz | meta, kThreads * e_used each; then on drain steps the hits
@@ -232,7 +204,7 @@ __global__ void __launch_bounds__(kThreads) step_kernel(const Params p) {
         const int32_t primary = side ? lbr : lb;
         const int32_t secondary = side ? lb : lbr;
         int32_t r_lo[SIGMA], r_hi[SIGMA];
-        rank_pair<SIGMA>(p.occ16 + static_cast<int64_t>(side ? p.rev_off : 0) * sahara::kRowInts, primary,
+        sahara::rank_pair<SIGMA>(p.occ16 + static_cast<int64_t>(side ? p.rev_off : 0) * sahara::kRowInts, primary,
                          primary + size, r_lo, r_hi);
         int32_t prefix = 0;
 #pragma unroll

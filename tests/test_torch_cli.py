@@ -26,8 +26,7 @@ from test_conformance import CASES, GOLDEN_DIR
 
 import chip_smoke
 from sahara_tpu.cli.main import main as jax_main
-from sahara_tpu.index.shard import build_sharded_bifmindex, save_sharded
-from sahara_tpu_torch.cli import search_cmd
+from sahara_tpu_torch.cli import index_cmd, search_cmd
 from sahara_tpu_torch.cli.main import main
 from sahara_tpu_torch.index.fmindex import FastNpz
 from sahara_tpu_torch.io.fasta import FastaRecord, iter_fasta_seq_matrix_blocks, read_fasta, write_fasta
@@ -345,21 +344,82 @@ def test_stream_falls_back_on_a_later_ragged_record(corpus, two_line_reads, tmp_
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["index", "{ref}", "--max_shard_mb", "1"], 13),
-    (["search", "-q", "{reads}", "-i", "{sharded}", "--device", "cpu"], 13),
-    (["search", "-q", "{reads}", "-i", "{ref}.idx", "--device", "cpu", "--engine", "approx"], 14),
     (["search", "-q", "{reads}", "-i", "{ref}.idx", "--device", "cpu", "--devices", "2"], 15),
     (["search", "-q", "{reads}", "-i", "{ref}.idx", "--device", "cpu", "--mh_num_processes", "2"], 15),
     (["rbi-search", "-q", "{reads}", "-i", "{ref}.rbi.idx", "--device", "cpu", "--devices", "4"], 15),
-], ids=["max_shard_mb", "sharded", "approx", "devices", "mh", "rbi-devices"])
+], ids=["devices", "mh", "rbi-devices"])
 def test_unported_routes_raise(corpus, tmp_path, argv, item):
     tmp, ref = corpus
-    sharded = str(tmp_path / "sharded.idx")
-    seqs = [np.random.default_rng(5).integers(1, 5, n).astype(np.uint8) for n in (1000, 300)]
-    save_sharded(sharded, build_sharded_bifmindex(seqs, 6, "d_dna5", max_chars=400, overlap=64))
-    fill = dict(reads=str(tmp / "r1.fasta"), ref=ref, sharded=sharded)
+    fill = dict(reads=str(tmp / "r1.fasta"), ref=ref)
     with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md queue 1 item {item}\b"):
         _quiet(main, [a.format(**fill) for a in argv])
+
+
+SHARD_MB = "0.0008"  # 800 chars a shard: the corpus's 700-char record alone, then the two others
+
+
+@pytest.fixture(scope="module")
+def sharded_corpus(corpus, tmp_path_factory):
+    """The corpus's reference indexed with --max_shard_mb by each package's
+    CLI, each in its own directory."""
+    _, ref = corpus
+    out = {}
+    for side, fn in (("port", main), ("jax", jax_main)):
+        d = tmp_path_factory.mktemp(f"sharded_{side}")
+        out[side] = str(d / "ref.fasta")
+        with open(ref, "rb") as src, open(out[side], "wb") as dst:
+            dst.write(src.read())
+        rc, log = _quiet(fn, ["index", out[side], "--max_shard_mb", SHARD_MB])
+        assert rc == 0 and "  shards: 2" in log
+    return out
+
+
+def test_sharded_index_file_equals_jax(sharded_corpus):
+    assert filecmp.cmp(sharded_corpus["port"] + ".idx", sharded_corpus["jax"] + ".idx", shallow=False)
+
+
+@pytest.mark.parametrize("name,reads,flags", [c for c in CASES if c[0] in ("e1_lev_optimum.txt", "e2_ham_pigeonopt.txt")],
+                         ids=["e1_lev_optimum", "e2_ham_pigeonopt"])
+def test_search_on_sharded_index_equals_jax(corpus, sharded_corpus, tmp_path, name, reads, flags):
+    """``search`` on the sharded container: the port's output equals the JAX
+    CLI's on it, and both the golden of the unsharded index."""
+    tmp, _ = corpus
+    outs = []
+    for fn, extra in ((main, ["--device", "cpu"]), (jax_main, [])):
+        outs.append(tmp_path / f"out{len(outs)}.txt")
+        rc, log = _quiet(fn, ["search", "-q", str(tmp / f"{reads}.fasta"), "-i", sharded_corpus["port"] + ".idx",
+                              "-o", str(outs[-1])] + flags + extra)
+        assert rc == 0 and "shard 2/2" in log
+    assert outs[0].read_text() == outs[1].read_text() == _golden(name)
+
+
+def test_index_shards_by_itself_from_the_text_limit(corpus, sharded_corpus, tmp_path, monkeypatch):
+    """A text of SHARD_TEXT_CHARS characters or more takes the sharded
+    container without --max_shard_mb (limit and shard budget patched small:
+    the file then equals the --max_shard_mb one)."""
+    _, ref = corpus
+    monkeypatch.setattr(index_cmd, "SHARD_TEXT_CHARS", 1000)
+    monkeypatch.setattr(index_cmd, "DEFAULT_MAX_CHARS", int(float(SHARD_MB) * 1_000_000))
+    local = tmp_path / "ref.fasta"
+    local.write_bytes(open(ref, "rb").read())
+    rc, log = _quiet(main, ["index", str(local)])
+    assert rc == 0 and "  shards: 2" in log
+    assert filecmp.cmp(str(local) + ".idx", sharded_corpus["jax"] + ".idx", shallow=False)
+
+
+@pytest.mark.parametrize("name,reads,flags", [c for c in CASES if c[0] in ("e1_lev_optimum.txt", "e2_lev_besthits.txt")],
+                         ids=["e1_lev_optimum", "e2_lev_besthits"])
+def test_search_engine_approx_equals_jax(corpus, tmp_path, name, reads, flags):
+    """``--engine approx`` on a golden's inputs: the port's output equals the
+    JAX CLI's, and the golden."""
+    tmp, ref = corpus
+    outs = []
+    for fn, extra in ((main, ["--device", "cpu"]), (jax_main, [])):
+        outs.append(tmp_path / f"out{len(outs)}.txt")
+        rc, log = _quiet(fn, ["search", "-q", str(tmp / f"{reads}.fasta"), "-i", ref + ".idx", "-o", str(outs[-1]),
+                              "--engine", "approx"] + flags + extra)
+        assert rc == 0 and "engine: approx" in log
+    assert outs[0].read_text() == outs[1].read_text() == _golden(name)
 
 
 def test_search_without_card_raises(corpus, tmp_path, monkeypatch):

@@ -103,9 +103,10 @@ def test_part_cap_overflow_raises(indexes, monkeypatch):
 
 @pytest.mark.parametrize("route", ["frontier", "mesh", "sv_short"])
 def test_unported_routes_raise(indexes, route):
-    """The frontier engine and meshes are not ported; seed-and-verify
-    refuses reads too short even for one-error parts (16 chars at k=2: two
-    parts of 8), as the reference does."""
+    """Meshes are not ported; the frontier engine is ``approx``, and any
+    other engine name is refused; seed-and-verify refuses reads too short
+    even for one-error parts (16 chars at k=2: two parts of 8), as the
+    reference does."""
     seqs, jdev, _, pdev = indexes
     kw = dict(k=2, device="cpu")
     if route == "frontier":
@@ -115,7 +116,9 @@ def test_unported_routes_raise(indexes, route):
     else:
         kw["engine"] = "sv"
     queries = [np.asarray(seqs[0][: 16 if route == "sv_short" else M], dtype=np.uint8)]
-    with pytest.raises(ValueError if route == "sv_short" else NotImplementedError):
+    with pytest.raises(NotImplementedError if route == "mesh" else ValueError,
+                       match={"frontier": "unknown search engine 'frontier'", "mesh": "item 15",
+                              "sv_short": "seed-verify engine not applicable"}[route]):
         search_queries(pdev, queries, **kw)
     if route == "sv_short":
         with pytest.raises(ValueError, match="seed-verify engine not applicable"):

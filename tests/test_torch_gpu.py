@@ -15,20 +15,22 @@ import pytest
 import torch
 
 from sahara_tpu_torch.cli.main import main as cli_main
-from sahara_tpu_torch.engine import workq
+from sahara_tpu_torch.engine import approx, seedverify, workq
 from sahara_tpu_torch.engine.device import DeviceIndex
-from sahara_tpu_torch.engine.driver import load_scheme, search_queries
+from sahara_tpu_torch.engine.driver import load_scheme, search_queries, search_queries_sharded
 from sahara_tpu_torch.engine.exact import exact_search as engine_exact_search
 from sahara_tpu_torch.engine.locate import locate
 from sahara_tpu_torch.engine.rank import lf, sampled_bit
 from sahara_tpu_torch.engine.seedverify import plan_parts
 from sahara_tpu_torch.engine.tape import compile_tape
 from sahara_tpu_torch.index.build import build_bifmindex, build_fmindex
+from sahara_tpu_torch.index.shard import build_sharded_bifmindex
 from sahara_tpu_torch.index.jmer import pick_lut_j
 from sahara_tpu_torch.index.textstore import unpack_text4
 from sahara_tpu_torch.io.fasta import FastaRecord, write_fasta
 from sahara_tpu_torch.kernels import LAUNCHES
 from sahara_tpu_torch.kernels.exact import exact_search, exact_search_plain, table_start
+from sahara_tpu_torch.kernels.frontier import SZ, frontier_step_plain
 from sahara_tpu_torch.kernels.lf_walk import lf_walk, lf_walk_plain
 from sahara_tpu_torch.kernels.rank import rank_all, rank_all_plain
 from sahara_tpu_torch.kernels.rank_smem import (
@@ -699,3 +701,90 @@ def test_exact_locate_on_card_matches_cpu(exact_host):
                  for ix in (DeviceIndex.from_host(host, device=dev, full_sa=False),
                             DeviceIndex.from_host(host, device="cpu", full_sa=False)))
     assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want)) and want[0].shape[0] >= 3000
+
+
+@pytest.fixture(scope="module", params=[(6, False), (5, False), (6, True)], ids=["sigma6", "sigma5", "mirrored"])
+def frontier_host(request):
+    """A bidirectional index at sigma 6 (DNA with N) or 5 (DNA), or a
+    mirrored one (each sequence and its reverse), and reads of 40 chars."""
+    sigma, mirrored = request.param
+    rng = np.random.default_rng(79)
+    seqs = [rng.integers(1, 5, int(rng.integers(200, 1500))).astype(np.uint8) for _ in range(10)]
+    seqs[4][:300] = seqs[1][-300:]  # a repeat
+    queries = _reads(seqs, rng, 300, 40, 2)
+    if mirrored:
+        seqs = seqs + [x[::-1].copy() for x in seqs]
+    alphabet = "d_dna5" if sigma == 6 else "d_dna4"
+    return build_bifmindex(seqs, sigma, alphabet, mirrored=mirrored), seqs, queries
+
+
+@pytest.mark.parametrize("edit,caps", [(True, (64, 32)), (False, (64, 32)), (True, (2, 1))],
+                         ids=["edit", "hamming", "overflow"])
+def test_frontier_step_kernel_matches_plain(frontier_host, monkeypatch, edit, caps):
+    """K8 against its plain version at every step of a real search (every
+    attempt of the retry ladder): the live slots of the next frontier, the
+    hit buffers, the hit counts and the overflow flags."""
+    dev = _card()
+    idx_host, _, queries = frontier_host
+    index = DeviceIndex.from_host(idx_host, device=dev)
+    tape = compile_tape(load_scheme("optimum", 0, 2, 40, edit=edit, sigma=index.sigma, n_text=idx_host.n))
+    kernel = approx.frontier_step
+    seen = dict(steps=0, hits=0, overflow=0)
+
+    def check(ctx, state, out, hits, hit_cnt, flags):
+        want = [out.clone(), hits.clone(), hit_cnt.clone(), flags.clone()]
+        before = LAUNCHES["frontier_step"]
+        kernel(ctx, state, out, hits, hit_cnt, flags)
+        torch.cuda.synchronize()
+        assert LAUNCHES["frontier_step"] == before + 1
+        frontier_step_plain(ctx, state, *want)
+        live = out[SZ] > 0
+        assert torch.equal(live, want[0][SZ] > 0)
+        assert torch.equal(torch.where(live, out, 0), torch.where(live, want[0], 0))
+        assert all(torch.equal(a, b) for a, b in zip((hits, hit_cnt, flags), want[1:]))
+        seen.update(steps=seen["steps"] + 1, hits=int(hit_cnt.sum()), overflow=seen["overflow"] + int(flags.sum()))
+
+    monkeypatch.setattr(approx, "frontier_step", check)
+    approx.run_scheme_search(index, queries, tape, edit=edit, s_cap=caps[0], h_cap=caps[1])
+    assert seen["steps"] >= 41 and seen["hits"] >= 250
+    assert seen["overflow"] > 0 or caps != (2, 1)
+
+
+@pytest.mark.parametrize("kw", [dict(edit=True), dict(edit=False), dict(edit=True, max_hits=2, mode="besthits")],
+                         ids=["edit", "hamming", "besthits_max_hits"])
+def test_approx_search_on_card_matches_cpu(frontier_host, kw):
+    """search_queries(engine="approx") on the card against the CPU, with
+    several chunks; max_hits keeps the same rows because K8 finds a lane's
+    hits in the plain version's order."""
+    dev = _card()
+    idx_host, _, queries = frontier_host
+    args = dict(k=2, engine="approx", generator_name="optimum", chunk=128, **kw)
+    want = search_queries(DeviceIndex.from_host(idx_host, device="cpu"), queries, device="cpu", **args)
+    before = LAUNCHES["frontier_step"]
+    got = search_queries(DeviceIndex.from_host(idx_host, device=dev), queries, **args)
+    assert LAUNCHES["frontier_step"] > before
+    assert got.rows() == want.rows() and len(want.rows()) >= 250
+
+
+@pytest.mark.parametrize("regime", ["resident", "swap", "fallback"])
+def test_sharded_search_on_card_matches_cpu(bihost, monkeypatch, regime):
+    """search_queries_sharded on the card against the CPU: shards of at most
+    4,000 chars, one sequence split into windows; the fallback case sends
+    every query from the resident views to the work-queue engine (K5)."""
+    dev = _card()
+    _, seqs = bihost
+    seqs = seqs + [np.concatenate(seqs[:4])]  # a sequence longer than a shard
+    queries = _reads(seqs, np.random.default_rng(13), 300, 50, 2)
+    if regime == "fallback":
+        monkeypatch.setattr(seedverify, "PART_CAP", 0)
+    budget = 0 if regime == "swap" else None
+    runs = []
+    for d in ("cpu", dev):
+        sh = build_sharded_bifmindex(seqs, 6, "d_dna5", max_chars=4000, overlap=256)
+        assert len(sh.windowed_gids) == 1
+        before = dict(LAUNCHES)
+        runs.append(search_queries_sharded(sh, queries, k=2, device=d, resident_budget=budget).rows())
+        assert (sh.resident is not None) == (regime == "resident")
+    kernel = {"resident": "verify", "swap": "verify", "fallback": "workq_step"}[regime]
+    assert LAUNCHES[kernel] > before[kernel]
+    assert runs[0] == runs[1] and len(runs[0]) >= 300
