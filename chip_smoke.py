@@ -6,7 +6,7 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
 
 1. prints the card's name and power limit, builds the eight CUDA kernels
    from ``sahara_tpu_torch/kernels/csrc``, the first versions of the K1, K4,
-   K3h, K6 and K7 kernels (``LEGACY_SOURCES``) and their design variants
+   K3h, K6, K7 and K8 kernels (``LEGACY_SOURCES``) and their design variants
    (``DESIGN_VARIANTS``), all nvcc runs at once, and prints each kernel's
    registers;
 2. regenerates the ``bench.py`` workload from its seeds (40 MB reference,
@@ -76,9 +76,15 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
    workload on the same upload, the rows of its first 16,384 queries
    against the JAX package's (``JAX_APPROX_PREFIX_*``) and the whole row
    set beside seed-and-verify's, the difference printed; K8 against its
-   plain step at every step of the first chunk's first attempt, timed on
-   the widest of them (warm, cold, call, plain, bound) and over a pass;
-   the attempts (retries), three timed passes, a profiled pass; the CLI's
+   plain step (live counts included) at every step of the first chunk's
+   first attempt and of a whole pass (the retry searches' per-query caps
+   included), timed on the widest step of chunk 0 (warm, cold, call,
+   plain, the least-work bound and the first design's) beside its first
+   version and its design variants (``frontier_lanes``, each also over a
+   pass whose rows are held to the kept kernel's), and over a pass; each
+   search (caps, lanes, overflowing lanes: the retries
+   search only the overflowing queries, pooled across chunks), three
+   timed passes, a profiled pass and its syncs; the CLI's
    ``search --engine approx`` of the first 4,096 strand queries against the
    JAX CLI's (``JAX_APPROX_CLI_*``);
 10. phase ``cli`` goes on, the CLI run in this process (``run_cli``) so
@@ -341,15 +347,21 @@ inline int balanced_block(int64_t threads) {
 }  // namespace sahara
 """
 
-# The first versions of the K1, K4, K3h, K6 and K7 kernels (``rank.cu`` and
-# ``rank_smem.cu`` before their redesign, ``occ.cuh``'s ``load_row``
+# The first versions of the K1, K4, K3h, K6, K7 and K8 kernels (``rank.cu``
+# and ``rank_smem.cu`` before their redesign, ``occ.cuh``'s ``load_row``
 # inlined; ``verify.cu``'s Hamming entry before its redesign, alone;
-# ``exact.cu`` and ``lf_walk.cu`` before theirs, ``launch.cuh`` inlined),
-# kept here only to be timed beside their redesigns on the same inputs;
-# nothing on a path loads them.  Their C entries have the current ones'
+# ``exact.cu`` and ``lf_walk.cu`` before theirs, ``launch.cuh`` inlined;
+# ``frontier.cu`` before its, ``occ.cuh``'s ``rank_pair`` inlined), kept
+# here only to be timed beside their redesigns on the same inputs; nothing
+# on a path loads them.  Their C entries have the current ones'
 # signatures, so the current wrappers launch them (``first_version``); the
 # first K6 takes the j-mer table's arguments and ignores them (it always
-# scans every symbol).
+# scans every symbol); the first K8 ignores the live counts and the lanes'
+# own caps (it scans sz over every slot, so it needs sz = 0 past the live
+# slots, and writes sz = 0 into every slot past its children; it takes one
+# s_cap and h_cap for all lanes) and reads each slot's query char from the
+# new entry's ``qt`` (one dependent load fewer than its own ``queries[q,
+# qpos]``, so it is timed a little faster than it ran).
 LEGACY_SOURCES = {
     "rank_v1": r"""
 #include <cstdint>
@@ -622,6 +634,270 @@ extern "C" int sahara_lf_walk(const void* occ, const void* c_arr, const void* sa
     return static_cast<int>(cudaGetLastError());
 }
 """,
+    "frontier_v1": r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+namespace sahara {
+constexpr int kRowInts = 16;
+template <int SIGMA>
+__device__ __forceinline__ void rank_pair(const int32_t* __restrict__ table, int32_t lo, int32_t hi,
+                                          int32_t r_lo[SIGMA], int32_t r_hi[SIGMA]) {
+    constexpr int kVecs = (2 * SIGMA + 3) / 4;
+    const int4* a = reinterpret_cast<const int4*>(table + static_cast<int64_t>(lo >> 5) * kRowInts);
+    const int4* b = reinterpret_cast<const int4*>(table + static_cast<int64_t>(hi >> 5) * kRowInts);
+    int4 va[kVecs], vb[kVecs];
+#pragma unroll
+    for (int v = 0; v < kVecs; ++v) {
+        va[v] = __ldg(a + v);
+        vb[v] = __ldg(b + v);
+    }
+    int32_t ra[4 * kVecs], rb[4 * kVecs];
+#pragma unroll
+    for (int v = 0; v < kVecs; ++v) {
+        ra[4 * v] = va[v].x, ra[4 * v + 1] = va[v].y, ra[4 * v + 2] = va[v].z, ra[4 * v + 3] = va[v].w;
+        rb[4 * v] = vb[v].x, rb[4 * v + 1] = vb[v].y, rb[4 * v + 2] = vb[v].z, rb[4 * v + 3] = vb[v].w;
+    }
+    const uint32_t mask_lo = (1u << (lo & 31)) - 1u, mask_hi = (1u << (hi & 31)) - 1u;
+#pragma unroll
+    for (int s = 0; s < SIGMA; ++s) {
+        r_lo[s] = ra[s] + __popc(static_cast<uint32_t>(ra[SIGMA + s]) & mask_lo);
+        r_hi[s] = rb[s] + __popc(static_cast<uint32_t>(rb[SIGMA + s]) & mask_hi);
+    }
+}
+
+}  // namespace sahara
+namespace {
+
+constexpr int kWarps = 4;  // lanes a block
+constexpr int kThreads = 32 * kWarps;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int32_t kOpIns = 1, kOpDel = 2, kEdgeL = 4, kEdgeR = 8, kEdges = kEdgeL | kEdgeR;
+
+struct Params {
+    const int32_t* occ16;
+    const int32_t* c_arr;
+    const int8_t* qt;  // int8[lanes, m]
+    const int32_t* tape;  // int32[ns, m]: side | lo << 1 | hi << 5 | qpos << 9
+    const int32_t* in;  // int32[6, lanes, s_cap]
+    int32_t* out;  // int32[6, lanes, s_cap]
+    int32_t* hits;  // int32[3, lanes, h_cap]
+    int32_t* hit_cnt;  // int32[lanes]
+    int32_t* flags;  // int32[2, lanes]: frontier overflow, hit overflow
+    int64_t lanes, rev_off;
+    int m, ns, s_cap, h_cap;
+};
+
+// One slot: its state and, for a live slot that has not consumed the query, its ranks and the bit of
+// each child kind it makes.
+template <int SIGMA>
+struct Slot {
+    int32_t lb, lbr, sz, err, d, op, qc;
+    int side;
+    bool finished;
+    uint32_t kinds;
+    int32_t cnt[SIGMA], ext_lb[SIGMA], ext_lbr[SIGMA];
+};
+
+template <int SIGMA, bool EDIT>
+__device__ __forceinline__ void load_slot(const Params& p, int64_t lane, int q, int s, int slot, Slot<SIGMA>& st) {
+    st.sz = 0;
+    st.finished = false;
+    st.kinds = 0;
+    if (slot >= p.s_cap) return;
+    const int64_t plane = p.lanes * p.s_cap;
+    const int32_t* in = p.in + lane * p.s_cap + slot;
+    st.sz = in[2 * plane];
+    if (st.sz <= 0) return;
+    st.lb = in[0];
+    st.lbr = in[plane];
+    st.err = in[3 * plane];
+    st.d = in[4 * plane];
+    st.op = in[5 * plane];
+    if (st.d >= p.m) {
+        st.finished = (st.op & kEdges) == 0;
+        return;
+    }
+    const int32_t word = __ldg(p.tape + static_cast<int64_t>(s) * p.m + st.d);
+    st.side = word & 1;
+    const int32_t lo_b = (word >> 1) & 0xF, hi_b = (word >> 5) & 0xF;
+    st.qc = __ldg(p.qt + lane * p.m + st.d);
+    const int32_t primary = st.side ? st.lbr : st.lb;
+    const int32_t secondary = st.side ? st.lb : st.lbr;
+    int32_t r_lo[SIGMA], r_hi[SIGMA];
+    sahara::rank_pair<SIGMA>(p.occ16 + (st.side ? p.rev_off : 0) * sahara::kRowInts, primary, primary + st.sz,
+                             r_lo, r_hi);
+    int32_t prefix = 0;
+#pragma unroll
+    for (int j = 0; j < SIGMA; ++j) {
+        st.cnt[j] = r_hi[j] - r_lo[j];
+        const int32_t newp = __ldg(p.c_arr + j) + r_lo[j];
+        const int32_t news = secondary + prefix;
+        prefix += st.cnt[j];
+        st.ext_lb[j] = st.side ? news : newp;
+        st.ext_lbr[j] = st.side ? newp : news;
+    }
+    const int32_t last = st.op & 3;
+#pragma unroll
+    for (int j = 1; j < SIGMA; ++j) {
+        const int32_t e2 = st.err + (st.qc != j ? 1 : 0);
+        if (st.cnt[j] > 0 && e2 <= hi_b && e2 >= lo_b) st.kinds |= 1u << (j - 1);
+        if (EDIT && st.cnt[j] > 0 && st.err + 1 <= hi_b && st.d > 0 && last != kOpIns) {
+            st.kinds |= 1u << (SIGMA - 1 + j - 1);
+        }
+    }
+    if (EDIT && st.err + 1 <= hi_b && st.err + 1 >= lo_b && last != kOpDel) st.kinds |= 1u << (2 * (SIGMA - 1));
+}
+
+// Child of kind C (a compile-time constant: the slot's arrays stay in registers) at frontier slot dest.
+template <int SIGMA, int C>
+__device__ __forceinline__ void write_child(const Params& p, int64_t lane, int dest, const Slot<SIGMA>& st) {
+    const int64_t plane = p.lanes * p.s_cap;
+    int32_t* out = p.out + lane * p.s_cap + dest;
+    int32_t v[6];
+    if (C < SIGMA - 1) {
+        constexpr int j = C < SIGMA - 1 ? C + 1 : 1;
+        v[0] = st.ext_lb[j], v[1] = st.ext_lbr[j], v[2] = st.cnt[j], v[3] = st.err + (st.qc != j ? 1 : 0);
+        v[4] = st.d + 1, v[5] = st.op & (st.side == 0 ? kEdgeR : kEdgeL);
+    } else if (C < 2 * (SIGMA - 1)) {
+        constexpr int j = C < 2 * (SIGMA - 1) && C >= SIGMA - 1 ? C - (SIGMA - 1) + 1 : 1;
+        v[0] = st.ext_lb[j], v[1] = st.ext_lbr[j], v[2] = st.cnt[j], v[3] = st.err + 1, v[4] = st.d;
+        v[5] = kOpDel | (st.op & kEdges) | (st.side == 0 ? kEdgeL : kEdgeR);
+    } else {
+        v[0] = st.lb, v[1] = st.lbr, v[2] = st.sz, v[3] = st.err + 1, v[4] = st.d + 1;
+        v[5] = kOpIns | (st.op & kEdges);
+    }
+#pragma unroll
+    for (int f = 0; f < 6; ++f) out[f * plane] = v[f];
+}
+
+// Writes every child of kind C of this group of 32 slots, advancing that kind's next free slot.
+template <int SIGMA, int C, int KINDS>
+__device__ __forceinline__ void emit_kind(const Params& p, int64_t lane, const Slot<SIGMA>& st, unsigned below,
+                                          int32_t next[KINDS]) {
+    const bool mine = (st.kinds >> C) & 1u;
+    const unsigned bal = __ballot_sync(kFull, mine);
+    if (mine) {
+        const int dest = next[C] + __popc(bal & below);
+        if (dest < p.s_cap) write_child<SIGMA, C>(p, lane, dest, st);
+    }
+    next[C] += __popc(bal);
+    if constexpr (C + 1 < KINDS) emit_kind<SIGMA, C + 1, KINDS>(p, lane, st, below, next);
+}
+
+template <int SIGMA, bool EDIT>
+__global__ void __launch_bounds__(kThreads) frontier_kernel(const Params p) {
+    constexpr int kKinds = EDIT ? 2 * (SIGMA - 1) + 1 : SIGMA - 1;
+    const int64_t lane = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+    if (lane >= p.lanes) return;  // the whole warp
+    const int t = threadIdx.x & 31;
+    const unsigned below = (1u << t) - 1u;
+    const int q = static_cast<int>(lane / p.ns), s = static_cast<int>(lane % p.ns);
+    const int64_t hplane = p.lanes * p.h_cap;
+    const int32_t hit_base = p.hit_cnt[lane];
+
+    // pass 1: hits in slot order, and the children of each kind
+    int32_t found = 0;
+    int32_t next[kKinds];
+#pragma unroll
+    for (int c = 0; c < kKinds; ++c) next[c] = 0;
+    for (int g = 0; g < p.s_cap; g += 32) {
+        Slot<SIGMA> st;
+        load_slot<SIGMA, EDIT>(p, lane, q, s, g + t, st);
+        const unsigned fin = __ballot_sync(kFull, st.finished);
+        if (st.finished) {
+            const int h = hit_base + found + __popc(fin & below);
+            if (h < p.h_cap) {
+                int32_t* hit = p.hits + lane * p.h_cap + h;
+                hit[0] = st.lb;
+                hit[hplane] = st.sz;
+                hit[2 * hplane] = st.err;
+            }
+        }
+        found += __popc(fin);
+#pragma unroll
+        for (int c = 0; c < kKinds; ++c) next[c] += __popc(__ballot_sync(kFull, (st.kinds >> c) & 1u));
+    }
+    // each kind's first slot: the children of the kinds before it
+    int32_t total = 0;
+#pragma unroll
+    for (int c = 0; c < kKinds; ++c) {
+        const int32_t n = next[c];
+        next[c] = total;
+        total += n;
+    }
+    if (t == 0) {
+        p.hit_cnt[lane] = min(hit_base + found, p.h_cap);
+        if (hit_base + found > p.h_cap) p.flags[p.lanes + lane] = 1;
+        if (total > p.s_cap) p.flags[lane] = 1;
+    }
+
+    // pass 2: each child at its kind's next slot
+    if (total > 0) {
+        for (int g = 0; g < p.s_cap; g += 32) {
+            Slot<SIGMA> st;
+            load_slot<SIGMA, EDIT>(p, lane, q, s, g + t, st);
+            if (__ballot_sync(kFull, st.kinds != 0) == 0) continue;
+            emit_kind<SIGMA, 0, kKinds>(p, lane, st, below, next);
+        }
+    }
+    int32_t* out_sz = p.out + 2 * p.lanes * p.s_cap + lane * p.s_cap;
+    for (int slot = min(total, p.s_cap) + t; slot < p.s_cap; slot += 32) out_sz[slot] = 0;
+}
+
+template <int SIGMA>
+int launch(bool edit, const Params& p, cudaStream_t stream) {
+    const unsigned blocks = static_cast<unsigned>((p.lanes + kWarps - 1) / kWarps);
+    if (edit) {
+        frontier_kernel<SIGMA, true><<<blocks, kThreads, 0, stream>>>(p);
+    } else {
+        frontier_kernel<SIGMA, false><<<blocks, kThreads, 0, stream>>>(p);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// One step of every lane: reads the frontier `state`, writes the next one to `out`, and updates the hit
+// buffers, hit counts and overflow flags in place (shapes in Params).
+extern "C" int sahara_frontier_step(const void* occ16, const void* c_arr, const void* qt, const void* tape,
+                                    const void* state, const void*, const void*, void* out, void*, void* hits,
+                                    void* hit_cnt, void* flags, int64_t lanes, int sigma, int edit, int m, int ns,
+                                    int64_t rev_off, int s_cap, int h_cap, void* stream) {
+    if (lanes <= 0) return 0;
+    if (m < 1 || ns < 1 || s_cap < 1 || h_cap < 1 || rev_off < 0 || lanes / ns > (1ll << 31) ||
+        (lanes + kWarps - 1) / kWarps > 0x7FFFFFFFll) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    Params p;
+    p.occ16 = static_cast<const int32_t*>(occ16);
+    p.c_arr = static_cast<const int32_t*>(c_arr);
+    p.qt = static_cast<const int8_t*>(qt);
+    p.tape = static_cast<const int32_t*>(tape);
+    p.in = static_cast<const int32_t*>(state);
+    p.out = static_cast<int32_t*>(out);
+    p.hits = static_cast<int32_t*>(hits);
+    p.hit_cnt = static_cast<int32_t*>(hit_cnt);
+    p.flags = static_cast<int32_t*>(flags);
+    p.lanes = lanes;
+    p.rev_off = rev_off;
+    p.m = m;
+    p.ns = ns;
+    p.s_cap = s_cap;
+    p.h_cap = h_cap;
+    auto st = static_cast<cudaStream_t>(stream);
+    const bool e = edit != 0;
+    switch (sigma) {
+        case 2: return launch<2>(e, p, st);
+        case 3: return launch<3>(e, p, st);
+        case 4: return launch<4>(e, p, st);
+        case 5: return launch<5>(e, p, st);
+        case 6: return launch<6>(e, p, st);
+        case 7: return launch<7>(e, p, st);
+        case 8: return launch<8>(e, p, st);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+}
+""",
 }
 
 
@@ -644,7 +920,7 @@ def sm_clocks_s() -> float:
     return torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
 
 
-# The design constants of the K1, K4, K3h, K6 and K7 redesigns, each
+# The design constants of the K1, K4, K3h, K6, K7 and K8 redesigns, each
 # measured on the card beside the value kept: name -> (source, the
 # constant's line, the value kept, the other values tried; K3h keeps 0, the
 # launcher's pick, and forces each lane count).  A variant is the current
@@ -658,6 +934,7 @@ DESIGN_VARIANTS = {
     "exact_l1": ("exact", "constexpr int kOccL1 = {};", 2, (0, 1)),
     "lf_walk_lanes": ("lf_walk", "constexpr int kWalkLanes = {};", 2, (1, 4)),
     "lf_walk_vecs": ("lf_walk", "constexpr int kVecs = {};", 4, (1, 8)),
+    "frontier_lanes": ("frontier", "constexpr int kWarpLanes = {};", 8, (1, 2, 4, 16, 32)),
 }
 
 
@@ -697,17 +974,20 @@ def write_extra_sources() -> dict[str, str]:
     return paths
 
 
-def variant_times(module, extra: dict, variant: str, call, name: str, flush, want) -> dict:
+def variant_times(module, extra: dict, variant: str, call, name: str, flush, want, timed=None) -> dict:
     """Device ms per launch, warm and cold, of kernel ``name`` built from
     each value tried of ``DESIGN_VARIANTS[variant]``, each first held
-    against ``want``."""
+    against ``want`` (``call()``'s result); ``timed``, where given, is the
+    launch alone that is timed (so that no work ``call`` adds to build its
+    result runs between the timed launches)."""
     _, line, _, tried = DESIGN_VARIANTS[variant]
     out = {}
     for v in tried:
-        run = functools.partial(first_version, module, extra[f"{variant}_{v}"], call)
+        run, launch = (functools.partial(first_version, module, extra[f"{variant}_{v}"], f)
+                       for f in (call, timed or call))
         assert_equal(f"{name} with {line.format(v)}", run(), want)
-        out[line.format(v)] = dict(ms=kernel_device_ms(run, name, 20),
-                                   cold_ms=kernel_device_ms(run, name, 20, before=flush))
+        out[line.format(v)] = dict(ms=kernel_device_ms(launch, name, 20),
+                                   cold_ms=kernel_device_ms(launch, name, 20, before=flush))
     return out
 
 
@@ -804,6 +1084,12 @@ def assert_equal(name: str, got, want) -> int:
 def sorted_rows(res) -> np.ndarray:
     rows = np.stack([res.query_id, res.seq_id, res.pos, res.errors], axis=1).astype(np.int64)
     return np.ascontiguousarray(rows[np.lexsort(rows.T[::-1])])
+
+
+def require_rows(what: str, res, want: np.ndarray) -> None:
+    """Raise unless the rows of ``res`` are ``want`` (``sorted_rows``)."""
+    if not np.array_equal(sorted_rows(res), want):
+        raise AssertionError(f"{what}: rows differ from the first pass's")
 
 
 def seed_reads(index, queries: torch.Tensor, parts) -> tuple[int, int]:
@@ -1895,46 +2181,73 @@ def kmer_phase(tmp: str, fasta: str, reads: str, card: str, extra: dict) -> tupl
     return rep, k6_fig, k7_fig
 
 
-def frontier_bound(ctx, state, hits_before: int, hits_after: int, out) -> tuple[float, str, dict]:
-    """The bound of one K8 step on ``state``: the sz plane read; each live
-    slot's other planes, tape word and query char, and each distinct occ
-    row its two ranks read once; the children, the new hits and every other
-    slot's sz written, and the counts and flags."""
-    from sahara_tpu_torch.kernels.frontier import D, LB, LBR, SZ, n_kinds
+def first_design_bound(ctx, state, hits_before: int, hits_after: int, out) -> tuple[float, str]:
+    """The bound of one K8 step as the first design moved it, on ``state``
+    with sz = 0 past the live slots: the sz plane read; each live slot's
+    other planes, tape word and query char, and each distinct occ row its
+    two ranks read once; the children, the new hits and every other slot's
+    sz written, and the counts and flags."""
+    from sahara_tpu_torch.kernels.frontier import n_kinds
 
-    lanes, s_cap, m = ctx.lanes, ctx.s_cap, ctx.m
+    fig = step_figures(ctx, state, out)
+    lanes, s_cap = ctx.lanes, ctx.s_cap
+    n_bytes = (lanes * s_cap * 4 + fig["live"] * 20 + fig["ranked"] * 8 + fig["occ_rows"] * 64
+               + fig["children"] * 24 + (lanes * s_cap - fig["children"]) * 4 + (hits_after - hits_before) * 12
+               + lanes * 12)
+    return bound(n_bytes, fig["ranked"] * (6 * ctx.sigma + 4 * n_kinds(ctx.sigma, ctx.edit)))
+
+
+def step_figures(ctx, state, out) -> dict:
+    """Live slots (sz > 0), ranked slots (live, d < m), the lanes with a
+    finished slot (a hit, stored or not), the distinct occ rows the ranks
+    read and the children (sz > 0 in ``out``) of one step on ``state`` with
+    sz = 0 past the live slots."""
+    from sahara_tpu_torch.kernels.frontier import D, EDGES, LB, LBR, OP, SZ
+
     live = state[SZ] > 0
-    ranked = live & (state[D] < m)
+    ranked = live & (state[D] < ctx.m)
+    finished = live & ~ranked & ((state[OP] & EDGES) == 0)
     lane = torch.nonzero(ranked)[:, 0]
-    d = state[D][ranked]
-    side = ctx.tape[lane % ctx.ns, d] & 1
+    side = ctx.tape[lane % ctx.ns, state[D][ranked]] & 1
     primary = torch.where(side == 1, state[LBR][ranked], state[LB][ranked]).long()
     woff = side.long() * ctx.rev_off
     rows = torch.unique(torch.cat([(primary >> 5) + woff, ((primary + state[SZ][ranked]) >> 5) + woff])).numel()
-    children = int((out[SZ] > 0).sum())
-    n_live = int(live.sum())
-    n_bytes = (lanes * s_cap * 4 + n_live * 20 + int(ranked.sum()) * 8 + rows * 64 + children * 24
-               + (lanes * s_cap - children) * 4 + (hits_after - hits_before) * 12 + lanes * 12)
-    b, by = bound(n_bytes, int(ranked.sum()) * (6 * ctx.sigma + 4 * n_kinds(ctx.sigma, ctx.edit)))
-    return b, by, dict(live=n_live, ranked=int(ranked.sum()), occ_rows=rows, children=children,
-                       new_hits=hits_after - hits_before)
+    return dict(live=int(live.sum()), ranked=int(ranked.sum()), hit_lanes=int(finished.any(dim=1).sum()),
+                occ_rows=rows, children=int((out[SZ] > 0).sum()))
 
 
-def approx_phase(index, queries: np.ndarray, sv_rows: np.ndarray, tmp: str, fasta: str, reads: str) -> dict:
+def frontier_bound(ctx, fig: dict, new_hits: int, new_flags: int) -> tuple[float, str]:
+    """The least work of one K8 step (``step_figures``' counts): each lane's
+    live count read and its next one written; the hit count of a lane with
+    a finished slot read and written; each live slot's 24 B; a tape word
+    and a query char a ranked slot; each distinct occ row once; the
+    children's 24 B, the new hits' 12 B and a word a flag newly set."""
+    from sahara_tpu_torch.kernels.frontier import n_kinds
+
+    n_bytes = (ctx.lanes * 8 + fig["hit_lanes"] * 8 + fig["live"] * 24 + fig["ranked"] * 5 + fig["occ_rows"] * 64
+               + fig["children"] * 24 + new_hits * 12 + new_flags * 4)
+    return bound(n_bytes, fig["ranked"] * (6 * ctx.sigma + 4 * n_kinds(ctx.sigma, ctx.edit)))
+
+
+def approx_phase(index, queries: np.ndarray, sv_rows: np.ndarray, tmp: str, fasta: str, reads: str,
+                 extra: dict) -> dict:
     """The frontier engine (``engine="approx"``, K8) over the workload on the
     upload with both tables: the rows of its first APPROX_PREFIX queries
     against the JAX package's, the whole row set beside seed-and-verify's,
-    K8 against its plain step at every step of the first chunk's first
-    attempt, K8 timed on the widest of those steps and in a pass, three
-    timed passes, and the CLI's ``--engine approx`` against the JAX CLI's."""
+    each search (caps, lanes, overflowing lanes), K8 against its plain step
+    at every step of the first chunk's first attempt, K8 timed on the widest
+    of those steps beside its first version and design variants and in a
+    pass, three timed passes, and the CLI's ``--engine approx`` against the
+    JAX CLI's."""
     from sahara_tpu_torch.engine import approx
     from sahara_tpu_torch.engine.driver import load_scheme, search_queries
     from sahara_tpu_torch.engine.tape import compile_tape
     from sahara_tpu_torch.kernels import LAUNCHES, reset_launches
+    from sahara_tpu_torch.kernels import frontier as k8
     from sahara_tpu_torch.kernels.frontier import SZ, frontier_step, frontier_step_plain, pack_tape
 
     kw = dict(k=K, edit=True, chunk=CHUNK, engine="approx", generator_name=WORKQ_GENERATOR)
-    attempts = []
+    searches = []
     reset_launches()
     with recorded(approx, "scheme_search") as calls:
         t0 = time.perf_counter()
@@ -1943,16 +2256,18 @@ def approx_phase(index, queries: np.ndarray, sv_rows: np.ndarray, tmp: str, fast
         first_s = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     require_launches(launches, ("frontier_step",), "approx")
-    for _, ckw, (_, _, flags) in calls:
-        attempts.append(dict(s_cap=ckw["s_cap"], h_cap=ckw["h_cap"], overflow_lanes=int(flags.any(dim=0).sum())))
+    for args, ckw, (_, _, flags) in calls:
+        searches.append(dict(s_cap=ckw["s_cap"], h_cap=ckw["h_cap"], lanes=flags.shape[1],
+                             overflow_lanes=int(flags.any(dim=0).sum()), own_caps=ckw["caps"] is not None))
     rows = sorted_rows(res)
     prefix = rows[rows[:, 0] < APPROX_PREFIX]
+    n_chunks = -(-len(queries) // CHUNK)
     out = dict(hits=len(rows), sha256=rows_sha(rows), prefix_hits=len(prefix), prefix_sha256=rows_sha(prefix),
-               first_pass_s=first_s, launches=launches, attempts=attempts,
-               retries=len(attempts) - -(-len(queries) // CHUNK))
+               first_pass_s=first_s, launches=launches, searches=searches, retry_searches=len(searches) - n_chunks)
     print(f"approx: {len(rows)} rows; first {APPROX_PREFIX} queries {len(prefix)} rows sha256 {out['prefix_sha256']} "
-          f"(JAX package {JAX_APPROX_PREFIX_HITS}, {JAX_APPROX_PREFIX_SHA256}); {len(attempts)} attempts over "
-          f"{-(-len(queries) // CHUNK)} chunks, {launches['frontier_step']} K8 launches", flush=True)
+          f"(JAX package {JAX_APPROX_PREFIX_HITS}, {JAX_APPROX_PREFIX_SHA256}); {len(searches)} searches for "
+          f"{n_chunks} chunks, {launches['frontier_step']} K8 launches; searches (s_cap, h_cap, lanes, overflowing "
+          f"lanes, caps a query): {[tuple(x.values()) for x in searches]}", flush=True)
     if len(prefix) != JAX_APPROX_PREFIX_HITS or out["prefix_sha256"] != JAX_APPROX_PREFIX_SHA256:
         raise AssertionError("the frontier engine's rows differ from the JAX package's")
     mine, theirs = ({tuple(r) for r in x[:, :3].tolist()} for x in (rows, sv_rows))
@@ -1964,27 +2279,30 @@ def approx_phase(index, queries: np.ndarray, sv_rows: np.ndarray, tmp: str, fast
           f"{out['only_sv']} only in seed-and-verify, {out['other_errors']} with another error count; first "
           f"{out['only_approx_first']} / {out['only_sv_first']}", flush=True)
 
-    # K8 against its plain step, every step of the first chunk's first attempt
+    # K8 against its plain step, every step of the first chunk's first attempt (the widest kept), then every
+    # step of a whole pass
     steps, kernel = [], approx.frontier_step
 
-    def check(ctx, state, nxt, hits, hit_cnt, flags):
+    def check(ctx, state, live, nxt, nxt_live, hits, hit_cnt, flags, **ckw):
         before = (hits.clone(), hit_cnt.clone(), flags.clone())
-        want = [torch.empty_like(nxt), *(x.clone() for x in before)]
-        kernel(ctx, state, nxt, hits, hit_cnt, flags)
-        frontier_step_plain(ctx, state, *want)
-        live = nxt[SZ] > 0
-        if not torch.equal(live, want[0][SZ] > 0):
-            raise AssertionError("frontier_step: live slots differ from its plain version")
-        err = assert_equal("frontier_step frontier", torch.where(live, nxt, 0), torch.where(live, want[0], 0))
+        want = [torch.empty_like(nxt), torch.empty_like(nxt_live), *(x.clone() for x in before)]
+        nxt.fill_(-1)  # no slot or count the kernel leaves unwritten can pass for its own
+        nxt_live.fill_(-1)
+        kernel(ctx, state, live, nxt, nxt_live, hits, hit_cnt, flags, **ckw)
+        frontier_step_plain(ctx, state, live, *want)
+        err = assert_equal("frontier_step live counts", nxt_live, want[1])
+        prefix = torch.arange(ctx.s_cap, device=nxt.device) < nxt_live[:, None]
+        err += assert_equal("frontier_step frontier", torch.where(prefix, nxt, 0), want[0])
         err += sum(assert_equal(f"frontier_step {name}", a, b)
-                   for name, a, b in zip(("hits", "hit counts", "flags"), (hits, hit_cnt, flags), want[1:]))
-        n_in = int((state[SZ] > 0).sum())
-        if not steps or n_in > steps[0][1]:
-            steps[:] = [(check.n, n_in, ctx, state.clone(), before, int(hit_cnt.sum()))]
+                   for name, a, b in zip(("hits", "hit counts", "flags"), (hits, hit_cnt, flags), want[2:]))
+        n_in = int(live.sum())
+        if check.capture and (not steps or n_in > steps[0][1]):
+            steps[:] = [(check.n, n_in, ctx, state.clone(), live.clone(), before, int(hit_cnt.sum()))]
         check.n += 1
         check.err += err
 
     check.n = check.err = 0
+    check.capture = True
     q0 = np.ascontiguousarray(queries[:CHUNK])
     t = compile_tape(load_scheme(WORKQ_GENERATOR, 0, K, q0.shape[1], edit=True, sigma=index.sigma, n_text=index.n))
     tape = pack_tape(t.side, t.qpos, t.lo, t.hi)
@@ -1994,41 +2312,94 @@ def approx_phase(index, queries: np.ndarray, sv_rows: np.ndarray, tmp: str, fast
                              torch.from_numpy(tape).to(index.device), torch.ones(CHUNK, dtype=torch.bool,
                                                                                  device=index.device),
                              edit=True, s_cap=64, h_cap=32, k=K)
+        check.capture, chunk0_steps = False, check.n
+        require_rows("the checked pass", search_queries(index, queries, **kw), rows)
     finally:
         approx.frontier_step = kernel
-    step, live_in, ctx, state, (hits0, cnt0, flags0), hits_after = steps[0]
-    nxt = torch.empty_like(state)
+    step, live_in, ctx, state, live, (hits0, cnt0, flags0), hits_after = steps[0]
+    nxt, nxt_live = torch.empty_like(state), torch.empty_like(live)
     hits, hit_cnt, flags = (x.clone() for x in (hits0, cnt0, flags0))
+    dead = torch.arange(ctx.s_cap, device=state.device) >= live[:, None]
+    state_v1 = state.clone()
+    state_v1[SZ][dead] = 0  # the first K8 finds the live slots by sz
 
-    def call():
+    def launch(st=state):
         hit_cnt.copy_(cnt0)
-        frontier_step(ctx, state, nxt, hits, hit_cnt, flags)
+        frontier_step(ctx, st, live, nxt, nxt_live, hits, hit_cnt, flags, checked=True)
 
-    call()
-    b, by, fig = frontier_bound(ctx, state, int(cnt0.sum()), hits_after, nxt)
+    def prime():
+        """The buffers as before the step, the next frontier a sentinel, so
+        that a compared launch is held to all it must write."""
+        nxt.fill_(-1)
+        nxt_live.fill_(-1)
+        hits.copy_(hits0)
+        flags.copy_(flags0)
+
+    def flat(frontier, n_live):
+        return tuple(x.reshape(-1) for x in (frontier, n_live, hits, hit_cnt, flags))
+
+    def result():
+        prime()
+        launch()
+        return flat(torch.where(torch.arange(ctx.s_cap, device=nxt.device) < nxt_live[:, None], nxt, 0), nxt_live)
+
+    want = tuple(x.clone() for x in result())
+    children, new_flags = torch.where(nxt[SZ] > 0, nxt, 0), int((flags != flags0).sum())
+    old = functools.partial(first_version, k8, extra["frontier_v1"], functools.partial(launch, state_v1))
+    prime()
+    old()
+    assert_equal("first frontier_step", flat(torch.where(nxt[SZ] > 0, nxt, 0), (nxt[SZ] > 0).sum(1, dtype=torch.int32)),
+                 want)
+    fig = step_figures(ctx, state_v1, children)
+    new_hits = hits_after - int(cnt0.sum())
+    b, by = frontier_bound(ctx, fig, new_hits, new_flags)
+    b1, by1 = first_design_bound(ctx, state_v1, int(cnt0.sum()), hits_after, children)
     flush_buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=index.device)
+    flush = lambda: flush_buf.fill_(1)  # noqa: E731
+    counts = torch.bincount(live.clamp(max=33).long(), minlength=34).tolist()
+    lists = torch.nn.functional.pad(live, (0, -len(live) % 8)).reshape(-1, 8).sum(dim=1)  # a warp's: 8 lanes
+    rounds = torch.bincount(((lists + 31) // 32).clamp(max=4).long(), minlength=5).tolist()
     row = dict(
         name="frontier_step", route="cuda", source="sahara_tpu_torch/kernels/csrc/frontier.cu",
         replaces="sahara_tpu/engine/approx.py:161", max_abs_err=check.err, steps_checked=check.n,
-        **redesign_times(call, "frontier_kernel", lambda: flush_buf.fill_(1)),
-        plain_ms=time_ms(lambda: frontier_step_plain(ctx, state, torch.empty_like(nxt), hits.clone(), cnt0.clone(),
-                                                     flags.clone()), 5),
-        bound_ms=b, bound_by=by, library_ms=None, launches=launches["frontier_step"], **fig,
+        chunk0_steps_checked=chunk0_steps,
+        **redesign_times(launch, "frontier_kernel", flush, old),
+        variants=variant_times(k8, extra, "frontier_lanes", result, "frontier_kernel", flush, want, launch),
+        plain_ms=time_ms(lambda: frontier_step_plain(ctx, state, live, torch.empty_like(nxt), torch.empty_like(live),
+                                                     hits.clone(), cnt0.clone(), flags.clone()), 5),
+        bound_ms=b, bound_by=by, first_design_bound_ms=b1, first_design_bound_by=by1, library_ms=None,
+        launches=launches["frontier_step"], new_hits=new_hits, **fig,
+        lanes_by_live={"0": counts[0], "1": counts[1], "2-4": sum(counts[2:5]), "5-8": sum(counts[5:9]),
+                       "9-32": sum(counts[9:33]), "33+": counts[33]},
+        warps_by_rounds={"0": rounds[0], "1": rounds[1], "2": rounds[2], "3": rounds[3], "4+": rounds[4]},
         shape=f"{ctx.lanes} lanes x s_cap {ctx.s_cap}, {live_in} live slots in (step {step}, the first attempt's "
               f"widest), sigma={ctx.sigma}, m={ctx.m}",
     )
+    row["ms_again"] = kernel_device_ms(launch, "frontier_kernel", 20)
     run = lambda: search_queries(index, queries, **kw)  # noqa: E731
     row["pass_ms"], row["pass_launches"] = kernel_device_total(run, "frontier_kernel")
-    print(f"frontier_step: {check.n} steps of chunk 0 equal to the plain step; widest {row['shape']}: device warm "
-          f"{row['ms']:.4f} / cold {row['cold_ms']:.4f} ms, call {row['call_ms']:.4f} ms, plain {row['plain_ms']:.3f} "
-          f"ms, bound {b:.5f} ms by {by}; a pass {row['pass_ms']:.2f} ms in {row['pass_launches']} launches", flush=True)
+    _, line, _, tried = DESIGN_VARIANTS["frontier_lanes"]
+
+    def variant_pass(v):
+        require_rows(f"a pass with {line.format(v)}", first_version(k8, extra[f"frontier_lanes_{v}"], run), rows)
+
+    row["variant_pass_ms"] = {line.format(v): kernel_device_total(functools.partial(variant_pass, v),
+                                                                  "frontier_kernel")[0] for v in tried}
+    print(f"frontier_step: {chunk0_steps} steps of chunk 0 and {check.n - chunk0_steps} of a whole pass (its retry "
+          f"searches' own caps included) equal to the plain step; widest {row['shape']}: lanes by live "
+          f"slots {row['lanes_by_live']}, warps (8 lanes) by rounds {row['warps_by_rounds']}; {fig}; plain "
+          f"{row['plain_ms']:.3f} ms; least-work bound {b:.5f} ms by {by}, first design's traffic {b1:.5f} ms by "
+          f"{by1}; warm again {row['ms_again']:.4f} ms; a pass {row['pass_ms']:.2f} ms in {row['pass_launches']} "
+          f"launches (with the other lanes a warp: {row['variant_pass_ms']})", flush=True)
 
     passes = timed_passes(run, rows, "approx")
     dt = sorted(passes)[1]
-    out.update(passes_s=passes, pass_s=dt, reads_per_s=len(queries) / 2 / dt, profile=profile_pass(run))
+    out.update(passes_s=passes, pass_s=dt, reads_per_s=len(queries) / 2 / dt, profile=profile_pass(run),
+               syncs=count_syncs(run))
     busy = out["profile"]["device_busy_ms"]
     print(f"approx path: {out['reads_per_s']:.1f} reads/s (median of 3: {dt * 1e3:.1f} ms), device busy {busy:.1f} ms "
-          f"({busy / (dt * 1e3) * 100:.1f}%)", flush=True)
+          f"({busy / (dt * 1e3) * 100:.1f}%), {out['syncs']} syncs; host top "
+          f"{out['profile']['top_host_tottime_ms'][:5]}", flush=True)
 
     # the CLI's --engine approx on the first APPROX_CLI_QUERIES strand queries
     path = os.path.join(tmp, "approx_out.txt")
@@ -2259,8 +2630,13 @@ def main() -> int:
     index_bi, report["workq"] = workq_path(host, queries, rows)
     report["fallback"], n_queries, n_rows = fallback_phase(index_bi, queries, rows)
     report["sv_e1"] = sv_e1_phase(index_bi, ref, extra)
-    report["approx"], k8 = approx_phase(index_bi, queries, rows, tmp.name, fasta, reads)
-    kernels.append(dict(k8, registers=register_row(ptxas, "frontier", "frontier_kernelILi6ELb1E")))
+    report["approx"], k8 = approx_phase(index_bi, queries, rows, tmp.name, fasta, reads, extra)
+    kernels.append(dict(k8, registers=register_row(ptxas, "frontier", "frontier_kernelILi6ELb1E"),
+                        old_registers=register_row(ptxas, "frontier_v1", "frontier_kernelILi6ELb1E"),
+                        variant_registers={name: register_row(ptxas, name, "frontier_kernelILi6ELb1E")
+                                           for name in extra if name.startswith("frontier_")}))
+    print_times(kernels[-1])
+    print(f"  registers: {kernels[-1]['variant_registers']}", flush=True)
     del index_bi
     # each kernel of the sv_e1 path: its figures there beside that path's launches
     e1_path, e1 = report["sv_e1"], report["sv_e1"]["hamming"]["k3h"]
@@ -2344,7 +2720,7 @@ def main() -> int:
     # path's launches; K6 also on the kmer path, K7 also on the uni path's
     # sampled walk
     more = ("cold_ms", "call_ms", "old_ms", "old_cold_ms", "sharded_launches", "swap_launches", "pass_ms",
-            "pass_launches")
+            "pass_launches", "first_design_bound_ms")
     more += tuple(f"{p}_{k}" for p in ("e1", "kmer", "uni") for k in (
         "launches", "max_abs_err", "ms", "cold_ms", "call_ms", "old_ms", "old_cold_ms", "plain_ms", "bound_ms",
         "bound_by"))

@@ -4,7 +4,8 @@ search) lane in one launch (csrc/frontier.cu).
 The Hopper counterpart of the ``lax.scan`` step of
 ``sahara_tpu/engine/approx.py::scheme_search``.  Lane b = q * ns + s holds
 ``s_cap`` frontier slots, int32 planes (lb, lbr, sz, err, d, op) of
-``state[6, B, s_cap]``; a slot is live where sz > 0.  A step
+``state[6, B, s_cap]``, and ``live[b]``: its live slots are the prefix
+``0 .. live[b] - 1`` (each with sz > 0).  A step
 
 1. appends the live slots that consumed the query (d >= m) and whose span
    ends in no deleted character (no edge bit in op) to the lane's hit
@@ -13,13 +14,13 @@ The Hopper counterpart of the ``lax.scan`` step of
 2. ranks every other live slot at both interval ends on its side's table;
 3. writes its children (match or substitution per symbol 1..sigma-1; for
    edit distance a deletion per symbol and one insertion), compacted, into
-   ``out[6, B, s_cap]``, and sets ``flags[0, b]`` when they do not fit.
+   ``out[6, B, s_cap]`` and their number, at most s_cap, into
+   ``out_live[b]``, and sets ``flags[0, b]`` when they do not fit.
 
 Children come out kind first (match/sub of symbol 1, of symbol 2, ...,
 deletions, insertion), then by slot, the reference's order, so that the
-hits a lane finds come in its order too.  ``out``'s slots past the lane's
-children have sz = 0 and their other planes unspecified (the kernel leaves
-them, the plain version zeroes them); a step reads only live slots' planes.
+hits a lane finds come in its order too.  Slots past ``out_live`` are left
+as they were (the kernel) or zeroed (the plain version); no step reads them.
 
 The tape word of search s at depth d is ``side | lo << 1 | hi << 5 |
 qpos << 9`` (``pack_tape``).  ``frontier_step_plain`` is the same function
@@ -53,7 +54,7 @@ def _kernel():
     if _fn is None:
         fn = load("frontier").sahara_frontier_step
         fn.restype = ctypes.c_int
-        fn.argtypes = [_P] * 9 + [_I64, _I, _I, _I, _I, _I64, _I, _I, _P]
+        fn.argtypes = [_P] * 12 + [_I64, _I, _I, _I, _I, _I64, _I, _I, _P]
         _fn = fn
     return _fn
 
@@ -68,7 +69,12 @@ def pack_tape(side: np.ndarray, qpos: np.ndarray, lo: np.ndarray, hi: np.ndarray
 @dataclasses.dataclass
 class FrontierContext:
     """What every step of one search reads: the stacked occ16 table, the C
-    array, the int32[nq, m] queries, the packed tape and the sizes."""
+    array, the int32[nq, m] queries, the packed tape and the sizes:
+    ``s_cap`` and ``h_cap`` are the widths of a lane's slots and hits, and
+    ``caps``, int32[2, B] or None, each lane's own caps (at most the
+    widths) where lanes differ.  Built on the card, it checks them once and
+    gathers ``qt``, int8[nq * ns, m]: each lane's query char at each tape
+    position, which K8 reads in place of the query and the tape's qpos."""
 
     occ16: torch.Tensor
     c_arr: torch.Tensor
@@ -80,6 +86,28 @@ class FrontierContext:
     rev_off: int  # word offset of the table that serves right extensions
     s_cap: int
     h_cap: int
+    caps: torch.Tensor | None = None
+    cuda: bool = dataclasses.field(init=False)
+    qt: torch.Tensor | None = dataclasses.field(init=False, default=None)
+
+    def __post_init__(self):
+        self.cuda = on_cuda(self.occ16, self.c_arr, self.queries, self.tape,
+                            *(() if self.caps is None else (self.caps,)))
+        if self.cuda:
+            _check_int32(("occ16", self.occ16, None), ("c_arr", self.c_arr, (self.sigma + 1,)),
+                          ("queries", self.queries, None), ("tape", self.tape, (self.ns, self.m)),
+                          *(() if self.caps is None else (("caps", self.caps, (2, self.lanes)),)))
+            if self.occ16.shape[1] != ROW_INTS or not 2 <= self.sigma <= ROW_INTS // 2:
+                raise ValueError(f"the frontier step takes occ16 rows [W, {ROW_INTS}] and 2 <= sigma <= 8")
+            if min(self.s_cap, self.h_cap) < 1:
+                raise ValueError("the frontier step takes s_cap and h_cap of at least 1")
+        if self.caps is not None:  # K8 writes a lane's children and hits below its caps
+            widths = torch.tensor([[self.s_cap], [self.h_cap]], dtype=torch.int32, device=self.caps.device)
+            if not bool(((self.caps >= 1) & (self.caps <= widths)).all()):
+                raise ValueError("each lane's caps must lie between 1 and (s_cap, h_cap)")
+        if not self.cuda:
+            return
+        self.qt = self.queries[:, self.tape >> 9].to(torch.int8).reshape(self.lanes, self.m)
 
     @property
     def m(self) -> int:
@@ -90,31 +118,42 @@ class FrontierContext:
         return self.queries.shape[0] * self.ns
 
 
+def _check_int32(*args) -> None:
+    """Raise unless each (name, tensor, shape) is contiguous int32 of that
+    shape (shape None: any 2-D)."""
+    for name, t, shape in args:
+        check(name, t, torch.int32, 2 if shape is None else len(shape))
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+
+
 def n_kinds(sigma: int, edit: bool) -> int:
     """Children a slot can have: match/sub per symbol 1..sigma-1, and for
     edit distance a deletion per symbol plus one insertion."""
     return 2 * (sigma - 1) + 1 if edit else sigma - 1
 
 
-def frontier_step_plain(ctx: FrontierContext, state, out, hits, hit_cnt, flags) -> None:
-    """One step (see the module docstring): reads ``state``, writes
-    ``out``; updates ``hits``, ``hit_cnt`` and ``flags`` in place.  The
-    reference's step, on the live slots only."""
-    b, s_cap, h_cap, m, sigma = ctx.lanes, ctx.s_cap, ctx.h_cap, ctx.m, ctx.sigma
-    alive = state[SZ] > 0
+def frontier_step_plain(ctx: FrontierContext, state, live, out, out_live, hits, hit_cnt, flags) -> None:
+    """One step (see the module docstring): reads ``state`` and ``live``,
+    writes ``out`` and ``out_live``; updates ``hits``, ``hit_cnt`` and
+    ``flags`` in place.  The reference's step, on the live slots only."""
+    b, m, sigma = ctx.lanes, ctx.m, ctx.sigma
+    s_lim, h_lim = ctx.caps if ctx.caps is not None else torch.tensor(
+        [[ctx.s_cap], [ctx.h_cap]], dtype=torch.int32, device=live.device).expand(2, b)
+    alive = torch.arange(ctx.s_cap, device=live.device) < live[:, None]
     d, op = state[D], state[OP]
 
     # 1. hits: finished slots in slot order after the lane's earlier hits
     done = alive & (d >= m)
     finished = done & ((op & EDGES) == 0)
     fidx = torch.cumsum(finished.to(torch.int32), dim=1) - 1 + hit_cnt[:, None]
-    put = finished & (fidx < h_cap)
+    put = finished & (fidx < h_lim[:, None])
     lanes_h, slots_h = torch.nonzero(put, as_tuple=True)
     for plane, src in enumerate((LB, SZ, ERR)):
         hits[plane][lanes_h, fidx[put].long()] = state[src][lanes_h, slots_h]
     new_hits = finished.sum(dim=1, dtype=torch.int32)
-    flags[1] |= (hit_cnt + new_hits > h_cap).to(torch.int32)
-    hit_cnt.copy_(torch.clamp(hit_cnt + new_hits, max=h_cap))
+    flags[1] |= (hit_cnt + new_hits > h_lim).to(torch.int32)
+    hit_cnt.copy_(torch.minimum(hit_cnt + new_hits, h_lim))
 
     # 2. tape and ranks of the live slots, in (lane, slot) order
     lane, slot = torch.nonzero(alive & ~done, as_tuple=True)
@@ -155,36 +194,46 @@ def frontier_step_plain(ctx: FrontierContext, state, out, hits, hit_cnt, flags) 
     live_kid, kind = live_kid[order], kind[order]
     kid_lane = lane[live_kid]
     total = torch.bincount(kid_lane, minlength=b)
-    flags[0] |= (total > s_cap).to(torch.int32)
+    flags[0] |= (total > s_lim).to(torch.int32)
+    out_live.copy_(torch.minimum(total, s_lim))
     first = torch.cumsum(total, dim=0) - total
     dest = torch.arange(len(kid_lane), device=kid_lane.device) - first[kid_lane]
-    keep = dest < s_cap
+    keep = dest < s_lim[kid_lane]
     out.zero_()
     for plane, f in enumerate(fields):
         out[plane][kid_lane[keep], dest[keep]] = f[live_kid[keep], kind[keep]].to(torch.int32)
 
 
-def frontier_step(ctx: FrontierContext, state, out, hits, hit_cnt, flags) -> None:
-    """One step (see ``frontier_step_plain``): the kernel on CUDA tensors."""
-    if not on_cuda(ctx.occ16, ctx.queries, state, out, hits):
-        frontier_step_plain(ctx, state, out, hits, hit_cnt, flags)
+def check_step(ctx: FrontierContext, state, live, out, out_live, hits, hit_cnt, flags) -> None:
+    """Raise unless the step's buffers lie on the context's device and, on
+    the card, have the dtypes and shapes K8 takes."""
+    if on_cuda(ctx.occ16, state, live, out, out_live, hits, hit_cnt, flags) != ctx.cuda:
+        raise ValueError("the frontier step's buffers must lie on its context's device")
+    if not ctx.cuda:
         return
     b = ctx.lanes
-    for name, t, shape in (("occ16", ctx.occ16, None), ("c_arr", ctx.c_arr, (ctx.sigma + 1,)),
-                           ("queries", ctx.queries, None), ("tape", ctx.tape, (ctx.ns, ctx.m)),
-                           ("state", state, (6, b, ctx.s_cap)), ("out", out, (6, b, ctx.s_cap)),
-                           ("hits", hits, (3, b, ctx.h_cap)), ("hit_cnt", hit_cnt, (b,)), ("flags", flags, (2, b))):
-        check(name, t, torch.int32, 2 if shape is None else len(shape))
-        if shape is not None and tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
-    if ctx.occ16.shape[1] != ROW_INTS or not 2 <= ctx.sigma <= ROW_INTS // 2:
-        raise ValueError(f"the frontier step takes occ16 rows [W, {ROW_INTS}] and 2 <= sigma <= 8")
-    if b == 0:
+    _check_int32(("state", state, (6, b, ctx.s_cap)), ("live", live, (b,)), ("out", out, (6, b, ctx.s_cap)),
+                 ("out_live", out_live, (b,)), ("hits", hits, (3, b, ctx.h_cap)), ("hit_cnt", hit_cnt, (b,)),
+                 ("flags", flags, (2, b)))
+
+
+def frontier_step(ctx: FrontierContext, state, live, out, out_live, hits, hit_cnt, flags, *,
+                  checked: bool = False) -> None:
+    """One step (see ``frontier_step_plain``): the kernel on the card.
+    ``checked``: the caller has passed these buffers through ``check_step``
+    (``scheme_search`` does so once a search, then only launches)."""
+    if not checked:
+        check_step(ctx, state, live, out, out_live, hits, hit_cnt, flags)
+    if not ctx.cuda:
+        frontier_step_plain(ctx, state, live, out, out_live, hits, hit_cnt, flags)
+        return
+    if ctx.lanes == 0:
         return
     rc = _kernel()(
-        ctx.occ16.data_ptr(), ctx.c_arr.data_ptr(), ctx.queries.data_ptr(), ctx.tape.data_ptr(), state.data_ptr(),
-        out.data_ptr(), hits.data_ptr(), hit_cnt.data_ptr(), flags.data_ptr(), b, ctx.sigma, int(ctx.edit),
-        ctx.m, ctx.ns, ctx.rev_off, ctx.s_cap, ctx.h_cap, stream_of(state),
+        ctx.occ16.data_ptr(), ctx.c_arr.data_ptr(), ctx.qt.data_ptr(), ctx.tape.data_ptr(), state.data_ptr(),
+        live.data_ptr(), None if ctx.caps is None else ctx.caps.data_ptr(), out.data_ptr(), out_live.data_ptr(),
+        hits.data_ptr(), hit_cnt.data_ptr(), flags.data_ptr(), ctx.lanes, ctx.sigma, int(ctx.edit), ctx.m, ctx.ns,
+        ctx.rev_off, ctx.s_cap, ctx.h_cap, stream_of(state),
     )
     raise_on_error(rc, "frontier_step")
     LAUNCHES["frontier_step"] += 1

@@ -1,8 +1,9 @@
 """The frontier engine (``engine="approx"``) in the port against
 sahara_tpu's, row for row: schemes, error counts, both metrics, best hits,
-max_hits, a mirrored index, the retry ladder, overflow past the retries,
-and the plain step (K8's plain version) against one JAX ``scheme_search``
-call, lane for lane."""
+max_hits, a mirrored index, the retry ladder (the port retries only the
+overflowing queries, pooled across chunks), overflow past the retries, and
+the plain step (K8's plain version) against one JAX ``scheme_search`` call,
+lane for lane, its live slots a prefix of the length it says."""
 
 import functools
 
@@ -23,7 +24,7 @@ from sahara_tpu_torch.engine.device import DeviceIndex
 from sahara_tpu_torch.engine.driver import load_scheme, search_queries
 from sahara_tpu_torch.engine.tape import compile_tape
 from sahara_tpu_torch.index.build import build_bifmindex
-from sahara_tpu_torch.kernels.frontier import pack_tape
+from sahara_tpu_torch.kernels.frontier import SZ, FrontierContext, frontier_step_plain, pack_tape
 
 M = 24
 
@@ -101,19 +102,36 @@ def test_retries_give_the_uncapped_rows(corpus):
     assert got == want == uncapped
 
 
+def _tapes(pdev, edit=True):
+    """The port's and the JAX package's tape of ``optimum`` at k=2."""
+    tape = compile_tape(load_scheme("optimum", 0, 2, M, edit=edit, sigma=6, n_text=pdev.n))
+    return tape, jax_compile_tape(jax_expand(jax_get_generator("optimum").generator(0, 2, 0, 0), M))
+
+
+def _assert_same_hits(got, want):
+    """Two ``SearchHits`` alike: hits within the counts, counts, both flag
+    arrays and the hit buffers' width."""
+    assert got.lb.shape == want.lb.shape
+    assert np.array_equal(got.count.numpy(), want.count)
+    assert np.array_equal(got.frontier_overflow.numpy(), want.frontier_overflow)
+    assert np.array_equal(got.hit_overflow.numpy(), want.hit_overflow)
+    valid = np.arange(want.lb.shape[2]) < want.count[:, :, None]
+    for name in ("lb", "sz", "err"):
+        assert np.array_equal(np.where(valid, getattr(got, name).numpy(), 0), np.where(valid, getattr(want, name), 0))
+
+
 def test_overflow_after_the_retries_raises(corpus, monkeypatch):
-    """A lane still over its caps after the last attempt: the flags equal
-    the reference's, and the driver raises as the reference does."""
+    """A lane still over its caps after the last attempt: the hits, counts
+    and flags equal the reference's, and the driver raises as the
+    reference does."""
     _, queries, jdev, pdev = corpus
     qarr = np.stack(queries)
-    tape = compile_tape(load_scheme("optimum", 0, 2, M, edit=True, sigma=6, n_text=pdev.n))
-    jtape = jax_compile_tape(jax_expand(jax_get_generator("optimum").generator(0, 2, 0, 0), M))
+    tape, jtape = _tapes(pdev)
     got = approx.run_scheme_search_chunked(pdev, qarr, tape, edit=True, s_cap=1, h_cap=1, max_retries=2)
     want = jax_approx.run_scheme_search_chunked(jdev, qarr.astype(np.int32), jtape, edit=True, s_cap=1, h_cap=1,
                                                 max_retries=2)
     assert got.any_overflow and want.any_overflow
-    assert np.array_equal(got.frontier_overflow.numpy(), want.frontier_overflow)
-    assert np.array_equal(got.hit_overflow.numpy(), want.hit_overflow)
+    _assert_same_hits(got, want)
     monkeypatch.setattr(driver, "run_scheme_search_chunked",
                         functools.partial(approx.run_scheme_search_chunked, max_retries=1))
     monkeypatch.setattr(jax_driver, "run_scheme_search_chunked",
@@ -121,6 +139,43 @@ def test_overflow_after_the_retries_raises(corpus, monkeypatch):
     for search, index, extra in ((search_queries, pdev, {"device": "cpu"}), (jax_driver.search_queries, jdev, {})):
         with pytest.raises(RuntimeError, match="overflowed its frontier/hit buffers after retries"):
             search(index, queries, k=2, generator_name="optimum", engine="approx", s_cap=1, h_cap=1, **extra)
+
+
+@pytest.mark.parametrize("caps,max_retries", [((2, 1), 8), ((1, 1), 2)], ids=["ladder", "exhausted"])
+def test_pooled_retries_match_jax(corpus, monkeypatch, caps, max_retries):
+    """Two chunks of 8 queries on the reference's cap ladder, each chunk's
+    retries searching only its overflowing queries, in one search with the
+    other chunk's (each query at its own chunk's caps): the whole
+    ``SearchHits`` equals the JAX package's, whose chunks rerun whole.  On
+    the ladder the chunks end at different caps, so some search holds
+    queries at two caps; exhausted, lanes still overflow after two
+    attempts."""
+    _, queries, jdev, pdev = corpus
+    qarr = np.stack(queries)
+    tape, jtape = _tapes(pdev)
+    searched = []
+    search = approx.scheme_search
+
+    def recorded(index, q, *args, **kw):
+        chunks = {int(np.flatnonzero((qarr == row).all(axis=1))[0]) // 8 for row in q.numpy()}
+        searched.append((q.shape[0], kw["s_cap"], kw["h_cap"], chunks, kw["caps"] is not None))
+        return search(index, q, *args, **kw)
+
+    monkeypatch.setattr(approx, "scheme_search", recorded)
+    kw = dict(edit=True, s_cap=caps[0], h_cap=caps[1], max_retries=max_retries)
+    got = approx.run_scheme_search_chunked(pdev, qarr, tape, chunk=8, **kw)
+    want = jax_approx.run_scheme_search_chunked(jdev, qarr.astype(np.int32), jtape, chunk=8, **kw)
+    _assert_same_hits(got, want)
+    assert searched[:2] == [(8, *caps, {0}, False), (8, *caps, {1}, False)] and all(x[0] <= 8 for x in searched)
+    retried = [x[0] for x in searched[2:]]
+    assert retried and sum(retried) < 16 * (max_retries - 1)  # not every query of every attempt
+    assert any(x[3] == {0, 1} for x in searched[2:])  # both chunks' retries in one search
+    if max_retries == 2:
+        assert want.any_overflow
+    else:
+        widths = {jax_approx.run_scheme_search(jdev, qarr[i : i + 8].astype(np.int32), jtape, **kw).lb.shape[2]
+                  for i in (0, 8)}
+        assert len(widths) == 2 and not want.any_overflow and any(x[4] for x in searched)
 
 
 @pytest.mark.parametrize("edit", [True, False])
@@ -147,6 +202,54 @@ def test_plain_step_matches_jax_scheme_search(corpus, edit):
         assert np.array_equal(np.where(valid, got, 0), np.where(valid, want, 0))
     assert cnt.sum() >= 6 and (hovf.any() or fovf.any())
     assert not cnt.reshape(len(qarr), -1)[3].any()
+
+
+def test_plain_step_live_slots_are_a_prefix(corpus, monkeypatch):
+    """At every step of a search with some overflowing lanes, the plain
+    step's next frontier holds its live slots (sz > 0) in the prefix
+    0 .. live - 1 of each lane, live = min(children, s_cap), and nothing
+    past it; and the step reads nothing past ``live``: junk in the dead
+    slots of its input changes none of its outputs."""
+    _, queries, _, pdev = corpus
+    tape, _ = _tapes(pdev)
+    step, seen = approx.frontier_step, []
+    junk = torch.Generator().manual_seed(5)
+
+    def check(ctx, state, live, out, out_live, hits, hit_cnt, flags, **kw):
+        dead = torch.arange(ctx.s_cap) >= live[:, None]
+        noisy = torch.where(dead, torch.randint(-9, 99, state.shape, generator=junk, dtype=torch.int32), state)
+        again = [torch.empty_like(out), torch.empty_like(out_live), hits.clone(), hit_cnt.clone(), flags.clone()]
+        frontier_step_plain(ctx, noisy, live, *again)
+        step(ctx, state, live, out, out_live, hits, hit_cnt, flags, **kw)
+        assert all(torch.equal(a, b) for a, b in zip((out, out_live, hits, hit_cnt, flags), again))
+        slots = torch.arange(ctx.s_cap)
+        assert torch.equal(out[SZ] > 0, slots < out_live[:, None])
+        assert not out[:, slots >= out_live[:, None]].any()
+        seen.append((int(out_live.max()), int(flags[0].sum())))
+
+    monkeypatch.setattr(approx, "frontier_step", check)
+    qarr = torch.from_numpy(np.stack(queries).astype(np.int32))
+    words = torch.from_numpy(pack_tape(tape.side, tape.qpos, tape.lo, tape.hi))
+    approx.scheme_search(pdev, qarr, words, torch.ones(len(qarr), dtype=torch.bool), edit=True, s_cap=4, h_cap=2,
+                         k=2)
+    assert len(seen) == M + 3 and max(n for n, _ in seen) == 4 and seen[-1][1] > 0
+
+
+@pytest.mark.parametrize("s_lim,h_lim", [(5, 2), (4, 3), (0, 1)], ids=["s_cap", "h_cap", "zero"])
+def test_context_refuses_caps_past_the_widths(corpus, s_lim, h_lim):
+    """A lane's own caps must lie between 1 and the buffers' widths (4, 2):
+    the kernel writes a lane's children and hits below them."""
+    _, queries, _, pdev = corpus
+    tape, _ = _tapes(pdev)
+    qarr = torch.from_numpy(np.stack(queries).astype(np.int32))
+    words = torch.from_numpy(pack_tape(tape.side, tape.qpos, tape.lo, tape.hi))
+    caps = torch.tensor([[4], [2]], dtype=torch.int32).repeat(1, len(qarr) * tape.num_searches)
+    FrontierContext(pdev.occ, pdev.c_arr, qarr, words, pdev.sigma, True, tape.num_searches, pdev.rev_word_off, 4, 2,
+                    caps.clone())
+    caps[:, -1] = torch.tensor([s_lim, h_lim])
+    with pytest.raises(ValueError, match="caps"):
+        FrontierContext(pdev.occ, pdev.c_arr, qarr, words, pdev.sigma, True, tape.num_searches, pdev.rev_word_off,
+                        4, 2, caps)
 
 
 def test_approx_needs_a_bidirectional_index(corpus):

@@ -13,6 +13,7 @@ import io
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from sahara_tpu_torch.cli.main import main as cli_main
 from sahara_tpu_torch.engine import approx, seedverify, workq
@@ -30,7 +31,7 @@ from sahara_tpu_torch.index.textstore import unpack_text4
 from sahara_tpu_torch.io.fasta import FastaRecord, write_fasta
 from sahara_tpu_torch.kernels import LAUNCHES
 from sahara_tpu_torch.kernels.exact import exact_search, exact_search_plain, table_start
-from sahara_tpu_torch.kernels.frontier import SZ, frontier_step_plain
+from sahara_tpu_torch.kernels.frontier import FrontierContext, frontier_step, frontier_step_plain, pack_tape
 from sahara_tpu_torch.kernels.lf_walk import lf_walk, lf_walk_plain
 from sahara_tpu_torch.kernels.rank import rank_all, rank_all_plain
 from sahara_tpu_torch.kernels.rank_smem import (
@@ -721,33 +722,113 @@ def frontier_host(request):
 @pytest.mark.parametrize("edit,caps", [(True, (64, 32)), (False, (64, 32)), (True, (2, 1))],
                          ids=["edit", "hamming", "overflow"])
 def test_frontier_step_kernel_matches_plain(frontier_host, monkeypatch, edit, caps):
-    """K8 against its plain version at every step of a real search (every
-    attempt of the retry ladder): the live slots of the next frontier, the
-    hit buffers, the hit counts and the overflow flags."""
+    """K8 against its plain version at every step of a real search in
+    chunks of 64 queries (every search of the retry ladder, where chunks
+    at different caps share a search): the next frontier's live counts and
+    its live prefix, the hit buffers, the hit counts and the overflow
+    flags."""
     dev = _card()
     idx_host, _, queries = frontier_host
     index = DeviceIndex.from_host(idx_host, device=dev)
     tape = compile_tape(load_scheme("optimum", 0, 2, 40, edit=edit, sigma=index.sigma, n_text=idx_host.n))
     kernel = approx.frontier_step
-    seen = dict(steps=0, hits=0, overflow=0)
+    seen, found = dict(steps=0, overflow=0, widest=0, mixed=0), []  # found: [context, its hits] a search
 
-    def check(ctx, state, out, hits, hit_cnt, flags):
-        want = [out.clone(), hits.clone(), hit_cnt.clone(), flags.clone()]
+    def check(ctx, state, live, out, out_live, hits, hit_cnt, flags, **kw):
+        want = [out.clone(), out_live.clone(), hits.clone(), hit_cnt.clone(), flags.clone()]
         before = LAUNCHES["frontier_step"]
-        kernel(ctx, state, out, hits, hit_cnt, flags)
+        kernel(ctx, state, live, out, out_live, hits, hit_cnt, flags, **kw)
         torch.cuda.synchronize()
         assert LAUNCHES["frontier_step"] == before + 1
-        frontier_step_plain(ctx, state, *want)
-        live = out[SZ] > 0
-        assert torch.equal(live, want[0][SZ] > 0)
-        assert torch.equal(torch.where(live, out, 0), torch.where(live, want[0], 0))
-        assert all(torch.equal(a, b) for a, b in zip((hits, hit_cnt, flags), want[1:]))
-        seen.update(steps=seen["steps"] + 1, hits=int(hit_cnt.sum()), overflow=seen["overflow"] + int(flags.sum()))
+        frontier_step_plain(ctx, state, live, *want)
+        assert torch.equal(out_live, want[1])
+        prefix = torch.arange(ctx.s_cap, device=dev) < out_live[:, None]
+        assert torch.equal(torch.where(prefix, out, 0), want[0])
+        assert all(torch.equal(a, b) for a, b in zip((hits, hit_cnt, flags), want[2:]))
+        warp_lists = F.pad(live, (0, -len(live) % 8)).reshape(-1, 8).sum(dim=1)  # 8 lanes a warp
+        seen.update(steps=seen["steps"] + 1, overflow=seen["overflow"] + int(flags.sum()),
+                    widest=max(seen["widest"], int(warp_lists.max())), mixed=seen["mixed"] + (ctx.caps is not None))
+        if not found or found[-1][0] is not ctx:
+            found.append([ctx, 0])
+        found[-1][1] = int(hit_cnt.sum())
 
     monkeypatch.setattr(approx, "frontier_step", check)
-    approx.run_scheme_search(index, queries, tape, edit=edit, s_cap=caps[0], h_cap=caps[1])
-    assert seen["steps"] >= 41 and seen["hits"] >= 250
-    assert seen["overflow"] > 0 or caps != (2, 1)
+    approx.run_scheme_search_chunked(index, queries, tape, edit=edit, s_cap=caps[0], h_cap=caps[1], chunk=64)
+    assert seen["steps"] >= 41 and sum(n for _, n in found) >= 250
+    assert (seen["overflow"] > 0 and seen["mixed"] > 0) or caps != (2, 1)
+    assert seen["widest"] > 32 or caps == (2, 1) or not edit  # a warp's list of two rounds
+
+
+def test_frontier_step_checks_its_buffers(frontier_host):
+    """On the card, ``frontier_step`` called on its own checks every buffer
+    and launches nothing on a wrong one: a frontier of the wrong width, a
+    live count on the CPU, int64 hit counts; its context refuses lane caps
+    wider than the buffers."""
+    dev = _card()
+    idx_host, _, queries = frontier_host
+    index = DeviceIndex.from_host(idx_host, device=dev)
+    tape = compile_tape(load_scheme("optimum", 0, 2, 40, edit=True, sigma=index.sigma, n_text=idx_host.n))
+    words = torch.from_numpy(pack_tape(tape.side, tape.qpos, tape.lo, tape.hi)).to(dev)
+    q = torch.from_numpy(queries[:8].astype(np.int32)).to(dev)
+    ctx = FrontierContext(index.occ, index.c_arr, q, words, index.sigma, True, tape.num_searches,
+                          index.rev_word_off, 4, 2)
+    b = ctx.lanes
+    i32 = dict(dtype=torch.int32, device=dev)
+    good = [torch.zeros((6, b, 4), **i32), torch.ones(b, **i32), torch.zeros((6, b, 4), **i32),
+            torch.zeros(b, **i32), torch.zeros((3, b, 2), **i32), torch.zeros(b, **i32), torch.zeros((2, b), **i32)]
+    bad = {2: torch.zeros((6, b, 8), **i32), 1: torch.ones(b, dtype=torch.int32), 5: torch.zeros(b, dtype=torch.int64,
+                                                                                                  device=dev)}
+    before = LAUNCHES["frontier_step"]
+    for at, wrong in bad.items():
+        with pytest.raises((ValueError, TypeError)):
+            frontier_step(ctx, *good[:at], wrong, *good[at + 1:])
+    for s_lim, h_lim in ((5, 2), (4, 3), (0, 1)):
+        caps = torch.tensor([[4] * b, [2] * b], **i32)
+        caps[:, b - 1] = torch.tensor([s_lim, h_lim])
+        with pytest.raises(ValueError, match="caps"):
+            FrontierContext(index.occ, index.c_arr, q, words, index.sigma, True, tape.num_searches,
+                            index.rev_word_off, 4, 2, caps)
+    assert LAUNCHES["frontier_step"] == before
+    frontier_step(ctx, *good)
+    assert LAUNCHES["frontier_step"] == before + 1
+
+
+def test_pooled_retries_on_card_match_whole_chunks(frontier_host):
+    """Chunks of 16 queries from caps of 2 slots and 1 hit: the engine's
+    retries (only the overflowing queries, pooled across chunks) against
+    each chunk searched whole at every rung of its own ladder, as the
+    reference does: the same hits within the counts, counts and flags."""
+    dev = _card()
+    idx_host, _, queries = frontier_host
+    index = DeviceIndex.from_host(idx_host, device=dev)
+    tape = compile_tape(load_scheme("optimum", 0, 2, 40, edit=True, sigma=index.sigma, n_text=idx_host.n))
+    before = LAUNCHES["frontier_step"]
+    got = approx.run_scheme_search_chunked(index, queries, tape, edit=True, s_cap=2, h_cap=1, chunk=16)
+    pooled = LAUNCHES["frontier_step"] - before
+    words = torch.from_numpy(pack_tape(tape.side, tape.qpos, tape.lo, tape.hi)).to(dev)
+    widths, whole = [], 0
+    for lo in range(0, len(queries), 16):
+        q = torch.from_numpy(queries[lo : lo + 16].astype(np.int32)).to(dev)
+        every = torch.ones(len(q), dtype=torch.bool, device=dev)
+        s_cap, h_cap = 2, 1
+        for attempt in range(8):
+            hits, cnt, flags = approx.scheme_search(index, q, words, every, edit=True, s_cap=s_cap, h_cap=h_cap, k=2)
+            whole += 1
+            over = flags.cpu().bool()
+            if not over.any() or attempt == 7:
+                break
+            s_cap, h_cap = s_cap * (2 if over[0].any() else 1), h_cap * (2 if over[1].any() else 1)
+        rows = slice(lo, lo + len(q))
+        assert torch.equal(got.count[rows].reshape(-1), cnt)
+        assert torch.equal(torch.stack([got.frontier_overflow[rows], got.hit_overflow[rows]]).reshape(2, -1), over)
+        valid = torch.arange(h_cap, device=dev) < cnt[:, None]
+        for mine, want in zip((got.lb, got.sz, got.err), hits):
+            assert torch.equal(torch.where(valid, mine[rows, :, :h_cap].reshape(-1, h_cap), 0),
+                               torch.where(valid, want, 0))
+        widths.append(h_cap)
+    assert got.lb.shape[2] == max(widths) and len(set(widths)) > 1  # chunks end at different caps
+    assert pooled < whole * (40 + 1 + 2)  # fewer searches than the chunks' rungs
+    assert int(got.count.sum()) >= 250
 
 
 @pytest.mark.parametrize("kw", [dict(edit=True), dict(edit=False), dict(edit=True, max_hits=2, mode="besthits")],
