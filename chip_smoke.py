@@ -87,6 +87,17 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
    timed passes, a profiled pass and its syncs; the CLI's
    ``search --engine approx`` of the first 4,096 strand queries against the
    JAX CLI's (``JAX_APPROX_CLI_*``);
+   then phase ``mesh``: a data mesh of the card listed twice, the index
+   replicated (one upload), the workload through ``auto`` (seed-and-verify
+   with exact parts) and ``engine="workq"`` on the mesh, each against
+   ``JAX_SHA256`` and timed beside the single-device pass on the same
+   upload (three passes, a profiled one, the launches of each); phase 8's N
+   reads on the mesh against their single-device rows; the short-read
+   workload's first 4,096 reads through ``auto`` on the mesh, which takes
+   the reference's mesh route, the work-queue engine, against
+   ``JAX_E1_WORKQ_PREFIX_*`` (beside one device's SV-e1 rows); and
+   ``distributed_scheme_search`` on chunk 0 against one ``scheme_search``
+   (the whole ``SearchHits``);
 10. phase ``cli`` goes on, the CLI run in this process (``run_cli``) so
    that the launch counts can be read: ``search -e 2 -d lev`` of the
    workload's reads on the card, its output byte-equal to the JAX
@@ -109,6 +120,18 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
    (``resident_budget=0``: the same rows, one pass, each shard's upload
    seconds), and phase 8's N reads, whose deferred fallback runs K5 on
    whole shards and gives phase 8's rows;
+   then phase ``interval_mesh``: ``distributed_interval_search`` over the
+   three shards, shard i on mesh entry i (the card three times), the
+   workload against ``JAX_SHA256`` (K1 at each upload, K5, K7); phase
+   ``multihost``: two ranks of the CLI's ``search -e 2 -d lev --mh_*``
+   sharing the card, rank 0's merged file against ``JAX_CLI_*``, no part
+   file left; phase ``corpus``: the synthetic genome of ``sim/corpus.py``
+   (16 Mbp, N gaps, satellites, five records) through the CLI's ``index``,
+   plain and ``--max_shard_mb 4``, its reads (less 82 low-complexity
+   poly-A reads) through ``auto`` (with the fallback's share), ``workq``,
+   ``approx`` and ``search_queries_sharded`` (resident, swap), each against
+   ``JAX_CORPUS_*``; the poly-A reads through ``approx``, which overflows
+   after its retries, and the work-queue engine's hit volume for them;
 11. phase ``uni``: 65,536 error-free 100 bp reads through the port's
    ``read_simulator`` (read seed 99), ``uni-index`` of the reference and
    ``uni-search`` of the 131,072 strand queries on the card, its output
@@ -259,6 +282,46 @@ JAX_KMER_LINES = 74251
 KMER_FLAGS = ["--kmer", "3", "--window", "4"]
 KMER_SIGMA = 32
 
+# Phase corpus: the synthetic genome of sahara_tpu_torch/sim/corpus.py
+# (sim.workload.corpus_workload: make_genome(default_rng(21), 16,000,000) at
+# its default densities, records of 4.4, 3.6, 3.0, 2.7 and 2.3 M chars,
+# 16,640 reads of 100 bp with 2 planted errors simulated from them with seed
+# 5, each followed by its reverse complement, less the 82 reads one of whose
+# strands is 80% or more one base: 16,558 reads, 33,116 strand queries;
+# sha256 of the concatenated records and of the strand queries below).  The
+# JAX package's rows were recorded on the CPU with sahara_tpu, from the
+# repository's root, HOME pointed at a scratch directory, JAX_PLATFORMS=cpu
+# and `ulimit -v 30000000`: the same genome, reads and filter through
+# sahara_tpu.sim.corpus.make_genome and
+# sahara_tpu.sim.read_simulator.simulate_reads, then block by block of
+# strand queries, each block's query_ids its global numbers (a query's rows
+# depend on no other query in its call), the rows concatenated:
+# search_queries(k=2, edit=True, chunk=16384) on
+# DeviceIndex.from_host(build_bifmindex(records, 6, "d_dna5", rate=16)) in
+# blocks of 2,048 (auto), the same with engine="workq",
+# generator_name="optimum", and with engine="approx",
+# generator_name="optimum" in blocks of 1,024 on the first
+# CORPUS_APPROX_PREFIX strand queries (the JAX frontier engine on the CPU
+# takes minutes a block, and 49 GB for a block of 16,384); and
+# search_queries_sharded(build_sharded_bifmindex(records, 6, "d_dna5",
+# rate=16, max_chars=4_000_000), k=2, edit=True, chunk=16384) in blocks of
+# 2,048.  Whole, the JAX package's SV and work-queue paths outgrow a 62 GB
+# host.  auto, workq and the sharded index give the
+# same rows; the reference's two sharded regimes give the same rows, so the
+# swap pass is held to the sharded hash.  Rows and sha256 as for JAX_HITS.
+CORPUS_GENOME_SHA256 = "577d3eeee36a64b21d1ac18afb20cc3950a6f26bad713ebe2f891f7676f2eeff"
+CORPUS_QUERIES_SHA256 = "6d2b3d79c3bb4e8d716e31c69d805b544d0952553236cc3dedc03c618ca353ea"
+CORPUS_SHARD_MB = 4
+CORPUS_APPROX_PREFIX = 2048
+JAX_CORPUS_HITS = 970832
+JAX_CORPUS_SHA256 = "c46606c2327a9fe9a84ca1c4c69c998d8426da1fd40a1728ace1ee7f7ce70a1a"
+JAX_CORPUS_WORKQ_HITS = 970832
+JAX_CORPUS_WORKQ_SHA256 = "c46606c2327a9fe9a84ca1c4c69c998d8426da1fd40a1728ace1ee7f7ce70a1a"
+JAX_CORPUS_APPROX_PREFIX_HITS = 77544
+JAX_CORPUS_APPROX_PREFIX_SHA256 = "7da8e77b18c9e617bf36cee2acacc350eff62194fd7f5f9202bdab566707b816"
+JAX_CORPUS_SHARD_HITS = 970832
+JAX_CORPUS_SHARD_SHA256 = "c46606c2327a9fe9a84ca1c4c69c998d8426da1fd40a1728ace1ee7f7ce70a1a"
+
 # The conformance corpus and cases of tests/test_conformance.py (which
 # imports the JAX package, so they are copied here; tests/test_torch_cli.py
 # holds the copies equal): reads (count, length, errors, seed) simulated from
@@ -291,6 +354,7 @@ RANK_BENCH_POSITIONS = 262144  # bench_rank.py's default batch
 SMEM_TEXT_MB = 0.1  # the largest random text whose occ table K4 takes
 E1_K = 3  # the short-read workload's k: 36 // 4 < 10, so one-error seeds
 E1_PREFIX_READS = 4096  # the work-queue engine's share of the short-read workload
+MESH_ENTRIES = 2  # phase mesh: the card listed twice (the machine has one GPU)
 EXACT_READS = 65536  # error-free reads of phases uni and kmer
 # a kernel's figures at the sv_e1 path's shape, kept in its row as e1_<key>
 E1_KEYS = ("max_abs_err", "ms", "cold_ms", "call_ms", "old_ms", "old_cold_ms", "plain_ms", "bound_ms", "bound_by",
@@ -2503,6 +2567,368 @@ def sharded_phase(tmp: str, fasta: str, reads: str, queries: np.ndarray, sv_rows
     return out
 
 
+def pair_passes(label: str, runs: dict, n_reads: int) -> dict:
+    """Each of ``runs`` (name -> (run, check)) as a pass: its launches from
+    zero, three timed passes (``check`` holds each result) and a profiled
+    pass (device busy share), the single-device pass and the mesh pass in
+    turn."""
+    from sahara_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    out = {}
+    for name, (run, check) in runs.items():
+        reset_launches()
+        t0 = time.perf_counter()
+        check(run())
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        passes = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            passes.append(time.perf_counter() - t0)
+            check(res)
+        dt = sorted(passes)[1]
+        prof = profile_pass(run)
+        busy = prof["device_busy_ms"]
+        out[name] = dict(first_pass_s=first, passes_s=passes, pass_s=dt, reads_per_s=n_reads / dt, launches=launches,
+                         device_busy_ms=busy, busy_share=busy / (dt * 1e3), top_device_ms=prof["top_device_ms"],
+                         top_host_tottime_ms=prof["top_host_tottime_ms"])
+        print(f"  {label}, {name}: {dt * 1e3:.1f} ms (median of 3) -> {n_reads / dt:.1f} reads/s, device busy "
+              f"{busy:.1f} ms ({busy / (dt * 1e3) * 100:.1f}%), launches {json.dumps(launches)}; host by tottime "
+              f"{[(f, round(ms, 1)) for f, ms, _ in prof['top_host_tottime_ms'][:4]]}", flush=True)
+    return out
+
+
+def rows_check(want: np.ndarray, what: str):
+    def check(res) -> None:
+        if not np.array_equal(sorted_rows(res), want):
+            raise AssertionError(f"{what} gave another hit set")
+    return check
+
+
+def mesh_phase(host, queries: np.ndarray, sv_rows: np.ndarray, n_queries: np.ndarray, n_rows: np.ndarray,
+               ref: np.ndarray) -> dict:
+    """The data mesh, the card listed MESH_ENTRIES times (the machine has one
+    GPU): the index replicated (one upload), the workload through ``auto``
+    (seed-and-verify, exact parts) and ``workq`` against ``JAX_SHA256``, the
+    N reads against their single-device rows, the short-read prefix through
+    ``auto``, which takes the work-queue engine on a mesh, against
+    ``JAX_E1_WORKQ_PREFIX_*``, and ``distributed_scheme_search`` on chunk 0
+    against one ``scheme_search``; each beside its single-device pass on the
+    same upload."""
+    from sahara_tpu_torch.engine import approx
+    from sahara_tpu_torch.engine.driver import load_scheme, search_queries
+    from sahara_tpu_torch.engine.tape import compile_tape
+    from sahara_tpu_torch.kernels import LAUNCHES, reset_launches
+    from sahara_tpu_torch.kernels.frontier import pack_tape
+    from sahara_tpu_torch.parallel import data_mesh, distributed_scheme_search, replicate_index
+    from sahara_tpu_torch.sim.workload import short_reads
+
+    card = torch.device("cuda", 0)
+    mesh = data_mesh(devices=[card] * MESH_ENTRIES)
+    reset_launches()
+    t0 = time.perf_counter()
+    reps = replicate_index(host, mesh)
+    torch.cuda.synchronize()
+    out = dict(entries=MESH_ENTRIES, upload_s=time.perf_counter() - t0, upload_launches=dict(LAUNCHES))
+    require_launches(out["upload_launches"], ("rank_all",), "mesh upload")
+    if any(r is not reps[0] for r in reps):
+        raise AssertionError("the mesh uploaded the index more than once to one card")
+    one, n_reads = reps[0], len(queries) // 2
+    print(f"mesh: {MESH_ENTRIES} x {card}, one upload {out['upload_s']:.2f} s", flush=True)
+
+    kw = dict(k=K, edit=True, chunk=CHUNK)
+    for label, extra, kernels in (("auto", {}, ("seed_scan", "verify")),
+                                  ("workq", dict(engine="workq", generator_name=WORKQ_GENERATOR), ("workq_step",))):
+        run_kw = {**kw, **extra}
+        check = rows_check(sv_rows, f"the mesh's {label} pass")
+        out[label] = pair_passes(f"mesh {label} ({JAX_HITS} rows, JAX_SHA256)", {
+            "single": (lambda: search_queries(one, queries, **run_kw), check),
+            "mesh": (lambda: search_queries(reps, queries, mesh=mesh, **run_kw), check),
+        }, n_reads)
+        require_launches(out[label]["mesh"]["launches"], kernels, f"mesh {label}")
+
+    reset_launches()
+    got = sorted_rows(search_queries(reps, n_queries, mesh=mesh, **kw))
+    out["fallback"] = dict(launches=dict(LAUNCHES), hits=len(got))
+    require_launches(out["fallback"]["launches"], ("seed_scan", "verify", "workq_step"), "mesh fallback")
+    if not np.array_equal(got, n_rows):
+        raise AssertionError("the N reads on the mesh differ from their single-device rows")
+    print(f"mesh fallback: the N reads' {len(got)} rows equal the single-device rows", flush=True)
+
+    # short reads: exact parts do not apply at m=36, k=3, so a mesh takes the
+    # work-queue engine (the reference's mesh route), one device SV-e1
+    sub = short_reads(ref)[: 2 * E1_PREFIX_READS]
+    e1_kw = dict(k=E1_K, edit=True, chunk=CHUNK, generator_name=WORKQ_GENERATOR)
+    wq_rows = sorted_rows(search_queries(reps, sub, mesh=mesh, **e1_kw))
+    e1_rows = sorted_rows(search_queries(one, sub, **e1_kw))
+    only_e1 = {tuple(r) for r in e1_rows[:, :3].tolist()} - {tuple(r) for r in wq_rows[:, :3].tolist()}
+    out["short"] = dict(hits=len(wq_rows), sha256=rows_sha(wq_rows), sv_e1_hits=len(e1_rows),
+                        rows_only_sv_e1=len(only_e1), other_errors=len(e1_rows) - len(wq_rows) - len(only_e1))
+    print(f"mesh short reads ({E1_PREFIX_READS} reads, k={E1_K}): {len(wq_rows)} rows sha256 {out['short']['sha256']} "
+          f"(JAX_E1_WORKQ_PREFIX: {JAX_E1_WORKQ_PREFIX_HITS}); one device's SV-e1 {len(e1_rows)} rows "
+          f"(JAX_E1_PREFIX: {JAX_E1_PREFIX_HITS}), {len(only_e1)} positions only SV-e1 finds", flush=True)
+    if len(wq_rows) != JAX_E1_WORKQ_PREFIX_HITS or out["short"]["sha256"] != JAX_E1_WORKQ_PREFIX_SHA256:
+        raise AssertionError("the short reads on the mesh differ from the JAX package's work-queue rows")
+    if len(e1_rows) != JAX_E1_PREFIX_HITS or rows_sha(e1_rows) != JAX_E1_PREFIX_SHA256:
+        raise AssertionError("the short reads' SV-e1 rows differ from the JAX package's")
+    out["short"].update(pair_passes("mesh short reads", {
+        "single": (lambda: search_queries(one, sub, **e1_kw), rows_check(e1_rows, "SV-e1 on the short reads")),
+        "mesh": (lambda: search_queries(reps, sub, mesh=mesh, **e1_kw),
+                 rows_check(wq_rows, "the mesh's short reads")),
+    }, E1_PREFIX_READS))
+    require_launches(out["short"]["mesh"]["launches"], ("workq_step",), "mesh short reads")
+    if "seed_scan" in out["short"]["mesh"]["launches"] or "verify" in out["short"]["mesh"]["launches"]:
+        raise AssertionError("the short reads on the mesh took seed-and-verify")
+
+    # the frontier engine's one search at fixed caps, chunk 0
+    m = queries.shape[1]
+    tape = compile_tape(load_scheme(WORKQ_GENERATOR, 0, K, m, edit=True, sigma=host.sigma, n_text=host.n))
+    q0 = queries[:CHUNK]
+    words = torch.from_numpy(pack_tape(tape.side, tape.qpos, tape.lo, tape.hi)).to(card)
+    q0_dev, act = torch.from_numpy(q0.astype(np.int32)).to(card), torch.ones(CHUNK, dtype=torch.bool, device=card)
+    hits, cnt, flags = approx.scheme_search(one, q0_dev, words, act, edit=True, s_cap=64, h_cap=32, k=K)
+    ns = tape.num_searches
+    want = (*hits.reshape(3, CHUNK, ns, 32), cnt.reshape(CHUNK, ns), *flags.cpu().bool().reshape(2, CHUNK, ns))
+
+    def same(res) -> None:
+        got_hits, total = res
+        fields = (got_hits.lb, got_hits.sz, got_hits.err, got_hits.count, got_hits.frontier_overflow,
+                  got_hits.hit_overflow)
+        if not all(torch.equal(a, b) for a, b in zip(fields, want)) or total != int(cnt.sum()):
+            raise AssertionError("distributed_scheme_search differs from one scheme_search")
+
+    out["scheme"] = pair_passes(f"scheme search of chunk 0 ({CHUNK} queries, s_cap 64, h_cap 32)", {
+        "single": (lambda: (approx.scheme_search(one, q0_dev, words, act, edit=True, s_cap=64, h_cap=32, k=K), None),
+                   lambda res: None),
+        "mesh": (lambda: distributed_scheme_search(mesh, reps, q0, tape, edit=True), same),
+    }, CHUNK // 2)
+    require_launches(out["scheme"]["mesh"]["launches"], ("frontier_step",), "mesh scheme search")
+    out["scheme"].update(hits=int(cnt.sum()), overflow_lanes=int(flags.bool().any(dim=0).sum()))
+    print(f"mesh scheme search: SearchHits equal one scheme_search's ({out['scheme']['hits']} hit intervals, "
+          f"{out['scheme']['overflow_lanes']} overflowing lanes)", flush=True)
+    return out
+
+
+def interval_mesh_phase(tmp: str, queries: np.ndarray, sv_rows: np.ndarray) -> dict:
+    """``distributed_interval_search`` over phase sharded's index, shard i
+    on mesh entry i (the card three times): the whole workload at k=2 edit
+    distance against ``JAX_SHA256``, K5 searching and K7 locating."""
+    from sahara_tpu_torch.engine.device import device_bytes
+    from sahara_tpu_torch.engine.driver import load_scheme
+    from sahara_tpu_torch.engine.tape import compile_tape
+    from sahara_tpu_torch.index.shard import load_any_index
+    from sahara_tpu_torch.kernels import LAUNCHES, reset_launches
+    from sahara_tpu_torch.parallel import data_mesh
+    from sahara_tpu_torch.parallel.interval import distributed_interval_search
+
+    sh = load_any_index(os.path.join(tmp, "sharded", "ref.fasta.idx"))
+    mesh = data_mesh(devices=[torch.device("cuda", 0)] * sh.num_shards)
+    tape = compile_tape(load_scheme(WORKQ_GENERATOR, 0, K, queries.shape[1], edit=True, sigma=sh.sigma,
+                                    n_text=sum(h.n for h in sh.shards)))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = distributed_interval_search(mesh, sh, queries, tape, edit=True, chunk=CHUNK)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rows = sorted_rows(res)
+    out = dict(shards=sh.num_shards, windowed_gids=sh.windowed_gids.tolist(), pass_s=dt,
+               reads_per_s=len(queries) / 2 / dt, launches=dict(LAUNCHES), hits=len(rows), sha256=rows_sha(rows),
+               shard_bytes=[device_bytes(h, full_sa=False) for h in sh.shards],
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    require_launches(out["launches"], ("rank_all", "workq_step", "lf_walk"), "interval mesh")
+    print(f"interval mesh: {sh.num_shards} shards on {mesh.size} x cuda:0, {len(rows)} rows sha256 {out['sha256']} "
+          f"(JAX_SHA256), one pass {dt:.2f} s with the uploads ({out['reads_per_s']:.1f} reads/s); shards' bytes on "
+          f"the card {out['shard_bytes']}, max_memory_allocated {out['max_memory_allocated']} B; launches "
+          f"{json.dumps({k: v for k, v in out['launches'].items() if v})}", flush=True)
+    if len(rows) != JAX_HITS or out["sha256"] != JAX_SHA256 or not np.array_equal(rows, sv_rows):
+        raise AssertionError("the interval mesh search differs from the JAX package's rows")
+    return out
+
+
+# One rank of phase multihost: the CLI's main, as ``python -m
+# sahara_tpu_torch`` runs it, then the rank's launch counts and the wall
+# seconds of main.
+MH_RANK = ("import json, sys, time; from sahara_tpu_torch.cli.main import main; "
+           "from sahara_tpu_torch.kernels import LAUNCHES; t0 = time.perf_counter(); rc = main(sys.argv[1:]); "
+           "print('rank ' + json.dumps(dict(launches=LAUNCHES, main_s=time.perf_counter() - t0)), flush=True); "
+           "sys.exit(rc)")
+MH_RANKS = 2
+
+
+def multihost_phase(tmp: str, fasta: str, reads: str) -> dict:
+    """MH_RANKS processes of the CLI's ``search -e 2 -d lev --mh_*`` sharing
+    the card (gloo on localhost): rank 0's merged file against
+    ``JAX_CLI_*``, no part file left, each rank's launches, wall and stats
+    block."""
+    import socket
+
+    mdir = os.path.join(tmp, "multihost")
+    os.makedirs(mdir)
+    out_path = os.path.join(mdir, "out.txt")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [repo, os.environ.get("PYTHONPATH")])))
+    argv = ["search", "-q", reads, "-i", fasta + ".idx", "-o", out_path, "-e", str(K), "-d", "lev",
+            "--mh_coordinator", f"127.0.0.1:{port}", "--mh_num_processes", str(MH_RANKS)]
+    procs, ranks = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(MH_RANKS):
+            procs.append(subprocess.Popen([sys.executable, "-c", MH_RANK, *argv, "--mh_process_id", str(r)], cwd=repo,
+                                          env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+        for r, p in enumerate(procs):
+            log = p.communicate(timeout=600)[0].decode(errors="replace")
+            if p.returncode != 0:
+                raise AssertionError(f"multi-host rank {r} exited {p.returncode}: {log[-2000:]}")
+            info = json.loads(re.search(r"^rank (\{.*\})$", log, re.M).group(1))
+            ranks.append(dict(info, done_s=time.perf_counter() - t0, stats=stats_block(log),
+                              queries=re.findall(r"^(?:fwd|bwd) queries: (\d+)$", log, re.M)))
+            require_launches(info["launches"], ("rank_all", "seed_scan", "verify"), f"multi-host rank {r}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    _, sha, lines = search_output(out_path, JAX_CLI_SHA256, JAX_CLI_LINES, "the multi-host search (rank 0's merge)")
+    left = [f for f in os.listdir(mdir) if f != "out.txt"]
+    if left:
+        raise AssertionError(f"part files left after the merge: {left}")
+    out = dict(ranks=ranks, wall_s=time.perf_counter() - t0, lines=lines, sha256=sha)
+    for r, info in enumerate(ranks):
+        print(f"multi-host rank {r}: main {info['main_s']:.2f} s, done {info['done_s']:.2f} s after the start, strand "
+              f"queries {info['queries']}, launches {json.dumps({k: v for k, v in info['launches'].items() if v})}; "
+              f"stats {json.dumps(info['stats'])}", flush=True)
+    print(f"multi-host: {MH_RANKS} ranks on one card, {out['wall_s']:.2f} s wall, merged output {lines} lines "
+          "(JAX_CLI_*)", flush=True)
+    return out
+
+
+def corpus_phase(tmp: str) -> dict:
+    """The synthetic genome (``sim/corpus.py``): its records through the
+    CLI's ``index``, plain and ``--max_shard_mb`` CORPUS_SHARD_MB, and the
+    reads that pass the low-complexity filter through ``auto``
+    (seed-and-verify and its fallback), ``workq``, ``approx`` and
+    ``search_queries_sharded`` (resident and swap), each against the JAX
+    package's rows (``JAX_CORPUS_*``); the filtered reads (poly-A) through
+    the frontier engine, whose buffers overflow after every retry (the
+    reference raises alike), and the work-queue engine's hit volume for
+    them, unlocated."""
+    from sahara_tpu_torch.alphabet import D_DNA5
+    from sahara_tpu_torch.engine import driver
+    from sahara_tpu_torch.engine.device import DeviceIndex
+    from sahara_tpu_torch.engine.driver import load_scheme, search_queries, search_queries_sharded
+    from sahara_tpu_torch.engine.tape import compile_tape
+    from sahara_tpu_torch.index.fmindex import load_index
+    from sahara_tpu_torch.index.shard import ShardedIndex, load_any_index
+    from sahara_tpu_torch.io.fasta import FastaRecord, write_fasta
+    from sahara_tpu_torch.kernels import LAUNCHES, reset_launches
+    from sahara_tpu_torch.sim.workload import corpus_workload
+
+    t0 = time.perf_counter()
+    records, queries, low = corpus_workload()
+    genome_sha, queries_sha = rows_sha(np.concatenate(records)), rows_sha(queries)
+    if genome_sha != CORPUS_GENOME_SHA256 or queries_sha != CORPUS_QUERIES_SHA256:
+        raise AssertionError("the corpus workload differs from the one the JAX package's rows were recorded on")
+    cdir, sdir = os.path.join(tmp, "corpus"), os.path.join(tmp, "corpus_sharded")
+    os.makedirs(cdir)
+    os.makedirs(sdir)
+    cfasta, sfasta = os.path.join(cdir, "genome.fasta"), os.path.join(sdir, "genome.fasta")
+    write_fasta(cfasta, [FastaRecord(f"chr{i}", D_DNA5.rank_to_char(r)) for i, r in enumerate(records)], line_length=0)
+    os.link(cfasta, sfasta)
+    out = dict(workload_s=time.perf_counter() - t0, records=[len(r) for r in records], reads=len(queries) // 2,
+               low_complexity_reads=len(low) // 2, n_gap_chars=int(sum((r == 5).sum() for r in records)))
+    out["index_s"], _ = run_cli(["index", cfasta])
+    out["sharded_index_s"], log = run_cli(["index", sfasta, "--max_shard_mb", str(CORPUS_SHARD_MB)])
+    sh = load_any_index(sfasta + ".idx")
+    if not isinstance(sh, ShardedIndex):
+        raise AssertionError(f"index --max_shard_mb {CORPUS_SHARD_MB} wrote no sharded index")
+    out.update(shards_n=[h.n for h in sh.shards], windowed_gids=sh.windowed_gids.tolist())
+    print(f"corpus: {sum(out['records'])} chars in records {out['records']} ({out['n_gap_chars']} N), {out['reads']} "
+          f"reads ({out['low_complexity_reads']} low-complexity reads filtered out); index {out['index_s']:.1f} s, "
+          f"sharded {out['sharded_index_s']:.1f} s: {sh.num_shards} shards n={out['shards_n']}, windowed "
+          f"{out['windowed_gids']}", flush=True)
+
+    index = DeviceIndex.from_host(load_index(cfasta + ".idx"))
+    kw = dict(k=K, edit=True, chunk=CHUNK)
+    paths = {
+        "auto": (lambda: search_queries(index, queries, **kw), ("seed_scan", "verify", "workq_step"),
+                 JAX_CORPUS_HITS, JAX_CORPUS_SHA256, None),
+        "workq": (lambda: search_queries(index, queries, engine="workq", generator_name=WORKQ_GENERATOR, **kw),
+                  ("workq_step",), JAX_CORPUS_WORKQ_HITS, JAX_CORPUS_WORKQ_SHA256, None),
+        "approx": (lambda: search_queries(index, queries, engine="approx", generator_name=WORKQ_GENERATOR, **kw),
+                   ("frontier_step",), JAX_CORPUS_APPROX_PREFIX_HITS, JAX_CORPUS_APPROX_PREFIX_SHA256,
+                   CORPUS_APPROX_PREFIX),
+        "sharded": (lambda: search_queries_sharded(sh, queries, **kw), ("rank_all", "seed_scan", "verify"),
+                    JAX_CORPUS_SHARD_HITS, JAX_CORPUS_SHARD_SHA256, None),
+        "swap": (lambda: search_queries_sharded(sh, queries, resident_budget=0, **kw), ("rank_all", "verify"),
+                 JAX_CORPUS_SHARD_HITS, JAX_CORPUS_SHARD_SHA256, None),
+    }
+    all_rows = {}
+    for name, (run, kernels, want_hits, want_sha, prefix) in paths.items():
+        reset_launches()
+        with recorded(driver, "_run_sv") as sv_calls:
+            t0 = time.perf_counter()
+            rows = sorted_rows(run())
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        checked = rows if prefix is None else rows[rows[:, 0] < prefix]
+        all_rows[name] = rows
+        fallback = sum(int(c[2][1].sum()) for c in sv_calls)
+        out[name] = dict(pass_s=dt, reads_per_s=len(queries) / 2 / dt, hits=len(rows), sha256=rows_sha(rows),
+                         checked_hits=len(checked), launches={k: v for k, v in LAUNCHES.items() if v},
+                         fallback_queries=fallback, fallback_share=fallback / len(queries))
+        require_launches(out[name]["launches"], kernels, f"corpus {name}")
+        print(f"corpus {name}: {len(rows)} rows sha256 {out[name]['sha256']}"
+              + (f"; first {prefix} queries {len(checked)} rows" if prefix else "")
+              + f" (JAX package {want_hits}, {want_sha}); one pass {dt:.2f} s "
+              f"({out[name]['reads_per_s']:.1f} reads/s), SV fallback {fallback} of {len(queries)} strand queries ({out[name]['fallback_share'] * 100:.3f}%), "
+              f"launches {json.dumps(out[name]['launches'])}", flush=True)
+        if len(checked) != want_hits or rows_sha(checked) != want_sha:
+            raise AssertionError(f"the corpus's {name} rows differ from the JAX package's")
+    if not out["auto"]["fallback_queries"]:
+        raise AssertionError("no corpus read left seed-and-verify for its fallback")
+    mine, theirs = ({tuple(r) for r in all_rows[x][:, :3].tolist()} for x in ("approx", "auto"))
+    out["approx"].update(only_approx=len(mine - theirs), only_auto=len(theirs - mine))
+    print(f"corpus approx against auto: {len(mine - theirs)} positions only approx finds, {len(theirs - mine)} only "
+          "auto finds", flush=True)
+    del all_rows, mine, theirs
+
+    # the filtered reads: every rung of the frontier engine's cap ladder
+    # overflows, and the work-queue engine's hit intervals hold far more
+    # rows than the positions they locate
+    reset_launches()
+    try:
+        search_queries(index, low, engine="approx", generator_name=WORKQ_GENERATOR, **kw)
+    except RuntimeError as e:
+        if "overflowed its frontier/hit buffers after retries" not in str(e):
+            raise
+    else:
+        raise AssertionError("the frontier engine searched the poly-A reads without overflowing")
+    require_launches(LAUNCHES, ("frontier_step",), "corpus low-complexity approx")
+    tape = compile_tape(load_scheme("h2-k2", 0, K, queries.shape[1], edit=True, sigma=6, n_text=index.n))
+    t0 = time.perf_counter()
+    found = driver._workq_hits(index, torch.from_numpy(low).to(index.device), tape, edit=True,
+                               active=np.ones(len(low), dtype=bool), chunk=CHUNK)
+    volume = np.zeros(len(low))
+    for start, _, ns, hits in found:
+        np.add.at(volume, start + hits.lane // ns, hits.sz.astype(np.float64))
+    out["low_complexity"] = dict(workq_s=time.perf_counter() - t0, workq_rows=int(volume.sum()),
+                                 workq_rows_max=int(volume.max()), workq_intervals=sum(h.n_hits for *_, h in found))
+    print(f"corpus low-complexity reads ({len(low)} strand queries): approx overflows after its retries (as the JAX "
+          f"package's); the work-queue engine's {out['low_complexity']['workq_intervals']} hit intervals hold "
+          f"{out['low_complexity']['workq_rows']} rows before the merge (at most "
+          f"{out['low_complexity']['workq_rows_max']} for one query), {out['low_complexity']['workq_s']:.2f} s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2631,6 +3057,8 @@ def main() -> int:
     report["fallback"], n_queries, n_rows = fallback_phase(index_bi, queries, rows)
     report["sv_e1"] = sv_e1_phase(index_bi, ref, extra)
     report["approx"], k8 = approx_phase(index_bi, queries, rows, tmp.name, fasta, reads, extra)
+    # phase mesh: the data mesh, the card listed twice
+    report["mesh"] = mesh_phase(host, queries, rows, n_queries, n_rows, ref)
     kernels.append(dict(k8, registers=register_row(ptxas, "frontier", "frontier_kernelILi6ELb1E"),
                         old_registers=register_row(ptxas, "frontier_v1", "frontier_kernelILi6ELb1E"),
                         variant_registers={name: register_row(ptxas, name, "frontier_kernelILi6ELb1E")
@@ -2659,6 +3087,11 @@ def main() -> int:
     report["sharded"] = sharded_phase(tmp.name, fasta, reads, queries, rows, n_queries, n_rows)
     kernels[0].update(sharded_launches=report["sharded"]["resident_launches"]["rank_all"],
                       swap_launches=report["sharded"]["swap_launches"]["rank_all"])
+    # phases interval_mesh (phase sharded's shards on a mesh), multihost (CLI
+    # ranks sharing the card) and corpus (the synthetic genome)
+    report["interval_mesh"] = interval_mesh_phase(tmp.name, queries, rows)
+    report["multihost"] = multihost_phase(tmp.name, fasta, reads)
+    report["corpus"] = corpus_phase(tmp.name)
 
     # phases uni and kmer: exact search through the CLI (K6, K7)
     report["uni"], k6, uni_k7 = uni_phase(tmp.name, fasta, card, extra)

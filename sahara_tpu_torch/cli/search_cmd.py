@@ -2,14 +2,16 @@
 flag surface, config echo, search on the card, ``queryId seqId pos``
 output, stats block.
 
-The counterpart of ``sahara_tpu/cli/search_cmd.py`` on one device.
-``--device`` (default ``cuda``) is where the index is uploaded and searched;
-without a card the search commands raise unless ``--device cpu`` is given.
-``search`` on an interval-sharded index runs ``search_queries_sharded``.
-``uni-search`` is exact search and locate on a unidirectional index (K6,
-and K7 where the index has no full suffix array).  What is not ported
-raises ``NotImplementedError`` naming ROADMAP.md queue 1 item 15:
-``--devices`` above 1 and ``--mh_num_processes`` above 1."""
+The counterpart of ``sahara_tpu/cli/search_cmd.py``.  ``--device``
+(default ``cuda``) is where the index is uploaded and searched; without a
+card the search commands raise unless ``--device cpu`` is given.
+``--devices N`` searches over a data mesh of N devices (``parallel/``): N
+cards, or N entries of the CPU under ``--device cpu``.  ``search`` with
+``--mh_num_processes`` above 1 is one rank of a multi-host run
+(``parallel/multihost.py``).  ``search`` on an interval-sharded index runs
+``search_queries_sharded``.  ``uni-search`` is exact search and locate on a
+unidirectional index (K6, and K7 where the index has no full suffix
+array)."""
 
 from __future__ import annotations
 
@@ -30,19 +32,40 @@ from sahara_tpu_torch.engine.locate import locate
 from sahara_tpu_torch.index.fmindex import load_index, peek_sigma
 from sahara_tpu_torch.index.shard import ShardedIndex, load_any_index, peek_index_kind
 from sahara_tpu_torch.io.fasta import NotSimpleFasta, iter_fasta_seq_matrix_blocks, read_fasta
+from sahara_tpu_torch.parallel import multihost
+from sahara_tpu_torch.parallel.mesh import data_mesh, replicate_index
 from sahara_tpu_torch.utils.errors import SaharaError
 from sahara_tpu_torch.utils.stopwatch import Timings
 
 STREAM_MIN_BYTES = 128 << 20  # read files from this size stream by default
 
 
-def _refuse_unported(args) -> None:
-    if args.devices > 1:
-        raise NotImplementedError("--devices above 1 (multi-device search) is not ported; "
-                                  "see ROADMAP.md queue 1 item 15")
-    if args.mh_num_processes > 1:
-        raise NotImplementedError("--mh_num_processes above 1 (multi-host search) is not ported; "
-                                  "see ROADMAP.md queue 1 item 15")
+def _local_mesh(n_req: int, dev: torch.device, multihost: bool = False):
+    """A data mesh over this process's devices, or None for one device.
+
+    ``n_req`` 0 takes every visible card under ``--device cuda`` and one
+    device under ``--device cpu``; under ``--mh_*`` a mesh is opt-in (0
+    means one device).  Under ``--device cpu`` a mesh of N holds the CPU N
+    times."""
+    if n_req == 0:
+        n_use = 1 if multihost or dev.type == "cpu" else torch.cuda.device_count()
+    else:
+        n_use = n_req
+    if n_use <= 1:
+        return None
+    if dev.type == "cpu":
+        return data_mesh(devices=[dev] * n_use)
+    if torch.cuda.device_count() < n_use:
+        raise SaharaError(f"--devices {n_use} requested but only {torch.cuda.device_count()} local devices")
+    return data_mesh(n_use)
+
+
+def _upload(host, dev: torch.device, mesh):
+    """The index on ``dev``, or replicated over ``mesh`` (echoed)."""
+    if mesh is None:
+        return DeviceIndex.from_host(host, device=dev)
+    print(f"devices:             {mesh.size}")
+    return replicate_index(host, mesh)
 
 
 def _check_index_path(path) -> None:
@@ -64,10 +87,10 @@ def _print_config(args, *, reverse: bool) -> None:
     print(f"  output path:         {args.output}")
 
 
-def _search_kw(args, dev, *, edit: bool) -> dict:
+def _search_kw(args, dev, *, edit: bool, mesh=None) -> dict:
     return dict(
         k=args.errors, generator_name=args.generator, edit=edit, mode=args.search_mode,
-        max_hits=args.max_hits, dynamic=args.dynamic_generator, engine=args.engine, device=dev,
+        max_hits=args.max_hits, dynamic=args.dynamic_generator, engine=args.engine, device=dev, mesh=mesh,
     )
 
 
@@ -94,12 +117,13 @@ def _try_stream_search(args, alphabet, dev) -> bool:
     output.
 
     Engages only for simple uniform 2-line FASTA files of 128 MB or more
-    (``SAHARA_STREAM=1`` / ``0`` forces it on / off) and a plain index.
+    (``SAHARA_STREAM=1`` / ``0`` forces it on / off), a plain index and one
+    process.
     Returns False to fall back to the buffered path, which re-reads the
     file: on a file that is not simple, at its start or further in.  An
     exception in either thread is raised here."""
     force = os.environ.get("SAHARA_STREAM", "")
-    if force == "0":
+    if force == "0" or args.mh_num_processes > 1:
         return False
     try:
         fsize = os.path.getsize(args.query)
@@ -120,7 +144,8 @@ def _try_stream_search(args, alphabet, dev) -> bool:
     _print_config(args, reverse=True)
     print("  streaming:           True")
 
-    index = DeviceIndex.from_host(load_index(args.index), device=dev)
+    mesh = _local_mesh(args.devices, dev)
+    index = _upload(load_index(args.index), dev, mesh)
     timing.mark("ld index")
 
     add_rc = not args.no_reverse
@@ -180,7 +205,7 @@ def _try_stream_search(args, alphabet, dev) -> bool:
     rt.start()
     wt.start()
 
-    kw = _search_kw(args, dev, edit=args.distance_metric == "lev")
+    kw = _search_kw(args, dev, edit=args.distance_metric == "lev", mesh=mesh)
     n_queries = n_hits = 0
     try:
         while True:
@@ -219,18 +244,36 @@ def _try_stream_search(args, alphabet, dev) -> bool:
 
 
 def cmd_search(args):
-    _refuse_unported(args)
     dev = resolve_device(args.device)
     _check_index_path(args.index)
     alphabet = by_sigma(peek_sigma(args.index))
     if _try_stream_search(args, alphabet, dev):
         return
+    # a multi-host rank searches its contiguous slice of the global strand
+    # queries under their global ids, writes its part file, and rank 0
+    # merges the parts
+    multihost_run = args.mh_num_processes > 1
+    if multihost_run:
+        multihost.initialize(args.mh_coordinator, args.mh_num_processes, args.mh_process_id)
+    try:
+        _search(args, alphabet, dev, multihost_run)
+    finally:
+        multihost.shutdown()
+
+
+def _search(args, alphabet, dev, multihost_run: bool):
     timing = Timings()
     queries = load_queries_ranked(args.query, alphabet, add_revcomp=not args.no_reverse)
     if args.limit_queries:
         queries = queries[: args.limit_queries]
     if not queries:
         raise SaharaError(f"query file {args.query} was empty - abort")
+    query_ids, output_path = None, args.output
+    if multihost_run:
+        start, end = multihost.host_query_slice(len(queries))
+        queries = queries[start:end]
+        query_ids = np.arange(start, end, dtype=np.int64)
+        output_path = multihost.host_output_path(args.output)
     timing.mark("ld queries")
 
     _print_config(args, reverse=True)
@@ -242,15 +285,18 @@ def cmd_search(args):
     kw = _search_kw(args, dev, edit=args.distance_metric == "lev")
     if isinstance(host, ShardedIndex):
         timing.mark("ld index")
-        result = search_queries_sharded(host, queries, verbose_cb=print, **kw)
+        result = search_queries_sharded(host, queries, query_ids=query_ids, verbose_cb=print, **kw)
     else:
-        index = DeviceIndex.from_host(host, device=dev)
+        kw["mesh"] = _local_mesh(args.devices, dev, multihost=multihost_run)
+        index = _upload(host, dev, kw["mesh"])
         timing.mark("ld index")
-        result = search_queries(index, queries, verbose_cb=print, **kw)
+        result = search_queries(index, queries, query_ids=query_ids, verbose_cb=print, **kw)
     timing.mark("search")
     timing.mark("locate")
 
-    n = write_hits(args.output, (result.query_id, result.seq_id, result.pos))
+    n = write_hits(output_path, (result.query_id, result.seq_id, result.pos))
+    if multihost_run:
+        multihost.merge_on_rank_zero(args.output)
     timing.mark("result")
     timing.print_stats(n_queries=len(queries), n_hits=n)
 
@@ -291,7 +337,6 @@ def cmd_uni_search(args):
 
 
 def _rbi_search(args, alphabet, unknown_random_ranks: bool):
-    _refuse_unported(args)
     dev = resolve_device(args.device)
     timing = Timings()
     # rbi queries are not revcomp-expanded: the dr alphabet is
@@ -320,11 +365,12 @@ def _rbi_search(args, alphabet, unknown_random_ranks: bool):
     host = load_any_index(args.index)
     if isinstance(host, ShardedIndex):
         raise SaharaError(f"{args.index} is a sharded index; rbi search takes a plain one")
-    index = DeviceIndex.from_host(host, device=dev)
+    mesh = _local_mesh(args.devices, dev)
+    index = _upload(host, dev, mesh)
     timing.mark("ld index")
 
     # rbi search is always edit distance
-    result = search_queries(index, queries, verbose_cb=print, **_search_kw(args, dev, edit=True))
+    result = search_queries(index, queries, verbose_cb=print, **_search_kw(args, dev, edit=True, mesh=mesh))
     timing.mark("search")
     timing.mark("locate")
     if args.orig_coords:
@@ -380,10 +426,9 @@ def _add_search_flags(p, *, metric: bool, reverse: bool, limit: bool):
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the index is uploaded and searched: the CUDA card (default) or the CPU")
     p.add_argument("--devices", type=int, default=0,
-                   help="devices for data-parallel search: 0 and 1 mean the one card "
-                        "(more are not ported: ROADMAP.md queue 1 item 15)")
-    p.add_argument("--mh_coordinator", default=None,
-                   help="multi-host coordinator address (host:port; not ported: ROADMAP.md queue 1 item 15)")
+                   help="devices for data-parallel search: 0 means every visible card (one under --device cpu, "
+                        "and one under --mh_*), N a mesh of N cards, or of the CPU N times under --device cpu")
+    p.add_argument("--mh_coordinator", default=None, help="multi-host coordinator address (host:port)")
     p.add_argument("--mh_num_processes", type=int, default=0, help="number of distributed processes")
     p.add_argument("--mh_process_id", type=int, default=0, help="this process's rank")
 

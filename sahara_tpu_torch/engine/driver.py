@@ -1,8 +1,8 @@
 """Search driver: bucket queries by length, pick an engine per bucket, and
 return canonical (queryId, seqId, pos, errors) rows.
 
-The counterpart of ``sahara_tpu/engine/driver.py::search_queries`` on one
-device.  Engines:
+The counterpart of ``sahara_tpu/engine/driver.py::search_queries``, on one
+device or over a data mesh (``parallel/``).  Engines:
 
 - ``sv`` (seed-and-verify, ``engine/seedverify.py``) where its parts filter
   (``sv_eligible`` with one-error seeds): exact k+1 parts where they are at
@@ -16,10 +16,17 @@ device.  Engines:
 - ``approx`` (the frontier engine, ``engine/approx.py``) for every bucket
   under ``engine="approx"``.
 
+On a mesh of more than one entry (``search_queries(mesh=...)``, the index
+replicated by ``parallel.replicate_index``) each device searches its
+contiguous slices of every bucket, ``chunk`` queries a device at a time, as
+the reference routes them: seed-and-verify with exact parts only
+(``parallel/sv.py``), so short-read buckets go to the work-queue engine;
+the fallback and the work-queue buckets are split the same way.  The
+frontier engine has no mesh driver.
+
 ``search_queries_sharded`` searches an interval-sharded index
 (``index/shard.py``) shard by shard and maps the rows back to global
-coordinates.  Meshes are not ported and raise ``NotImplementedError``
-naming ROADMAP.md queue 1 item 15.
+coordinates.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import time
 import numpy as np
 import torch
 
-from sahara_tpu_torch.engine import workq
+from sahara_tpu_torch.engine import seedverify, workq
 from sahara_tpu_torch.engine.approx import SearchHits, run_scheme_search_chunked
 from sahara_tpu_torch.engine.device import DeviceIndex, device_bytes, resolve_device
 from sahara_tpu_torch.engine.locate import expand_intervals, lf_walk
@@ -179,8 +186,8 @@ def _sv_e1_chunk(index: DeviceIndex, queries: torch.Tensor, parts, *, k: int, ed
         for ln, pidx in sorted(groups.items()):
             pq = torch.stack([queries[:, parts[pi][0] : parts[pi][0] + ln] for pi in pidx], dim=1).reshape(-1, ln)
             part_of = np.asarray(pidx, dtype=np.int64)
-            for start, ns, hits in _workq_hits(index, pq, seed_tape(ln, edit), edit=edit,
-                                               active=np.ones(pq.shape[0], dtype=bool), chunk=pq.shape[0]):
+            for start, _, ns, hits in _workq_hits(index, pq, seed_tape(ln, edit), edit=edit,
+                                                  active=np.ones(pq.shape[0], dtype=bool), chunk=pq.shape[0]):
                 row = start + hits.lane.astype(np.int64) // ns  # row of pq
                 lb.append(hits.lb.astype(np.int64))
                 sz.append(hits.sz.astype(np.int64))
@@ -238,12 +245,12 @@ def _workq_hits(
     active: np.ndarray,
     chunk: int,
     cap_per_query: int = 0,
-) -> list[tuple[int, int, workq.FlatHits]]:
+) -> list[tuple[int, int, int, workq.FlatHits]]:
     """Work-queue search of uint8 ``queries`` on the index's device: split
     schemes with more than ``MAX_NS`` searches into tape groups, chunk the
     queries to the meta-packing limit and search each (chunk, group) with
-    dedup on.  Returns (first query of the chunk, searches of the group,
-    unlocated hits) per search.
+    dedup on.  Returns (first query of the chunk, first search of the
+    group, searches of the group, unlocated hits) per search.
 
     A step that passes ``workq.HARD_CAP`` halves the chunk's active queries
     and searches the halves, recursing until each fits; one query alone
@@ -256,9 +263,9 @@ def _workq_hits(
     dev = index.device
     group_tapes = [workq.upload_tape(g, dev) for g in groups]
     chunk = min(chunk, *(workq.max_chunk_queries(g.length, g.num_searches, g.max_errors, edit) for g in groups))
-    out: list[tuple[int, int, workq.FlatHits]] = []
+    out: list[tuple[int, int, int, workq.FlatHits]] = []
 
-    def search(start: int, act: np.ndarray, gt: SchemeTape, dt) -> None:
+    def search(start: int, act: np.ndarray, g0: int, gt: SchemeTape, dt) -> None:
         try:
             hits = workq.workq_search(
                 index, queries[start : start + chunk], dt, torch.from_numpy(act).to(dev), edit=edit,
@@ -274,15 +281,15 @@ def _workq_hits(
             for half in np.array_split(act_idx, 2):
                 sub = np.zeros_like(act)
                 sub[half] = True
-                search(start, sub, gt, dt)
+                search(start, sub, g0, gt, dt)
             return
-        out.append((start, gt.num_searches, hits))
+        out.append((start, g0, gt.num_searches, hits))
 
     for start in range(0, queries.shape[0], chunk):
         act = active[start : start + chunk]
         if act.any():
-            for gt, dt in zip(groups, group_tapes):
-                search(start, act, gt, dt)
+            for g, (gt, dt) in enumerate(zip(groups, group_tapes)):
+                search(start, act, g * workq.MAX_NS, gt, dt)
     return out
 
 
@@ -296,14 +303,26 @@ def _run_workq_grouped(
     active: np.ndarray | None,
     max_hits: int,
     chunk: int,
+    replicas: tuple[DeviceIndex, ...] | None = None,
 ) -> SearchResult:
     """Work-queue engine driver: search the queries (``_workq_hits``),
-    locate, merge and cap."""
+    locate, merge and cap.  With ``replicas`` (a mesh's replicated index)
+    each device searches and locates its slices of the queries, ``chunk`` a
+    device at a time."""
     act = np.ones(qarr.shape[0], dtype=bool) if active is None else np.asarray(active, dtype=bool)
+    if replicas is not None:
+        from sahara_tpu_torch.parallel.mesh import mesh_slices
+
+        # a query lies in one slice, so each slice's capped rows are its rows
+        return _merge_results([
+            _run_workq_grouped(replicas[d], qarr[rows], tape, qids[rows], edit=edit, active=act[rows],
+                               max_hits=max_hits, chunk=chunk)
+            for d, rows in mesh_slices(len(qarr), chunk, len(replicas))
+        ])
     qfull = torch.from_numpy(np.ascontiguousarray(qarr, dtype=np.uint8)).to(index.device)
     found = _workq_hits(index, qfull, tape, edit=edit, active=act, chunk=chunk,
                         cap_per_query=4 * max_hits if max_hits > 0 else 0)
-    results = [_locate_flat_hits(index, hits, ns, qids[start:]) for start, ns, hits in found]
+    results = [_locate_flat_hits(index, hits, ns, qids[start:]) for start, _, ns, hits in found]
     return _cap_hits_per_query(_merge_results(results), max_hits)
 
 
@@ -333,19 +352,37 @@ def _run_sv(
 
 def _run_sv_with_fallback(
     index: DeviceIndex, qarr: np.ndarray, qids: np.ndarray, *, k: int, edit: bool, chunk: int, scheme_kw: dict,
-    timer: StageTimer | None, verbose_cb=None,
+    timer: StageTimer | None, verbose_cb=None, replicas: tuple[DeviceIndex, ...] | None = None,
 ) -> SearchResult:
-    """``_run_sv``, with the queries it cannot search alone re-searched
-    through the work-queue engine; the row sets are concatenated."""
-    res, fallback = _run_sv(index, qarr, qids, k=k, edit=edit, chunk=chunk, timer=timer)
+    """``_run_sv`` (``_run_sv_mesh`` with a mesh's ``replicas``), with the
+    queries it cannot search alone re-searched through the work-queue
+    engine; the row sets are concatenated."""
+    if replicas is None:
+        res, fallback = _run_sv(index, qarr, qids, k=k, edit=edit, chunk=chunk, timer=timer)
+    else:
+        res, fallback = _run_sv_mesh(replicas, qarr, qids, k=k, edit=edit, chunk=chunk)
     if not fallback.any():
         return res
     if verbose_cb:
         verbose_cb(f"seed-verify: {int(fallback.sum())} repeat-saturated queries re-searched via the scheme engine")
     tape = compile_tape(load_scheme(min_k=0, max_k=k, length=qarr.shape[1], edit=edit, **scheme_kw))
     res_fb = _run_workq_grouped(index, qarr[fallback], tape, qids[fallback], edit=edit, active=None,
-                                max_hits=0, chunk=chunk)
+                                max_hits=0, chunk=chunk, replicas=replicas)
     return _concat([res, res_fb])
+
+
+def _run_sv_mesh(
+    replicas: tuple[DeviceIndex, ...], qarr: np.ndarray, qids: np.ndarray, *, k: int, edit: bool, chunk: int,
+) -> tuple[SearchResult, np.ndarray]:
+    """``_run_sv`` over a mesh: exact parts only, ``chunk`` queries a
+    device at a time (``parallel/sv.py``)."""
+    from sahara_tpu_torch.parallel.mesh import DataMesh
+    from sahara_tpu_torch.parallel.sv import distributed_sv_search
+
+    mesh = DataMesh(tuple(rep.device for rep in replicas))
+    hits, _ = distributed_sv_search(mesh, replicas, qarr, k, edit=edit, chunk=chunk, part_cap=seedverify.PART_CAP)
+    seq_starts = replicas[0].seq_starts.cpu().numpy().astype(np.int64)
+    return _sv_hits_to_result(seq_starts, hits.q_idx, hits.abs_pos, hits.err, qids), hits.fallback
 
 
 def _locate_hits(index: DeviceIndex, hits: SearchHits, query_ids: np.ndarray, max_hits: int = 0) -> SearchResult:
@@ -369,12 +406,15 @@ def _locate_hits(index: DeviceIndex, hits: SearchHits, query_ids: np.ndarray, ma
 def _run_scheme_engine(
     index: DeviceIndex, qarr: np.ndarray, tape: SchemeTape, qids: np.ndarray, *, engine: str, edit: bool,
     active: np.ndarray | None, max_hits: int, chunk: int, s_cap: int, h_cap: int,
+    replicas: tuple[DeviceIndex, ...] | None,
 ) -> SearchResult:
-    """One tape through the work-queue engine or the frontier engine
-    (``engine="approx"``); the frontier engine raises ``RuntimeError`` when
-    a lane still overflows its buffers after the retries."""
+    """One tape through the work-queue engine (over a mesh with its
+    ``replicas``) or the frontier engine (``engine="approx"``); the frontier
+    engine raises ``RuntimeError`` when a lane still overflows its buffers
+    after the retries."""
     if engine == "workq":
-        return _run_workq_grouped(index, qarr, tape, qids, edit=edit, active=active, max_hits=max_hits, chunk=chunk)
+        return _run_workq_grouped(index, qarr, tape, qids, edit=edit, active=active, max_hits=max_hits, chunk=chunk,
+                                  replicas=replicas)
     hits = run_scheme_search_chunked(index, qarr, tape, edit=edit, active=active, s_cap=s_cap, h_cap=h_cap,
                                      chunk=chunk)
     if hits.any_overflow:
@@ -384,7 +424,7 @@ def _run_scheme_engine(
 
 
 def search_queries(
-    index: DeviceIndex,
+    index: DeviceIndex | tuple[DeviceIndex, ...],
     queries,
     *,
     k: int,
@@ -410,18 +450,27 @@ def search_queries(
     work-queue engine), ``sv``, ``workq`` or ``approx`` (the frontier
     engine, whose first frontier and hit buffers hold ``s_cap`` and
     ``h_cap`` states a lane).  ``generator_name`` and ``dynamic`` choose the
-    scheme engines' search scheme.  ``device``
-    (default: the CUDA card) must be the index's device.  ``timer``
-    collects the seed-and-verify stages' milliseconds.  ``verbose_cb``
-    gets a line per bucket (its engine) and the schemes' node counts.
-    Returns located hits over all queries in canonical order."""
+    scheme engines' search scheme.  ``mesh`` (a ``parallel.DataMesh``, with
+    ``index`` from ``parallel.replicate_index``) searches data-parallel,
+    ``chunk`` queries a device; ``engine="approx"`` has no mesh driver and
+    raises ``ValueError``.  ``device`` (default: the CUDA card) must be the
+    index's device type.  ``timer`` collects the single-device
+    seed-and-verify stages' milliseconds.  ``verbose_cb`` gets a line per
+    bucket (its engine) and the schemes' node counts.  Returns located hits
+    over all queries in canonical order."""
+    replicas = None  # on a mesh of more than one entry, each entry's replica
+    if mesh is not None:
+        from sahara_tpu_torch.parallel.mesh import check_replicas
+
+        replicas = check_replicas(index, mesh)
+        index = replicas[0]
+    use_mesh = mesh is not None and mesh.size > 1
+    replicas = replicas if use_mesh else None
     dev = resolve_device(device)
     if index.device.type != dev.type:
         raise ValueError(f"index lies on {index.device}, search asked for {dev}")
     if engine not in ("auto", "sv", "workq", "approx"):
         raise ValueError(f"unknown search engine {engine!r}")
-    if mesh is not None:
-        raise NotImplementedError("multi-device search is not ported; see ROADMAP.md queue 1 item 15")
     if mode not in ("all", "besthits"):
         raise ValueError(f"unknown search mode {mode!r}")
     if index.row_ints != ROW_INTS:
@@ -451,20 +500,26 @@ def search_queries(
         if query_ids is not None:
             qids = np.asarray(query_ids, dtype=np.int64)[qids]
         scheme_kw = dict(generator_name=generator_name, sigma=index.sigma, n_text=index.n, dynamic=dynamic)
-        use_sv = engine in ("auto", "sv") and sv_eligible(index, length, k, seed_errors=1)
+        # on a mesh seed-and-verify seeds with exact parts only, as the reference's does
+        use_sv = engine in ("auto", "sv") and sv_eligible(index, length, k, seed_errors=0 if use_mesh else 1)
         if engine == "sv" and not use_sv:
             raise ValueError(
                 "seed-verify engine not applicable (index lacks a text store, "
                 f"or parts too short for m={length}, k={k})"
             )
         bucket_engine = "workq" if engine == "auto" else engine
+        if use_mesh and not use_sv and bucket_engine != "workq":
+            raise ValueError(f"engine {bucket_engine!r} has no distributed driver; use engine='auto' or 'workq' "
+                             "with a mesh")
         if verbose_cb:
-            verbose_cb(f"engine: {'seed-verify' if use_sv else bucket_engine} (single-device, m={length}, "
+            where = f"mesh[{mesh.size}]" if use_mesh else "single-device"
+            verbose_cb(f"engine: {'seed-verify' if use_sv else bucket_engine} ({where}, m={length}, "
                        f"{len(qarr)} queries)")
-        run = dict(engine=bucket_engine, edit=edit, max_hits=max_hits, chunk=chunk, s_cap=s_cap, h_cap=h_cap)
+        run = dict(engine=bucket_engine, edit=edit, max_hits=max_hits, chunk=chunk, s_cap=s_cap, h_cap=h_cap,
+                   replicas=replicas)
         if use_sv:
             res = _run_sv_with_fallback(index, qarr, qids, k=k, edit=edit, chunk=chunk, scheme_kw=scheme_kw,
-                                        timer=timer, verbose_cb=verbose_cb)
+                                        timer=timer, verbose_cb=verbose_cb, replicas=replicas)
             # the filter keeps each row whose error is its query's least,
             # which commutes with the merge; the cap counts merged rows in order
             if mode == "besthits":

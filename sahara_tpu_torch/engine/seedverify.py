@@ -201,6 +201,7 @@ def sv_fused(
     k: int,
     edit: bool,
     timer: StageTimer | None = None,
+    part_cap: int | None = None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """One chunk of the exact-parts plan: seed -> expand -> locate -> verify
     -> emit.
@@ -208,13 +209,13 @@ def sv_fused(
     ``queries`` uint8[nq, m] on the index's device.  Returns host arrays
     (q_idx int64[H] local query index, abs_pos int64[H] padded-text start,
     err int64[H], over bool[nq] — queries with a part interval larger than
-    ``PART_CAP``, which contribute no hits here)."""
+    ``part_cap`` (default ``PART_CAP``), which contribute no hits here)."""
     stage = stage_of(timer)
     dev = queries.device
     p_cnt = len(parts)
     with stage("seed"):
         lo, sz = seed_parts(index, queries, parts)
-        over = (sz > PART_CAP).any(dim=1)
+        over = (sz > (PART_CAP if part_cap is None else part_cap)).any(dim=1)
         sz = torch.where(over[:, None], 0, sz)
         n_cands, n_over = torch.stack([sz.sum(dtype=torch.int64), over.sum()]).tolist()
     over_host = _over_host(over, n_over)

@@ -343,16 +343,46 @@ def test_stream_falls_back_on_a_later_ragged_record(corpus, two_line_reads, tmp_
     assert (tmp_path / "str.txt").read_text() == (tmp_path / "buf.txt").read_text()
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["search", "-q", "{reads}", "-i", "{ref}.idx", "--device", "cpu", "--devices", "2"], 15),
-    (["search", "-q", "{reads}", "-i", "{ref}.idx", "--device", "cpu", "--mh_num_processes", "2"], 15),
-    (["rbi-search", "-q", "{reads}", "-i", "{ref}.rbi.idx", "--device", "cpu", "--devices", "4"], 15),
-], ids=["devices", "mh", "rbi-devices"])
-def test_unported_routes_raise(corpus, tmp_path, argv, item):
+@pytest.mark.parametrize("name,engine", [("e2_lev_h2k2.txt", "auto"), ("e2_lev_maxhits2.txt", "workq")])
+def test_search_devices_matches_jax_and_goldens(corpus, tmp_path, name, engine):
+    """``--devices 2 --device cpu``: a mesh of two CPU entries, seed-and-verify
+    or the work-queue engine on each slice; the output is the golden's and,
+    through seed-and-verify, sahara_tpu's ``--devices 2`` output (its mesh
+    of two virtual CPU devices)."""
     tmp, ref = corpus
-    fill = dict(reads=str(tmp / "r1.fasta"), ref=ref)
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md queue 1 item {item}\b"):
-        _quiet(main, [a.format(**fill) for a in argv])
+    reads, flags = next((r, f) for n, r, f in CASES if n == name)
+    argv = ["search", "-q", str(tmp / f"{reads}.fasta"), "-i", ref + ".idx", "--devices", "2"] + flags
+    out = tmp_path / "out.txt"
+    rc, log = _quiet(main, argv + ["-o", str(out), "--device", "cpu", "--engine", engine])
+    assert rc == 0 and out.read_text() == _golden(name)
+    assert "devices:             2" in log and f"engine: {'seed-verify' if engine == 'auto' else 'workq'} (mesh[2]" in log
+    if engine == "auto":
+        assert _quiet(jax_main, argv + ["-o", str(tmp_path / "jax.txt")])[0] == 0
+        assert (tmp_path / "jax.txt").read_text() == out.read_text()
+
+
+def test_stream_on_a_mesh_matches_buffered(corpus, two_line_reads, tmp_path, monkeypatch):
+    """The streaming path searches its blocks over the mesh too."""
+    tmp, ref = corpus
+    base = ["search", "-q", two_line_reads, "-i", ref + ".idx", "-e", "1", "--device", "cpu", "--devices", "3"]
+    monkeypatch.setenv("SAHARA_STREAM", "1")
+    monkeypatch.setattr(search_cmd, "iter_fasta_seq_matrix_blocks",
+                        functools.partial(iter_fasta_seq_matrix_blocks, block_bytes=4096))
+    rc, log = _quiet(main, base + ["-o", str(tmp_path / "str.txt")])
+    assert rc == 0 and "streaming:           True" in log and "devices:             3" in log
+    monkeypatch.setenv("SAHARA_STREAM", "0")
+    assert _quiet(main, base[:-2] + ["-o", str(tmp_path / "buf.txt")])[0] == 0
+    assert (tmp_path / "str.txt").read_text() == (tmp_path / "buf.txt").read_text()
+
+
+@pytest.mark.parametrize("name,cmd,suffix", RBI_CASES, ids=[c[0] for c in RBI_CASES])
+def test_rbi_search_devices_matches_one_device(corpus, tmp_path, name, cmd, suffix):
+    tmp, ref = corpus
+    argv = [cmd, "-q", str(tmp / "r1.fasta"), "-i", ref + suffix, "-e", "1", "-g", "optimum", "--device", "cpu"]
+    rc, log = _quiet(main, argv + ["-o", str(tmp_path / "mesh.txt"), "--devices", "4"])
+    assert rc == 0 and "devices:             4" in log and "mesh[4]" in log
+    assert _quiet(main, argv + ["-o", str(tmp_path / "one.txt")])[0] == 0
+    assert (tmp_path / "mesh.txt").read_text() == (tmp_path / "one.txt").read_text() == _golden(name)
 
 
 SHARD_MB = "0.0008"  # 800 chars a shard: the corpus's 700-char record alone, then the two others

@@ -1,6 +1,6 @@
 """sahara_tpu_torch.search_queries against sahara_tpu's seed-and-verify
 driver, row for row: the seed-and-verify route, its fallback to the
-work-queue engine, and the routes the port refuses instead of dropping."""
+work-queue engine, and the routes both packages refuse."""
 
 import numpy as np
 import pytest
@@ -14,6 +14,7 @@ from sahara_tpu_torch.engine import seedverify
 from sahara_tpu_torch.engine.device import DeviceIndex
 from sahara_tpu_torch.engine.driver import search_queries
 from sahara_tpu_torch.index.fmindex import from_arrays
+from sahara_tpu_torch.parallel import data_mesh, replicate_index
 
 from tests.util import random_seqs
 
@@ -103,22 +104,24 @@ def test_part_cap_overflow_raises(indexes, monkeypatch):
 
 @pytest.mark.parametrize("route", ["frontier", "mesh", "sv_short"])
 def test_unported_routes_raise(indexes, route):
-    """Meshes are not ported; the frontier engine is ``approx``, and any
-    other engine name is refused; seed-and-verify refuses reads too short
-    even for one-error parts (16 chars at k=2: two parts of 8), as the
-    reference does."""
-    seqs, jdev, _, pdev = indexes
+    """The frontier engine is ``approx``, and any other engine name is
+    refused; ``approx`` has no mesh driver; seed-and-verify refuses reads
+    too short even for one-error parts (16 chars at k=2: two parts of 8).
+    The reference refuses each alike."""
+    seqs, jdev, port_host, pdev = indexes
     kw = dict(k=2, device="cpu")
     if route == "frontier":
         kw["engine"] = "frontier"
     elif route == "mesh":
-        kw["mesh"] = object()
+        mesh = data_mesh(devices=["cpu"] * 2)
+        kw.update(engine="approx", mesh=mesh)
+        pdev = replicate_index(port_host, mesh)
     else:
         kw["engine"] = "sv"
     queries = [np.asarray(seqs[0][: 16 if route == "sv_short" else M], dtype=np.uint8)]
-    with pytest.raises(NotImplementedError if route == "mesh" else ValueError,
-                       match={"frontier": "unknown search engine 'frontier'", "mesh": "item 15",
-                              "sv_short": "seed-verify engine not applicable"}[route]):
+    with pytest.raises(ValueError, match={"frontier": "unknown search engine 'frontier'",
+                                          "mesh": "engine 'approx' has no distributed driver",
+                                          "sv_short": "seed-verify engine not applicable"}[route]):
         search_queries(pdev, queries, **kw)
     if route == "sv_short":
         with pytest.raises(ValueError, match="seed-verify engine not applicable"):

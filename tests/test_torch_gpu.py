@@ -869,3 +869,99 @@ def test_sharded_search_on_card_matches_cpu(bihost, monkeypatch, regime):
     kernel = {"resident": "verify", "swap": "verify", "fallback": "workq_step"}[regime]
     assert LAUNCHES[kernel] > before[kernel]
     assert runs[0] == runs[1] and len(runs[0]) >= 300
+
+
+def _card_mesh(n=2):
+    _card()
+    from sahara_tpu_torch.parallel import data_mesh
+
+    return data_mesh(devices=[torch.device("cuda", 0)] * n)
+
+
+@pytest.mark.parametrize("engine,m", [("auto", 50), ("workq", 50), ("auto", 20)], ids=["sv", "workq", "short"])
+def test_mesh_on_card_matches_one_device(bihost, engine, m):
+    """A mesh of the card twice against the card alone: seed-and-verify
+    (with the N reads' fallback), the work-queue engine, and short reads,
+    which a mesh sends to the work-queue engine (rows checked against the
+    CPU mesh there: one device takes SV-e1)."""
+    from sahara_tpu_torch.parallel import data_mesh, replicate_index
+
+    mesh = _card_mesh()
+    idx_host, seqs = bihost
+    queries = _reads(seqs, np.random.default_rng(14), 300, m, 2)
+    queries[::8, m // 3 - 1] = 5
+    kw = dict(k=2, engine=engine, chunk=64, generator_name="optimum")
+    reps = replicate_index(idx_host, mesh)
+    assert reps[0] is reps[1]
+    before = dict(LAUNCHES)
+    got = search_queries(reps, queries, mesh=mesh, **kw)
+    kernels = ("workq_step",) if engine == "workq" or m == 20 else ("seed_scan", "verify", "workq_step")
+    assert all(LAUNCHES[name] > before[name] for name in kernels)
+    if m == 20:
+        cpu = data_mesh(devices=["cpu"] * 2)
+        want = search_queries(replicate_index(idx_host, cpu), queries, mesh=cpu, device="cpu", **kw)
+    else:
+        want = search_queries(DeviceIndex.from_host(idx_host, device="cuda"), queries, **kw)
+    assert got.rows() == want.rows() and len(want.rows()) >= 300
+
+
+def test_interval_mesh_on_card_matches_cpu(bihost):
+    """The interval search, four shards on the card four times (one
+    sequence split into windows), against the same search on the CPU and
+    the unsharded rows; K5 and K7 launch."""
+    from sahara_tpu_torch.parallel import data_mesh
+    from sahara_tpu_torch.parallel.interval import distributed_interval_search
+
+    mesh = _card_mesh(4)
+    _, seqs = bihost
+    seqs = seqs + [np.concatenate(seqs[:8])]
+    sh = build_sharded_bifmindex(seqs, 6, "d_dna5", max_chars=8000, overlap=256)
+    assert sh.num_shards == 4 and len(sh.windowed_gids) == 1
+    queries = _reads(seqs, np.random.default_rng(15), 200, 40, 2)
+    tape = compile_tape(load_scheme("optimum", 0, 2, 40, edit=True, sigma=6, n_text=sum(h.n for h in sh.shards)))
+    before = dict(LAUNCHES)
+    got = distributed_interval_search(mesh, sh, queries, tape, edit=True, chunk=64)
+    assert LAUNCHES["workq_step"] > before["workq_step"] and LAUNCHES["lf_walk"] > before["lf_walk"]
+    want = distributed_interval_search(data_mesh(devices=["cpu"] * 4), sh, queries, tape, edit=True, chunk=64)
+    one = search_queries(DeviceIndex.from_host(build_bifmindex(seqs, 6, "d_dna5"), device="cpu"), queries, k=2,
+                         generator_name="optimum", device="cpu")
+    assert got.rows() == want.rows() == one.rows() and len(one.rows()) >= 200
+
+
+def test_data_mesh_needs_the_cards():
+    _card()
+    from sahara_tpu_torch.parallel import data_mesh
+
+    n = torch.cuda.device_count()
+    assert data_mesh().devices == tuple(torch.device("cuda", i) for i in range(n))
+    with pytest.raises(ValueError, match=f"requested {n + 1} devices, have {n}"):
+        data_mesh(n + 1)
+
+
+def test_multihost_on_card_matches_one_process(cli_corpus, tmp_path):
+    """Two ``--mh_*`` processes sharing the card: rank 0's merged file
+    equals one process's output."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    _card()
+    tmp, ref = cli_corpus
+    argv = ["search", "-q", str(tmp / "reads.fasta"), "-i", ref + ".idx", "-e", "2", "-d", "lev"]
+    one, multi = tmp_path / "one.txt", tmp_path / "multi.txt"
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert cli_main(argv + ["-o", str(one)]) == 0
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen([sys.executable, "-m", "sahara_tpu_torch", *argv, "-o", str(multi), "--mh_coordinator",
+                               f"127.0.0.1:{port}", "--mh_num_processes", "2", "--mh_process_id", str(r)],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(2)]
+    for p in procs:
+        out, _ = p.communicate(timeout=300)
+        assert p.returncode == 0, out.decode(errors="replace")[-2000:]
+    assert multi.read_text() == one.read_text() and len(one.read_text().splitlines()) >= 40
+    assert not list(tmp_path.glob("multi.txt.h*"))

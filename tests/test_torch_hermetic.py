@@ -2,6 +2,7 @@
 in jax or sahara_tpu, and its copy of the workload generator gives the
 same workload as bench.py and sahara_tpu.sim."""
 
+import json
 import os
 import subprocess
 import sys
@@ -17,7 +18,7 @@ from sahara_tpu_torch.sim.workload import bench_workload, make_reference
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = """
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys
 import sahara_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(sahara_tpu_torch.__path__, "sahara_tpu_torch.")]
 for name in names:
@@ -25,7 +26,7 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m in ("jax", "sahara_tpu") or m.startswith(("jax.", "sahara_tpu.")))
-print(len(names), bad)
+print(json.dumps(dict(names=names, bad=bad)))
 """
 
 
@@ -33,9 +34,11 @@ def test_port_imports_neither_jax_nor_sahara_tpu():
     out = subprocess.run(
         [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True, text=True, timeout=120, check=True
     )
-    n_modules, bad = out.stdout.strip().split(" ", 1)
-    assert int(n_modules) >= 51
-    assert bad == "[]"
+    probe = json.loads(out.stdout)
+    assert len(probe["names"]) >= 58 and probe["bad"] == []
+    # the walk reaches the mesh and multi-host modules and the genome generator
+    assert {f"sahara_tpu_torch.parallel.{m}" for m in ("mesh", "multihost", "search", "sv", "interval")} | {
+        "sahara_tpu_torch.parallel", "sahara_tpu_torch.sim.corpus"} <= set(probe["names"])
 
 
 def test_make_reference_matches_bench():
