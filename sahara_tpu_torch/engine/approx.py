@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sahara_tpu_torch import trace
 from sahara_tpu_torch.engine.device import DeviceIndex
 from sahara_tpu_torch.engine.tape import SchemeTape
 from sahara_tpu_torch.kernels.frontier import SZ, FrontierContext, check_step, frontier_step, pack_tape
@@ -46,6 +47,7 @@ class SearchHits:
         return bool(self.frontier_overflow.any() or self.hit_overflow.any())
 
 
+@trace.spanned("approx.search")
 def scheme_search(
     index: DeviceIndex,
     queries: torch.Tensor,
@@ -101,6 +103,7 @@ def _concat_hits(parts: list[SearchHits], nq: int) -> SearchHits:
     )
 
 
+@trace.spanned("approx.ladder")
 def run_scheme_search_chunked(
     index: DeviceIndex,
     queries: np.ndarray,
@@ -127,9 +130,10 @@ def run_scheme_search_chunked(
     nq = queries.shape[0]
     ns = tape.num_searches
     dev = index.device
-    q = torch.from_numpy(np.ascontiguousarray(queries)).to(dev).to(torch.int32)
-    act = torch.from_numpy(np.ones(nq, dtype=bool) if active is None else np.asarray(active, dtype=bool)).to(dev)
-    words = torch.from_numpy(pack_tape(tape.side, tape.qpos, tape.lo, tape.hi)).to(dev)
+    q = trace.to_device(torch.from_numpy(np.ascontiguousarray(queries)), dev, "approx.queries").to(torch.int32)
+    act = trace.to_device(torch.from_numpy(np.ones(nq, dtype=bool) if active is None
+                                           else np.asarray(active, dtype=bool)), dev, "approx.active")
+    words = trace.to_device(torch.from_numpy(pack_tape(tape.side, tape.qpos, tape.lo, tape.hi)), dev, "approx.tape")
     starts = range(0, max(nq, 1), chunk)
     parts: list[SearchHits | None] = [None] * len(starts)  # each chunk's, from its first search on
     caps = np.array([[s_cap, h_cap]] * len(starts), dtype=np.int32)  # each chunk's caps
@@ -141,13 +145,15 @@ def run_scheme_search_chunked(
         over = np.zeros((2, len(ids)), dtype=bool)  # per query: a lane's frontier, hit buffer overflowed
         for lo in range(0, len(ids), chunk):
             b = slice(lo, lo + chunk)
-            sel = torch.from_numpy(ids[b]).to(dev)
+            trace.count("approx.queries_searched", len(ids[b]))
+            trace.count("approx.queries_retried", len(ids[b]) if attempt else 0)
+            sel = trace.to_device(torch.from_numpy(ids[b]), dev, "approx.select")
             s_w, h_w = (int(x) for x in cap_of[:, b].max(axis=1))
             mixed = bool((cap_of[:, b].min(axis=1) != (s_w, h_w)).any())
+            caps_b = trace.to_device(torch.from_numpy(cap_of[:, b].copy()), dev, "approx.caps") if mixed else None
             hits, cnt, flags = scheme_search(index, q[sel], words, act[sel], edit=edit, s_cap=s_w, h_cap=h_w,
-                                             k=tape.max_errors,
-                                             caps=torch.from_numpy(cap_of[:, b].copy()).to(dev) if mixed else None)
-            flg = flags.cpu().numpy().astype(bool).reshape(2, -1, ns)
+                                             k=tape.max_errors, caps=caps_b)
+            flg = trace.to_host(flags, "approx.flags").numpy().astype(bool).reshape(2, -1, ns)
             over[:, b] = flg.any(axis=2)
             hits, cnt = hits.reshape(3, -1, ns, h_w), cnt.reshape(-1, ns)
             for c in np.unique(owner[b]):
@@ -155,7 +161,7 @@ def run_scheme_search_chunked(
                     parts[c] = SearchHits(*hits, cnt, *(torch.from_numpy(f) for f in flg))
                     continue
                 mine = np.flatnonzero(owner[b] == c)
-                at = torch.from_numpy(mine).to(dev)
+                at = trace.to_device(torch.from_numpy(mine), dev, "approx.place")
                 parts[c] = _place(parts[c], ids[b][mine] - starts[c], hits[:, at, :, : caps[c, 1]], cnt[at],
                                   flg[:, mine])
         todo = {}
@@ -182,7 +188,7 @@ def _place(part: SearchHits, rows: np.ndarray, hits: torch.Tensor, cnt: torch.Te
     hits int32[3, n, ns, h_cap], counts int32[n, ns] and flags bool[2, n,
     ns]; its hit buffers widen to that h_cap (a chunk's caps only grow)."""
     rows = torch.from_numpy(rows)
-    r = rows.to(cnt.device)
+    r = trace.to_device(rows, cnt.device, "approx.place")
     fields = [F.pad(old, (0, hits.shape[3] - old.shape[2])) for old in (part.lb, part.sz, part.err)]
     for old, new in zip(fields, hits):
         old[r] = new

@@ -37,18 +37,17 @@ import time
 import numpy as np
 import torch
 
+from sahara_tpu_torch import trace
 from sahara_tpu_torch.engine import seedverify, workq
 from sahara_tpu_torch.engine.approx import SearchHits, run_scheme_search_chunked
 from sahara_tpu_torch.engine.device import DeviceIndex, device_bytes, resolve_device
 from sahara_tpu_torch.engine.locate import expand_intervals, lf_walk
 from sahara_tpu_torch.engine.rank import ROW_INTS
 from sahara_tpu_torch.engine.seedverify import (
-    StageTimer,
     plan_parts,
     plan_parts_e1,
     seed_bad_mask,
     seed_tape,
-    stage_of,
     sv_e1,
     sv_eligible,
     sv_fused,
@@ -59,6 +58,7 @@ from sahara_tpu_torch.kernels.verify import MAX_K
 from sahara_tpu_torch.schemes import expand, get_generator, limit_to_hamming
 from sahara_tpu_torch.schemes.costs import node_count, optimize_by_wnc_topdown, weighted_node_count
 from sahara_tpu_torch.schemes.types import Scheme
+from sahara_tpu_torch.trace import StageTimer
 
 
 @dataclasses.dataclass
@@ -120,6 +120,7 @@ def _concat(results: list[SearchResult]) -> SearchResult:
     return SearchResult(*(np.concatenate([getattr(r, f) for r in results]) for f in fields))
 
 
+@trace.spanned("driver.merge")
 def _merge_results(results: list[SearchResult]) -> SearchResult:
     """Unique (queryId, seqId, pos) rows sorted lexicographically, keeping
     the minimal error count per position."""
@@ -156,25 +157,24 @@ def _run_sv_chunks(
     chunk: int,
     run,
     parts,
-    timer: StageTimer | None = None,
 ) -> tuple[SearchResult, np.ndarray]:
     """Upload the query matrix once as uint8, then run each chunk of it
     through ``run`` with ``parts``: ``sv_fused`` (exact parts) or
     ``_sv_e1_chunk`` (one-error parts).  The chunks' rows are concatenated,
     not merged.  Returns the rows and bool[nq]: queries over ``PART_CAP``,
     which gave no rows here."""
-    qfull = torch.from_numpy(np.ascontiguousarray(qarr, dtype=np.uint8)).to(index.device)
-    seq_starts = index.seq_starts.cpu().numpy().astype(np.int64)
+    qfull = trace.to_device(torch.from_numpy(np.ascontiguousarray(qarr, dtype=np.uint8)), index.device,
+                            "driver.queries")
+    seq_starts = trace.to_host(index.seq_starts, "driver.seq_starts").numpy().astype(np.int64)
     results, over_all = [], []
     for start in range(0, qarr.shape[0], chunk):
-        q_idx, abs_pos, err, over = run(index, qfull[start : start + chunk], parts, k=k, edit=edit, timer=timer)
+        q_idx, abs_pos, err, over = run(index, qfull[start : start + chunk], parts, k=k, edit=edit)
         over_all.append(over)
         results.append(_sv_hits_to_result(seq_starts, start + q_idx, abs_pos, err, qids))
     return _concat(results), np.concatenate(over_all) if over_all else np.zeros(0, dtype=bool)
 
 
-def _sv_e1_chunk(index: DeviceIndex, queries: torch.Tensor, parts, *, k: int, edit: bool,
-                 timer: StageTimer | None = None):
+def _sv_e1_chunk(index: DeviceIndex, queries: torch.Tensor, parts, *, k: int, edit: bool):
     """One chunk of the one-error plan: the seed search, one work-queue
     search (k=1, dedup on) per part length over the parts' slices stacked
     query-major, then ``sv_e1``."""
@@ -182,7 +182,7 @@ def _sv_e1_chunk(index: DeviceIndex, queries: torch.Tensor, parts, *, k: int, ed
     for pi, (_, ln) in enumerate(parts):
         groups.setdefault(ln, []).append(pi)
     lb, sz, qp = [], [], []
-    with stage_of(timer)("seed"):
+    with trace.stage("seed"):
         for ln, pidx in sorted(groups.items()):
             pq = torch.stack([queries[:, parts[pi][0] : parts[pi][0] + ln] for pi in pidx], dim=1).reshape(-1, ln)
             part_of = np.asarray(pidx, dtype=np.int64)
@@ -193,7 +193,7 @@ def _sv_e1_chunk(index: DeviceIndex, queries: torch.Tensor, parts, *, k: int, ed
                 sz.append(hits.sz.astype(np.int64))
                 qp.append(row // len(pidx) * len(parts) + part_of[row % len(pidx)])
     seeds = tuple(np.concatenate(a) if a else np.zeros(0, dtype=np.int64) for a in (lb, sz, qp))
-    return sv_e1(index, queries, parts, seeds, k=k, edit=edit, timer=timer)
+    return sv_e1(index, queries, parts, seeds, k=k, edit=edit)
 
 
 def load_scheme(
@@ -223,11 +223,11 @@ def _locate_flat_hits(index: DeviceIndex, hits: workq.FlatHits, ns: int, query_i
     if hits.n_hits == 0:
         return _empty()
     dev = index.device
-    lb = torch.from_numpy(hits.lb).to(dev)
-    sz = torch.from_numpy(hits.sz).to(dev)
+    lb = trace.to_device(torch.from_numpy(hits.lb), dev, "driver.flat_hits")
+    sz = trace.to_device(torch.from_numpy(hits.sz), dev, "driver.flat_hits")
     rows, src, valid, _ = expand_intervals(lb, sz, int(hits.sz.sum(dtype=np.int64)))
     seq_id, pos = lf_walk(index, rows, valid)
-    src, seq_id, pos = (t.cpu().numpy().astype(np.int64) for t in (src, seq_id, pos))
+    src, seq_id, pos = (trace.to_host(t, "driver.located").numpy().astype(np.int64) for t in (src, seq_id, pos))
     return SearchResult(
         query_id=query_ids[hits.lane[src] // ns].astype(np.int64),
         seq_id=seq_id,
@@ -268,7 +268,8 @@ def _workq_hits(
     def search(start: int, act: np.ndarray, g0: int, gt: SchemeTape, dt) -> None:
         try:
             hits = workq.workq_search(
-                index, queries[start : start + chunk], dt, torch.from_numpy(act).to(dev), edit=edit,
+                index, queries[start : start + chunk], dt, trace.to_device(torch.from_numpy(act), dev, "driver.active"),
+                edit=edit,
                 k=gt.max_errors, ph0=workq.phase0_length(gt, edit), dedup_every=workq.DEDUP_EVERY,
                 cap_per_query=cap_per_query,
             )
@@ -319,7 +320,8 @@ def _run_workq_grouped(
                                max_hits=max_hits, chunk=chunk)
             for d, rows in mesh_slices(len(qarr), chunk, len(replicas))
         ])
-    qfull = torch.from_numpy(np.ascontiguousarray(qarr, dtype=np.uint8)).to(index.device)
+    qfull = trace.to_device(torch.from_numpy(np.ascontiguousarray(qarr, dtype=np.uint8)), index.device,
+                            "driver.queries")
     found = _workq_hits(index, qfull, tape, edit=edit, active=act, chunk=chunk,
                         cap_per_query=4 * max_hits if max_hits > 0 else 0)
     results = [_locate_flat_hits(index, hits, ns, qids[start:]) for start, _, ns, hits in found]
@@ -328,7 +330,6 @@ def _run_workq_grouped(
 
 def _run_sv(
     index: DeviceIndex, qarr: np.ndarray, qids: np.ndarray, *, k: int, edit: bool, chunk: int,
-    timer: StageTimer | None,
 ) -> tuple[SearchResult, np.ndarray]:
     """Seed-and-verify over the bucket, with exact parts where they are
     long enough and one-error parts otherwise.  Returns the rows and
@@ -339,26 +340,25 @@ def _run_sv(
     parts = plan_parts(m, k)
     if parts is None:
         return _run_sv_chunks(index, qarr, qids, k=k, edit=edit, chunk=chunk, run=_sv_e1_chunk,
-                              parts=plan_parts_e1(m, k), timer=timer)
+                              parts=plan_parts_e1(m, k))
     bad = seed_bad_mask(index, qarr, parts)
     fallback = np.zeros(qarr.shape[0], dtype=bool) if bad is None else bad.copy()
     keep = np.flatnonzero(~fallback)
     sv_q, sv_ids = (qarr, qids) if bad is None else (qarr[keep], qids[keep])
-    res, over = _run_sv_chunks(index, sv_q, sv_ids, k=k, edit=edit, chunk=chunk, run=sv_fused, parts=parts,
-                               timer=timer)
+    res, over = _run_sv_chunks(index, sv_q, sv_ids, k=k, edit=edit, chunk=chunk, run=sv_fused, parts=parts)
     fallback[keep[over]] = True
     return res, fallback
 
 
 def _run_sv_with_fallback(
     index: DeviceIndex, qarr: np.ndarray, qids: np.ndarray, *, k: int, edit: bool, chunk: int, scheme_kw: dict,
-    timer: StageTimer | None, verbose_cb=None, replicas: tuple[DeviceIndex, ...] | None = None,
+    verbose_cb=None, replicas: tuple[DeviceIndex, ...] | None = None,
 ) -> SearchResult:
     """``_run_sv`` (``_run_sv_mesh`` with a mesh's ``replicas``), with the
     queries it cannot search alone re-searched through the work-queue
     engine; the row sets are concatenated."""
     if replicas is None:
-        res, fallback = _run_sv(index, qarr, qids, k=k, edit=edit, chunk=chunk, timer=timer)
+        res, fallback = _run_sv(index, qarr, qids, k=k, edit=edit, chunk=chunk)
     else:
         res, fallback = _run_sv_mesh(replicas, qarr, qids, k=k, edit=edit, chunk=chunk)
     if not fallback.any():
@@ -381,7 +381,7 @@ def _run_sv_mesh(
 
     mesh = DataMesh(tuple(rep.device for rep in replicas))
     hits, _ = distributed_sv_search(mesh, replicas, qarr, k, edit=edit, chunk=chunk, part_cap=seedverify.PART_CAP)
-    seq_starts = replicas[0].seq_starts.cpu().numpy().astype(np.int64)
+    seq_starts = trace.to_host(replicas[0].seq_starts, "driver.seq_starts").numpy().astype(np.int64)
     return _sv_hits_to_result(seq_starts, hits.q_idx, hits.abs_pos, hits.err, qids), hits.fallback
 
 
@@ -391,16 +391,25 @@ def _locate_hits(index: DeviceIndex, hits: SearchHits, query_ids: np.ndarray, ma
     most ``max_hits`` rows a query (0: all) in that order."""
     h_cap = hits.lb.shape[2]
     valid = torch.arange(h_cap, device=hits.lb.device) < hits.count[:, :, None]
-    q_idx = torch.nonzero(valid)[:, 0]
+    with trace.sync("driver.hit_lanes"):
+        q_idx = torch.nonzero(valid)[:, 0]
     if q_idx.numel() == 0:
         return _empty()
-    lb, sz, err = hits.lb[valid], hits.sz[valid], hits.err[valid]
-    rows, src, ok, _ = expand_intervals(lb, sz, int(sz.sum(dtype=torch.int64)))
+    lb, sz, err = (_masked(t, valid) for t in (hits.lb, hits.sz, hits.err))
+    with trace.sync("driver.hit_rows"):
+        total = int(sz.sum(dtype=torch.int64))
+    rows, src, ok, _ = expand_intervals(lb, sz, total)
     seq_id, pos = lf_walk(index, rows, ok)
-    src, seq_id, pos, q_of, err_of = (t.cpu().numpy().astype(np.int64) for t in (src, seq_id, pos, q_idx[src],
-                                                                                 err[src]))
+    src, seq_id, pos, q_of, err_of = (trace.to_host(t, "driver.located").numpy().astype(np.int64)
+                                      for t in (src, seq_id, pos, q_idx[src], err[src]))
     result = SearchResult(query_id=query_ids[q_of].astype(np.int64), seq_id=seq_id, pos=pos, errors=err_of)
     return _cap_hits_per_query(result, max_hits)
+
+
+def _masked(t: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``t[mask]``: a boolean mask's selection reads its count back."""
+    with trace.sync("driver.hit_mask"):
+        return t[mask]
 
 
 def _run_scheme_engine(
@@ -454,95 +463,97 @@ def search_queries(
     ``index`` from ``parallel.replicate_index``) searches data-parallel,
     ``chunk`` queries a device; ``engine="approx"`` has no mesh driver and
     raises ``ValueError``.  ``device`` (default: the CUDA card) must be the
-    index's device type.  ``timer`` collects the single-device
-    seed-and-verify stages' milliseconds.  ``verbose_cb`` gets a line per
-    bucket (its engine) and the schemes' node counts.  Returns located hits
-    over all queries in canonical order."""
-    replicas = None  # on a mesh of more than one entry, each entry's replica
-    if mesh is not None:
-        from sahara_tpu_torch.parallel.mesh import check_replicas
+    index's device type.  ``timer``, a ``StageTimer``, is the call's
+    tracer (``trace.py``): it records the call's spans and counters and the
+    single-device seed-and-verify stages' milliseconds.  ``verbose_cb``
+    gets a line per bucket (its engine) and the schemes' node counts.
+    Returns located hits over all queries in canonical order."""
+    with trace.tracing(timer), trace.span("search"):
+        replicas = None  # on a mesh of more than one entry, each entry's replica
+        if mesh is not None:
+            from sahara_tpu_torch.parallel.mesh import check_replicas
 
-        replicas = check_replicas(index, mesh)
-        index = replicas[0]
-    use_mesh = mesh is not None and mesh.size > 1
-    replicas = replicas if use_mesh else None
-    dev = resolve_device(device)
-    if index.device.type != dev.type:
-        raise ValueError(f"index lies on {index.device}, search asked for {dev}")
-    if engine not in ("auto", "sv", "workq", "approx"):
-        raise ValueError(f"unknown search engine {engine!r}")
-    if mode not in ("all", "besthits"):
-        raise ValueError(f"unknown search mode {mode!r}")
-    if index.row_ints != ROW_INTS:
-        raise ValueError(f"approximate search takes occ16 rows (sigma <= 8), got a sigma={index.sigma} index; "
-                         "exact search (engine/exact.py) takes any sigma")
+            replicas = check_replicas(index, mesh)
+            index = replicas[0]
+        use_mesh = mesh is not None and mesh.size > 1
+        replicas = replicas if use_mesh else None
+        dev = resolve_device(device)
+        if index.device.type != dev.type:
+            raise ValueError(f"index lies on {index.device}, search asked for {dev}")
+        if engine not in ("auto", "sv", "workq", "approx"):
+            raise ValueError(f"unknown search engine {engine!r}")
+        if mode not in ("all", "besthits"):
+            raise ValueError(f"unknown search mode {mode!r}")
+        if index.row_ints != ROW_INTS:
+            raise ValueError(f"approximate search takes occ16 rows (sigma <= 8), got a sigma={index.sigma} index; "
+                             "exact search (engine/exact.py) takes any sigma")
 
-    by_len: dict[int, list[int] | None] = {}
-    if isinstance(queries, np.ndarray):
-        if queries.ndim != 2:
-            raise ValueError("matrix queries must be 2-D [nq, m]")
-        if queries.shape[1]:
-            by_len[queries.shape[1]] = None
-    else:
-        for i, q in enumerate(queries):
-            by_len.setdefault(len(q), []).append(i)
-
-    results: list[SearchResult] = []
-    for length, idxs in sorted(by_len.items()):
-        if length == 0:
-            continue
-        if idxs is None:
-            qarr = np.ascontiguousarray(queries, dtype=np.uint8)
-            qids = np.arange(len(queries), dtype=np.int64)
+        by_len: dict[int, list[int] | None] = {}
+        if isinstance(queries, np.ndarray):
+            if queries.ndim != 2:
+                raise ValueError("matrix queries must be 2-D [nq, m]")
+            if queries.shape[1]:
+                by_len[queries.shape[1]] = None
         else:
-            qarr = np.stack([queries[i] for i in idxs]).astype(np.uint8, copy=False)
-            qids = np.asarray(idxs, dtype=np.int64)
-        if query_ids is not None:
-            qids = np.asarray(query_ids, dtype=np.int64)[qids]
-        scheme_kw = dict(generator_name=generator_name, sigma=index.sigma, n_text=index.n, dynamic=dynamic)
-        # on a mesh seed-and-verify seeds with exact parts only, as the reference's does
-        use_sv = engine in ("auto", "sv") and sv_eligible(index, length, k, seed_errors=0 if use_mesh else 1)
-        if engine == "sv" and not use_sv:
-            raise ValueError(
-                "seed-verify engine not applicable (index lacks a text store, "
-                f"or parts too short for m={length}, k={k})"
-            )
-        bucket_engine = "workq" if engine == "auto" else engine
-        if use_mesh and not use_sv and bucket_engine != "workq":
-            raise ValueError(f"engine {bucket_engine!r} has no distributed driver; use engine='auto' or 'workq' "
-                             "with a mesh")
-        if verbose_cb:
-            where = f"mesh[{mesh.size}]" if use_mesh else "single-device"
-            verbose_cb(f"engine: {'seed-verify' if use_sv else bucket_engine} ({where}, m={length}, "
-                       f"{len(qarr)} queries)")
-        run = dict(engine=bucket_engine, edit=edit, max_hits=max_hits, chunk=chunk, s_cap=s_cap, h_cap=h_cap,
-                   replicas=replicas)
-        if use_sv:
-            res = _run_sv_with_fallback(index, qarr, qids, k=k, edit=edit, chunk=chunk, scheme_kw=scheme_kw,
-                                        timer=timer, verbose_cb=verbose_cb, replicas=replicas)
-            # the filter keeps each row whose error is its query's least,
-            # which commutes with the merge; the cap counts merged rows in order
-            if mode == "besthits":
-                res = _besthits_filter(res)
-            if max_hits > 0:
-                res = _cap_hits_per_query(_merge_results([res]), max_hits)
-            results.append(res)
-        elif mode == "all":
-            tape = compile_tape(load_scheme(min_k=0, max_k=k, length=length, edit=edit, verbose_cb=verbose_cb,
-                                            **scheme_kw))
-            results.append(_run_scheme_engine(index, qarr, tape, qids, active=None, **run))
-        else:
-            # strata j = 0..k: a query stops at the first stratum with hits
-            active = np.ones(len(qarr), dtype=bool)
-            for j in range(k + 1):
-                if not active.any():
-                    break
-                tape = compile_tape(load_scheme(min_k=j, max_k=j, length=length, edit=edit, verbose_cb=verbose_cb,
-                                                **scheme_kw))
-                res = _run_scheme_engine(index, qarr, tape, qids, active=active, **run)
+            for i, q in enumerate(queries):
+                by_len.setdefault(len(q), []).append(i)
+
+        results: list[SearchResult] = []
+        for length, idxs in sorted(by_len.items()):
+            if length == 0:
+                continue
+            if idxs is None:
+                qarr = np.ascontiguousarray(queries, dtype=np.uint8)
+                qids = np.arange(len(queries), dtype=np.int64)
+            else:
+                qarr = np.stack([queries[i] for i in idxs]).astype(np.uint8, copy=False)
+                qids = np.asarray(idxs, dtype=np.int64)
+            if query_ids is not None:
+                qids = np.asarray(query_ids, dtype=np.int64)[qids]
+            scheme_kw = dict(generator_name=generator_name, sigma=index.sigma, n_text=index.n, dynamic=dynamic)
+            # on a mesh seed-and-verify seeds with exact parts only, as the reference's does
+            use_sv = engine in ("auto", "sv") and sv_eligible(index, length, k, seed_errors=0 if use_mesh else 1)
+            if engine == "sv" and not use_sv:
+                raise ValueError(
+                    "seed-verify engine not applicable (index lacks a text store, "
+                    f"or parts too short for m={length}, k={k})"
+                )
+            bucket_engine = "workq" if engine == "auto" else engine
+            if use_mesh and not use_sv and bucket_engine != "workq":
+                raise ValueError(f"engine {bucket_engine!r} has no distributed driver; use engine='auto' or 'workq' "
+                                 "with a mesh")
+            if verbose_cb:
+                where = f"mesh[{mesh.size}]" if use_mesh else "single-device"
+                verbose_cb(f"engine: {'seed-verify' if use_sv else bucket_engine} ({where}, m={length}, "
+                           f"{len(qarr)} queries)")
+            run = dict(engine=bucket_engine, edit=edit, max_hits=max_hits, chunk=chunk, s_cap=s_cap, h_cap=h_cap,
+                       replicas=replicas)
+            if use_sv:
+                res = _run_sv_with_fallback(index, qarr, qids, k=k, edit=edit, chunk=chunk, scheme_kw=scheme_kw,
+                                            verbose_cb=verbose_cb, replicas=replicas)
+                # the filter keeps each row whose error is its query's least,
+                # which commutes with the merge; the cap counts merged rows in order
+                if mode == "besthits":
+                    res = _besthits_filter(res)
+                if max_hits > 0:
+                    res = _cap_hits_per_query(_merge_results([res]), max_hits)
                 results.append(res)
-                active &= ~np.isin(qids, res.query_id)
-    return _merge_results(results)
+            elif mode == "all":
+                tape = compile_tape(load_scheme(min_k=0, max_k=k, length=length, edit=edit, verbose_cb=verbose_cb,
+                                                **scheme_kw))
+                results.append(_run_scheme_engine(index, qarr, tape, qids, active=None, **run))
+            else:
+                # strata j = 0..k: a query stops at the first stratum with hits
+                active = np.ones(len(qarr), dtype=bool)
+                for j in range(k + 1):
+                    if not active.any():
+                        break
+                    tape = compile_tape(load_scheme(min_k=j, max_k=j, length=length, edit=edit, verbose_cb=verbose_cb,
+                                                    **scheme_kw))
+                    res = _run_scheme_engine(index, qarr, tape, qids, active=active, **run)
+                    results.append(res)
+                    active &= ~np.isin(qids, res.query_id)
+        return _merge_results(results)
 
 
 # Card memory the resident regime leaves free beside the shards' views, for
@@ -629,8 +640,9 @@ def search_queries_sharded(
             _free_card(dev)
             budget = torch.cuda.mem_get_info(dev)[0] - RESIDENT_MARGIN
         if _resident_views(sharded, dev, budget, verbose_cb) is not None:
-            return _search_sharded_resident(sharded, queries, query_ids=query_ids, dev=dev, verbose_cb=verbose_cb,
-                                            **kw)
+            with trace.tracing(kw.get("timer")):
+                return _search_sharded_resident(sharded, queries, query_ids=query_ids, dev=dev,
+                                                verbose_cb=verbose_cb, **kw)
 
     parts: list[SearchResult] = []
     for i, host in enumerate(sharded.shards):
@@ -665,7 +677,6 @@ def _search_sharded_resident(
     max_hits: int = 0,
     dynamic: bool = False,
     chunk: int = 16384,
-    timer: StageTimer | None = None,
     **_ignored,
 ) -> SearchResult:
     """The resident regime of ``search_queries_sharded``."""
@@ -678,7 +689,7 @@ def _search_sharded_resident(
     for i in range(sharded.num_shards):
         if verbose_cb:
             verbose_cb(f"shard {i + 1}/{sharded.num_shards} (resident): n={sharded.shards[i].n}")
-        res, fb = _run_sv(sharded.resident[i], qarr, qids, k=k, edit=edit, chunk=chunk, timer=timer)
+        res, fb = _run_sv(sharded.resident[i], qarr, qids, k=k, edit=edit, chunk=chunk)
         fallback.append(fb)
         parts.append(_shard_to_global(res, sharded, i))
     if any(fb.any() for fb in fallback):

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from sahara_tpu_torch import trace
 from sahara_tpu_torch.engine.device import DeviceIndex
 from sahara_tpu_torch.kernels import lf_walk as k7
 
@@ -59,7 +60,8 @@ def locate(index: DeviceIndex, lb: torch.Tensor, ln: torch.Tensor):
     (src int64 — the interval each row came from, seq_id int32, pos int32),
     intervals in order and each interval's rows in SA order.  Reads the
     total once to allocate exactly."""
-    total = int(ln.long().sum())
+    with trace.sync("locate.total"):
+        total = int(ln.long().sum())
     rows, src, _, _ = expand_intervals(lb, ln, total)
     seq_id, pos = _walk(index, rows)
     return src, seq_id, pos

@@ -30,19 +30,19 @@ candidate count once and allocates exactly: no capacity memory, no retries.
 
 from __future__ import annotations
 
-import contextlib
 import functools
-import time
 
 import numpy as np
 import torch
 
+from sahara_tpu_torch import trace
 from sahara_tpu_torch.engine.device import DeviceIndex
 from sahara_tpu_torch.engine.locate import expand_intervals, lf_walk
 from sahara_tpu_torch.engine.tape import SchemeTape, compile_tape
 from sahara_tpu_torch.kernels.seed import seed_scan
 from sahara_tpu_torch.kernels.verify import MAX_K, verify
 from sahara_tpu_torch.schemes import expand, get_generator, limit_to_hamming
+from sahara_tpu_torch.trace import StageTimer  # noqa: F401  (importable from here too)
 
 MIN_PART = 10  # shortest exact part worth seeding with (else candidate blowup)
 
@@ -50,8 +50,6 @@ MIN_PART = 10  # shortest exact part worth seeding with (else candidate blowup)
 # seeds: any part's seed intervals together) larger than this is not
 # expanded; seed-and-verify cannot search it exactly on its own.
 PART_CAP = 1 << 16
-
-STAGES = ("seed", "expand", "locate", "verify", "emit")
 
 
 def _balanced_split(m: int, p: int) -> tuple[tuple[int, int], ...]:
@@ -86,6 +84,7 @@ def plan_parts_e1(m: int, k: int) -> tuple[tuple[int, int], ...] | None:
     return _balanced_split(m, p)
 
 
+@trace.spanned("sv.bad_mask")
 def seed_bad_mask(index: DeviceIndex, queries: np.ndarray, parts) -> np.ndarray | None:
     """Queries whose table-covered part suffixes carry ranks the j-mer table
     cannot encode (anything outside 1..4); None when there are none or the
@@ -126,68 +125,37 @@ def seed_parts(index: DeviceIndex, queries: torch.Tensor, parts) -> tuple[torch.
     )
 
 
-class StageTimer:
-    """Milliseconds per stage, summed over chunks.  On a CUDA device each
-    stage is bracketed by events on the current stream (no synchronisation
-    until ``totals``), so a stage's time is device-stream time between its
-    boundaries, idle gaps included; on the CPU it is host time."""
-
-    def __init__(self, device: torch.device):
-        self._cuda = device.type == "cuda"
-        self._events: list[tuple[str, torch.cuda.Event, torch.cuda.Event]] = []
-        self._ms = dict.fromkeys(STAGES, 0.0)
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        if self._cuda:
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            yield
-            end.record()
-            self._events.append((name, start, end))
-        else:
-            t0 = time.perf_counter()
-            yield
-            self._ms[name] += (time.perf_counter() - t0) * 1e3
-
-    def totals(self) -> dict[str, float]:
-        if self._events:
-            torch.cuda.synchronize()
-            for name, start, end in self._events:
-                self._ms[name] += start.elapsed_time(end)
-            self._events.clear()
-        return dict(self._ms)
-
-
-def stage_of(timer: StageTimer | None):
-    """``timer.stage``, or a context that times nothing."""
-    return timer.stage if timer is not None else (lambda _name: contextlib.nullcontext())
-
-
 def verify_candidates(
     index: DeviceIndex, queries: torch.Tensor, rows: torch.Tensor, q_of: torch.Tensor, off_of: torch.Tensor, *,
-    k: int, edit: bool, stage,
+    k: int, edit: bool,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Stages 3-5 of a chunk: locate each candidate SA row (int32), verify
     query ``q_of`` (int64) around its anchor, the row's text position less
     the part's offset ``off_of`` (int64), and emit host arrays (q_idx,
     abs_pos, err) int64 of the (candidate, start) pairs within k."""
-    with stage("locate"):
+    with trace.stage("locate"):
         seq_id, pos = lf_walk(index, rows, torch.ones_like(rows, dtype=torch.bool))
         abs_pos = index.seq_starts[seq_id.clamp(min=0).long()].long() + pos.long()
-    with stage("verify"):
+    with trace.stage("verify"):
         base = abs_pos - off_of - (k if edit else 0)  # earliest candidate start
         dist = verify(
             index.text4, index.n, queries, q_of.to(torch.int32), base.to(torch.int32), k, edit
         )
-    with stage("emit"):
-        cand, delta = torch.nonzero(dist <= k, as_tuple=True)
-        hits = torch.stack([q_of[cand], base[cand] + delta, dist[cand, delta].long()]).cpu().numpy()
+    with trace.stage("emit"):
+        with trace.sync("sv.emit_nonzero"):
+            cand, delta = torch.nonzero(dist <= k, as_tuple=True)
+        hits = trace.to_host(torch.stack([q_of[cand], base[cand] + delta, dist[cand, delta].long()]),
+                             "sv.emit_rows").numpy()
     return hits[0], hits[1], hits[2]
 
 
 def _over_host(over: torch.Tensor, n_over: int) -> np.ndarray:
-    return over.cpu().numpy() if n_over else np.zeros(over.shape[0], dtype=bool)
+    return trace.to_host(over, "sv.over").numpy() if n_over else np.zeros(over.shape[0], dtype=bool)
+
+
+def _part_offsets(parts, dev: torch.device) -> torch.Tensor:
+    """int64[P]: each part's offset in the query, on ``dev``."""
+    return trace.to_device(torch.tensor([off for off, _ in parts], dtype=torch.int64), dev, "sv.part_offsets")
 
 
 _NO_HITS = (np.zeros(0, dtype=np.int64),) * 3
@@ -200,7 +168,6 @@ def sv_fused(
     *,
     k: int,
     edit: bool,
-    timer: StageTimer | None = None,
     part_cap: int | None = None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """One chunk of the exact-parts plan: seed -> expand -> locate -> verify
@@ -210,22 +177,20 @@ def sv_fused(
     (q_idx int64[H] local query index, abs_pos int64[H] padded-text start,
     err int64[H], over bool[nq] — queries with a part interval larger than
     ``part_cap`` (default ``PART_CAP``), which contribute no hits here)."""
-    stage = stage_of(timer)
-    dev = queries.device
     p_cnt = len(parts)
-    with stage("seed"):
+    with trace.stage("seed"):
         lo, sz = seed_parts(index, queries, parts)
         over = (sz > (PART_CAP if part_cap is None else part_cap)).any(dim=1)
         sz = torch.where(over[:, None], 0, sz)
-        n_cands, n_over = torch.stack([sz.sum(dtype=torch.int64), over.sum()]).tolist()
+        with trace.sync("sv.counts"):
+            n_cands, n_over = torch.stack([sz.sum(dtype=torch.int64), over.sum()]).tolist()
     over_host = _over_host(over, n_over)
     if n_cands == 0:
         return (*_NO_HITS, over_host)
-    with stage("expand"):
+    with trace.stage("expand"):
         rows, src, _, _ = expand_intervals(lo.reshape(-1), sz.reshape(-1), n_cands)
-        offs = torch.tensor([off for off, _ in parts], dtype=torch.int64, device=dev)
-        off_of = offs[src % p_cnt]
-    return (*verify_candidates(index, queries, rows, src // p_cnt, off_of, k=k, edit=edit, stage=stage), over_host)
+        off_of = _part_offsets(parts, queries.device)[src % p_cnt]
+    return (*verify_candidates(index, queries, rows, src // p_cnt, off_of, k=k, edit=edit), over_host)
 
 
 def sv_e1(
@@ -236,7 +201,6 @@ def sv_e1(
     *,
     k: int,
     edit: bool,
-    timer: StageTimer | None = None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """One chunk of the one-error plan after its seed search: expand ->
     locate -> verify -> emit.
@@ -246,24 +210,24 @@ def sv_e1(
     ``PART_CAP`` (a row counted once per interval that holds it) is flagged
     in ``over`` and expanded no further; the rest expand to distinct
     (query, part, row) candidates.  Returns what ``sv_fused`` returns."""
-    stage = stage_of(timer)
     nq, p_cnt = queries.shape[0], len(parts)
     if len(seeds[0]) == 0:
         return (*_NO_HITS, np.zeros(nq, dtype=bool))
     dev = queries.device
-    with stage("expand"):
-        lb, sz, qp = (torch.from_numpy(a).to(dev) for a in seeds)
+    with trace.stage("expand"):
+        lb, sz, qp = (trace.to_device(torch.from_numpy(a), dev, "sv.seeds") for a in seeds)
         tot = torch.zeros(nq * p_cnt, dtype=torch.int64, device=dev).index_add_(0, qp, sz)
         over = (tot.view(nq, p_cnt) > PART_CAP).any(dim=1)
         sz = torch.where(over[qp // p_cnt], 0, sz)
-        n_rows, n_over = torch.stack([sz.sum(), over.sum()]).tolist()
+        with trace.sync("sv.counts"):
+            n_rows, n_over = torch.stack([sz.sum(), over.sum()]).tolist()
         over_host = _over_host(over, n_over)
         if n_rows == 0:
             return (*_NO_HITS, over_host)
         rows, src, _, _ = expand_intervals(lb, sz, n_rows)
-        key = torch.unique((qp[src] << 32) | rows.long())  # rows < 2^31
+        with trace.sync("sv.unique"):
+            key = torch.unique((qp[src] << 32) | rows.long())  # rows < 2^31
         qp_u = key >> 32
-        offs = torch.tensor([off for off, _ in parts], dtype=torch.int64, device=dev)
-        off_of = offs[qp_u % p_cnt]
+        off_of = _part_offsets(parts, dev)[qp_u % p_cnt]
     rows = (key & 0xFFFFFFFF).to(torch.int32)
-    return (*verify_candidates(index, queries, rows, qp_u // p_cnt, off_of, k=k, edit=edit, stage=stage), over_host)
+    return (*verify_candidates(index, queries, rows, qp_u // p_cnt, off_of, k=k, edit=edit), over_host)

@@ -40,6 +40,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from sahara_tpu_torch import trace
 from sahara_tpu_torch.engine.device import DeviceIndex
 from sahara_tpu_torch.engine.tape import SchemeTape
 from sahara_tpu_torch.kernels.workq import EDGES, StepContext, step_context, workq_step
@@ -170,7 +171,7 @@ def phase0_length(tape: SchemeTape, edit: bool) -> int:
 
 def upload_tape(tape: SchemeTape, device) -> tuple[torch.Tensor, ...]:
     """(side, qpos, lo, hi) int32[ns, m] on the device, reused across chunks."""
-    return tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+    return tuple(trace.to_device(torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)), device, "workq.tape")
                  for a in (tape.side, tape.qpos, tape.lo, tape.hi))
 
 
@@ -237,7 +238,8 @@ def start_queue(index: DeviceIndex, queries: torch.Tensor, device_tape, active: 
     if not index.bidirectional:
         raise ValueError("scheme search requires a bidirectional index")
     lanes = torch.arange(nq * ns, dtype=torch.int64, device=index.device)
-    lanes = lanes[active[lanes // ns]]
+    with trace.sync("workq.lanes"):
+        lanes = lanes[active[lanes // ns]]
     meta = ((lanes % ns) << layout.s_shift) | ((lanes // ns) << layout.q_shift)
     meta = torch.where(meta >= 1 << 31, meta - (1 << 32), meta).to(torch.int32)
     ctx = step_context(
@@ -296,7 +298,7 @@ def workq_search(
         state, step_hits = expand_step(ctx, state, drain=g >= m)
         if step_hits.shape[1]:
             hits.append(step_hits)
-    out = torch.cat(hits, dim=1).cpu().numpy() if hits else np.zeros((4, 0), dtype=np.int32)
+    out = trace.to_host(torch.cat(hits, dim=1), "workq.hits").numpy() if hits else np.zeros((4, 0), dtype=np.int32)
     return FlatHits(lane=out[0], lb=out[1], sz=out[2], err=out[3], n_hits=out.shape[1])
 
 
@@ -318,9 +320,9 @@ def run_workq_search(
     act = np.ones(queries.shape[0], dtype=bool) if active is None else np.asarray(active, dtype=bool)
     return workq_search(
         index,
-        torch.from_numpy(np.ascontiguousarray(queries, dtype=np.int32)).to(dev),
+        trace.to_device(torch.from_numpy(np.ascontiguousarray(queries, dtype=np.int32)), dev, "workq.queries"),
         upload_tape(tape, dev),
-        torch.from_numpy(act).to(dev),
+        trace.to_device(torch.from_numpy(act), dev, "workq.active"),
         edit=edit, k=tape.max_errors, ph0=phase0_length(tape, edit), dedup_every=DEDUP_EVERY if dedup else 0,
         cap_per_query=4 * max_hits if max_hits > 0 else 0,
     )

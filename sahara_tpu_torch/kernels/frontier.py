@@ -36,6 +36,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from sahara_tpu_torch import trace
 from sahara_tpu_torch.engine.rank import ROW_INTS, rank_all_offset
 from sahara_tpu_torch.kernels import LAUNCHES, check, on_cuda, raise_on_error, stream_of
 from sahara_tpu_torch.kernels._build import load
@@ -102,8 +103,11 @@ class FrontierContext:
             if min(self.s_cap, self.h_cap) < 1:
                 raise ValueError("the frontier step takes s_cap and h_cap of at least 1")
         if self.caps is not None:  # K8 writes a lane's children and hits below its caps
-            widths = torch.tensor([[self.s_cap], [self.h_cap]], dtype=torch.int32, device=self.caps.device)
-            if not bool(((self.caps >= 1) & (self.caps <= widths)).all()):
+            widths = trace.to_device(torch.tensor([[self.s_cap], [self.h_cap]], dtype=torch.int32),
+                                     self.caps.device, "frontier.caps_widths")
+            with trace.sync("frontier.caps_check"):
+                fits = bool(((self.caps >= 1) & (self.caps <= widths)).all())
+            if not fits:
                 raise ValueError("each lane's caps must lie between 1 and (s_cap, h_cap)")
         if not self.cuda:
             return

@@ -23,6 +23,7 @@ import dataclasses
 
 import torch
 
+from sahara_tpu_torch import trace
 from sahara_tpu_torch.engine.rank import ROW_INTS, rank_all_offset
 from sahara_tpu_torch.kernels import LAUNCHES, check, on_cuda, raise_on_error, stream_of
 from sahara_tpu_torch.kernels._build import load
@@ -208,5 +209,6 @@ def workq_step(ctx: StepContext, lb, lbr, sz, meta, *, drain: bool = False):
     raise_on_error(rc, "workq_step")
     LAUNCHES["workq_step"] += 1
     ctx.tickets += tiles
-    n_kids, n_hits, _, _ = ctx.counters.tolist()
+    with trace.sync("workq.step_counts"):
+        n_kids, n_hits, _, _ = ctx.counters.tolist()
     return (*children[:, :n_kids], hits[:, :n_hits])

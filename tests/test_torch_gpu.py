@@ -9,12 +9,17 @@ read simulator):
 
 import contextlib
 import io
+import os
+import traceback
+import warnings
+from collections import Counter
 
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
+from sahara_tpu_torch import trace
 from sahara_tpu_torch.cli.main import main as cli_main
 from sahara_tpu_torch.engine import approx, seedverify, workq
 from sahara_tpu_torch.engine.device import DeviceIndex
@@ -301,6 +306,48 @@ def bihost():
     seqs[4][:300] = seqs[1][-300:]  # a repeat
     seqs[7][50] = 5  # an N in the text: sigma_live = 6
     return build_bifmindex(seqs, 6, "d_dna5"), seqs
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(engine="approx", generator_name="optimum"),
+                                dict(engine="approx", generator_name="optimum", s_cap=2, h_cap=1)],
+                         ids=["sv", "frontier", "frontier_ladder"])
+def test_sync_spans_count_every_synchronizing_operation(bihost, kw):
+    """PyTorch's sync debug mode warns at each operation that synchronises
+    the host with the card.  In one seed-and-verify call and one frontier
+    call (and one whose chunks climb the retry ladder at different caps)
+    each warning comes inside a ``sync`` span, and there are as many spans
+    as warnings."""
+    dev = _card()
+    idx_host, seqs = bihost
+    index = DeviceIndex.from_host(idx_host, device=dev)
+    queries = _reads(seqs, np.random.default_rng(9), 600, 50, 2)
+    args = dict(k=2, chunk=128, **kw)
+    want = search_queries(index, queries, **args)  # builds the kernels and warms PyTorch's
+    torch.cuda.synchronize()
+    timer, seen = trace.StageTimer(dev), []
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):
+            current = trace._SPAN.get()
+            ours = [f for f in traceback.extract_stack() if "sahara_tpu_torch" in f.filename]
+            where = f"{os.path.basename(ours[-1].filename)}:{ours[-1].lineno}" if ours else f"{filename}:{lineno}"
+            seen.append((where, None if current is None else current.name))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = search_queries(index, queries, timer=timer, **args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    rep = timer.report()
+    spans = rep["spans"]["sync"]["count"]
+    outside = Counter(where for where, name in seen if name != "sync")
+    assert not outside and spans == len(seen), (outside, spans, Counter(where for where, _ in seen), rep["sites"])
+    assert got.rows() == want.rows() and len(want.rows()) >= 600
+    if kw.get("s_cap") == 2:
+        assert rep["counters"]["approx.queries_retried"] > 0 and "frontier.caps_check" in rep["sites"]
 
 
 def test_rank_all_smem_kernel_matches_plain(bihost):
