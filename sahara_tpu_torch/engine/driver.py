@@ -113,25 +113,81 @@ def _besthits_filter(result: SearchResult) -> SearchResult:
     return _select(result, keep)
 
 
+_FIELDS = ("query_id", "seq_id", "pos", "errors")
+
+
 def _concat(results: list[SearchResult]) -> SearchResult:
     if not results:
         return _empty()
-    fields = ("query_id", "seq_id", "pos", "errors")
-    return SearchResult(*(np.concatenate([getattr(r, f) for r in results]) for f in fields))
+    return SearchResult(*(np.concatenate([getattr(r, f) for r in results]) for f in _FIELDS))
+
+
+# The widest sort key the merge packs a row into: an int64's bits below its sign.
+KEY_BITS = 63
 
 
 @trace.spanned("driver.merge")
 def _merge_results(results: list[SearchResult]) -> SearchResult:
     """Unique (queryId, seqId, pos) rows sorted lexicographically, keeping
-    the minimal error count per position."""
-    merged = _concat(results)
-    q, s, p, e = merged.query_id, merged.seq_id, merged.pos, merged.errors
-    if len(q) == 0:
-        return SearchResult(q, s, p, e)
-    order = np.lexsort((e, p, s, q))
-    q, s, p, e = q[order], s[order], p[order], e[order]
-    keep = np.r_[True, (q[1:] != q[:-1]) | (s[1:] != s[:-1]) | (p[1:] != p[:-1])]
-    return SearchResult(q[keep], s[keep], p[keep], e[keep])
+    the minimal error count per position.
+
+    Each column, less its least value, takes the bits its range needs
+    (none where it holds one value), and a row packs into one int64 key,
+    ``((q << ws | s) << wp | p) << we | e``, part by part: one sort of the
+    keys orders the rows as the lexsort of the four columns does, and the
+    first row of each (q, s, p) run holds its least error.  Rows whose
+    widths sum past ``KEY_BITS`` take that lexsort (counter
+    ``driver.merge_lexsort``; ``driver.merge_rows`` counts the rows in)."""
+    parts = [[getattr(r, f) for f in _FIELDS] for r in results if len(r.query_id)]
+    n = sum(len(part[0]) for part in parts)
+    trace.count("driver.merge_rows", n)
+    if n == 0:
+        return _concat(results)
+    lows = [min(int(part[i].min()) for part in parts) for i in range(4)]
+    widths = [(max(int(part[i].max()) for part in parts) - lows[i]).bit_length() for i in range(4)]
+    if sum(widths) > KEY_BITS:
+        trace.count("driver.merge_lexsort")
+        merged = _concat(results)
+        q, s, p, e = merged.query_id, merged.seq_id, merged.pos, merged.errors
+        order = np.lexsort((e, p, s, q))
+        q, s, p, e = q[order], s[order], p[order], e[order]
+        keep = np.r_[True, (q[1:] != q[:-1]) | (s[1:] != s[:-1]) | (p[1:] != p[:-1])]
+        return SearchResult(q[keep], s[keep], p[keep], e[keep])
+    key = np.empty(n, dtype=np.int64)
+    field = np.empty(max(len(part[0]) for part in parts), dtype=np.int64)
+    at = 0
+    for part in parts:
+        m = len(part[0])
+        k, f = key[at:at + m], field[:m]
+        at += m
+        k.fill(0)
+        for c, lo, w in zip(part, lows, widths):
+            if w:
+                k <<= w
+                np.subtract(c, lo, out=f, dtype=np.int64)
+                k |= f
+    key.sort()
+    we = widths[3]
+    run = key >> we if we else key
+    keep = np.empty(n, dtype=bool)
+    keep[0] = True
+    np.not_equal(run[1:], run[:-1], out=keep[1:])
+    key = key[keep]
+    out = []
+    total = shift = sum(widths)
+    for lo, w in zip(lows, widths):
+        shift -= w
+        if w:
+            # the field at shift 0 is the last one read from ``key``
+            col = key >> shift if shift else key
+            if shift + w < total:
+                col &= (1 << w) - 1
+            if lo:
+                col += lo
+        else:
+            col = np.full(len(key), lo, dtype=np.int64)
+        out.append(col)
+    return SearchResult(*out)
 
 
 def _sv_hits_to_result(seq_starts: np.ndarray, q_idx, abs_pos, err, qids: np.ndarray) -> SearchResult:
