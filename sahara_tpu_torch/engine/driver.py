@@ -274,6 +274,7 @@ def load_scheme(
     return ess if edit else limit_to_hamming(ess)
 
 
+@trace.spanned("driver.locate_flat")
 def _locate_flat_hits(index: DeviceIndex, hits: workq.FlatHits, ns: int, query_ids: np.ndarray) -> SearchResult:
     """Expand a work-queue result's hit intervals to rows and locate them."""
     if hits.n_hits == 0:
@@ -292,6 +293,7 @@ def _locate_flat_hits(index: DeviceIndex, hits: workq.FlatHits, ns: int, query_i
     )
 
 
+@trace.spanned("driver.workq")
 def _workq_hits(
     index: DeviceIndex,
     queries: torch.Tensor,
@@ -309,8 +311,9 @@ def _workq_hits(
     group, searches of the group, unlocated hits) per search.
 
     A step that passes ``workq.HARD_CAP`` halves the chunk's active queries
-    and searches the halves, recursing until each fits; one query alone
-    over the ceiling raises ``RuntimeError``."""
+    and searches the halves, recursing until each fits (counter
+    ``workq.overflow_splits``); one query alone over the ceiling raises
+    ``RuntimeError``."""
     groups = [
         SchemeTape(side=tape.side[g : g + workq.MAX_NS], qpos=tape.qpos[g : g + workq.MAX_NS],
                    lo=tape.lo[g : g + workq.MAX_NS], hi=tape.hi[g : g + workq.MAX_NS])
@@ -335,6 +338,7 @@ def _workq_hits(
                 raise RuntimeError(
                     "a single query's search frontier exceeds the work-queue ceiling (workq.HARD_CAP)"
                 ) from None
+            trace.count("workq.overflow_splits")
             for half in np.array_split(act_idx, 2):
                 sub = np.zeros_like(act)
                 sub[half] = True

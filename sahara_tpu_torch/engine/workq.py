@@ -264,6 +264,7 @@ def expand_step(ctx: StepContext, state: tuple[torch.Tensor, ...], *, drain: boo
     return (lb, lbr, sz, meta), hits
 
 
+@trace.spanned("workq.search")
 def workq_search(
     index: DeviceIndex,
     queries: torch.Tensor,
@@ -281,7 +282,12 @@ def workq_search(
 
     ``cap_per_query`` > 0 stops expanding a query once it has emitted that
     many hit intervals (the reference's in-search bound; the count may
-    overshoot by one step's worth, so the driver still caps rows)."""
+    overshoot by one step's worth, so the driver still caps rows).
+
+    Traced (``trace.py``) as the span ``workq.search``, each dedup with
+    its decode and tape-word gather as ``workq.dedup``; counters
+    ``workq.queue_rows`` (the rows entering each step, summed) and
+    ``workq.hit_intervals``."""
     m = queries.shape[1]
     ctx, state = start_queue(index, queries, device_tape, active, edit=edit, k=k, cap_per_query=cap_per_query)
     hits: list[torch.Tensor] = []
@@ -291,14 +297,17 @@ def workq_search(
         if sz.shape[0] == 0:
             break
         if dedup_every and g >= ph0 and (g - ph0) % dedup_every == 0:
-            _, _, d, s_id, q_id = ctx.layout.decode(meta)
-            word = ctx.tape[(q_id.long() * ctx.ns + s_id) * m + d.clamp(max=m - 1)]
-            state = (lb, lbr, _dedup(lb, lbr, sz, meta, word, ctx.layout), meta)
+            with trace.span("workq.dedup"):
+                _, _, d, s_id, q_id = ctx.layout.decode(meta)
+                word = ctx.tape[(q_id.long() * ctx.ns + s_id) * m + d.clamp(max=m - 1)]
+                state = (lb, lbr, _dedup(lb, lbr, sz, meta, word, ctx.layout), meta)
+        trace.count("workq.queue_rows", sz.shape[0])
         # only from step m on can a state have consumed all m characters
         state, step_hits = expand_step(ctx, state, drain=g >= m)
         if step_hits.shape[1]:
             hits.append(step_hits)
     out = trace.to_host(torch.cat(hits, dim=1), "workq.hits").numpy() if hits else np.zeros((4, 0), dtype=np.int32)
+    trace.count("workq.hit_intervals", out.shape[1])
     return FlatHits(lane=out[0], lb=out[1], sz=out[2], err=out[3], n_hits=out.shape[1])
 
 

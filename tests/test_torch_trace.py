@@ -2,7 +2,8 @@
 self times and call ids on a hand-built tree; the search's rows with a
 tracer and without one; nothing recorded with neither a tracer nor a
 profiler; the spans under ``torch.profiler`` as nested annotations; the
-seed-and-verify stage totals; the frontier ladder's counters."""
+seed-and-verify stage totals; the frontier ladder's counters; the work
+queue's spans."""
 
 import json
 
@@ -16,7 +17,8 @@ from sahara_tpu_torch.engine.device import DeviceIndex
 from sahara_tpu_torch.engine.driver import search_queries
 from sahara_tpu_torch.index.build import build_bifmindex
 
-ENGINES = {"sv": dict(engine="auto"), "approx": dict(engine="approx", generator_name="optimum")}
+ENGINES = {"sv": dict(engine="auto"), "approx": dict(engine="approx", generator_name="optimum"),
+           "workq": dict(engine="workq", generator_name="h2-k2")}
 
 
 @pytest.fixture(scope="module")
@@ -109,11 +111,18 @@ def test_rows_alike_with_and_without_a_tracer(setup, engine):
     if engine == "sv":
         assert {"sv.bad_mask", "sv.seed", "sv.expand", "sv.locate", "sv.verify", "sv.emit"} <= set(spans)
         assert {"driver.queries", "sv.counts", "sv.emit_nonzero", "sv.emit_rows"} <= set(rep["sites"])
-    else:
+    elif engine == "approx":
         counters = rep["counters"]
         assert spans["approx.ladder"]["count"] == 1 and spans["approx.search"]["count"] >= 4  # chunks of 32
         assert counters["approx.queries_searched"] == 120 + counters["approx.queries_retried"]
         assert {"approx.flags", "driver.hit_lanes", "driver.hit_mask", "driver.located"} <= set(rep["sites"])
+    else:
+        counters = rep["counters"]
+        assert spans["driver.workq"]["count"] == 1 and spans["workq.search"]["count"] == 4  # chunks of 32
+        assert spans["driver.locate_flat"]["count"] == 4 and spans["workq.dedup"]["count"] > 0
+        assert counters["workq.queue_rows"] > 0 and counters["workq.hit_intervals"] > 0
+        assert "workq.overflow_splits" not in counters
+        assert {"workq.lanes", "workq.hits", "driver.flat_hits", "driver.located"} <= set(rep["sites"])
 
 
 def test_the_ladder_counts_its_retries(setup):
