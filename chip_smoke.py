@@ -48,7 +48,10 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
    K5 (the one-launch work-queue step) against the plain step on three
    queues of the workload's first chunk: the queue after phase 0, the
    largest queue, and a drain step of a search with the in-search cap;
-   records the chunk's queue size per step;
+   records the chunk's queue size per step; holds the dedup's two kernels
+   (``kernels/dedup.py``) against their plain version, sz and kill count,
+   on every queue the same chunk's h2-k2 search dedups, and times them on
+   the median and the largest of those queues;
 7. runs the work-queue path on the same workload with both occ tables on
    the card (``engine="workq"``, ``generator_name="optimum"``, as
    ``bench.py`` does): its hit set must equal the seed-and-verify path's
@@ -349,6 +352,7 @@ CHUNK = 16384
 SAMPLED_READS = 8192
 K1_POSITIONS = 1 << 20
 WORKQ_GENERATOR = "optimum"  # bench.py's generator for the work-queue engine
+DEDUP_GENERATOR = "h2-k2"  # the workq.mapped cell's scheme, whose queues the dedup phase records
 FALLBACK_READS = 1024
 RANK_BENCH_POSITIONS = 262144  # bench_rank.py's default batch
 SMEM_TEXT_MB = 0.1  # the largest random text whose occ table K4 takes
@@ -1559,6 +1563,86 @@ def workq_step_phase(index, queries: np.ndarray) -> tuple[dict, dict]:
     return row, profile
 
 
+def dedup_case(ctx, queue, flush, what: str) -> dict:
+    """The dedup kernels on one recorded queue: device time (``dedup_elect``
+    plus ``dedup_kill``, warm and cold), call time, the plain version's time
+    and the bound."""
+    from sahara_tpu_torch.kernels.dedup import workq_dedup, workq_dedup_plain
+
+    n, live = queue[2].shape[0], int((queue[2] > 0).sum())
+    call = lambda: workq_dedup(ctx, *queue)  # noqa: E731
+    # what the function needs: each row's state once (lb, lbr, sz, meta) and
+    # its sz out, a live row's table entry written by the atomic and read
+    # back; the two-launch design reads the state a second time in the kill
+    b, by = bound(n * 20 + live * 16, 0)
+    elect, kill = (kernel_device_ms(call, name, 20) for name in ("dedup_elect", "dedup_kill"))
+    cold = sum(kernel_device_ms(call, name, 20, before=flush) for name in ("dedup_elect", "dedup_kill"))
+    out = dict(what=what, rows=n, live=live, ms=elect + kill, elect_ms=elect, kill_ms=kill, cold_ms=cold,
+               call_ms=time_ms(call, 20), plain_ms=time_ms(lambda: workq_dedup_plain(ctx, *queue), 3), bound_ms=b,
+               bound_by=by, bound_bytes=n * 20 + live * 16, two_launch_bytes=n * 36 + live * 16)
+    print(f"workq_dedup ({what}): {n} rows, {live} live: device {elect:.5f} + {kill:.5f} ms (cold {cold:.5f}), "
+          f"call {out['call_ms']:.4f} ms, plain {out['plain_ms']:.3f} ms, bound {b:.5f} ms by {by}", flush=True)
+    return out
+
+
+def workq_dedup_phase(index, queries: np.ndarray) -> dict:
+    """The dedup kernels (``kernels/dedup.py``) against their plain version
+    on every queue the first chunk's h2-k2 search (the scheme of the
+    ``workq.mapped`` cell) dedups: the kernels' sz equal to the plain
+    version's and their kills (``ctx.counters[3]``) to its count; timed on
+    the median and the largest of those queues.  Returns the kernel row."""
+    from sahara_tpu_torch.engine import workq
+    from sahara_tpu_torch.engine.driver import load_scheme
+    from sahara_tpu_torch.engine.tape import compile_tape
+    from sahara_tpu_torch.kernels import LAUNCHES
+    from sahara_tpu_torch.kernels.dedup import workq_dedup, workq_dedup_plain
+
+    dev, m = index.device, queries.shape[1]
+    tape = compile_tape(load_scheme(DEDUP_GENERATOR, 0, K, m, edit=True, sigma=index.sigma, n_text=index.n))
+    chunk = min(CHUNK, workq.max_chunk_queries(m, tape.num_searches, tape.max_errors, True))
+    qd = torch.from_numpy(np.ascontiguousarray(queries[:chunk])).to(dev)
+    queues, engine_dedup = [], workq.workq_dedup
+
+    def recorded(ctx, *queue):
+        queues.append((ctx, queue))
+        return engine_dedup(ctx, *queue)
+
+    workq.workq_dedup = recorded
+    try:
+        workq.workq_search(index, qd, workq.upload_tape(tape, dev), torch.ones(chunk, dtype=torch.bool, device=dev),
+                           edit=True, k=tape.max_errors, ph0=workq.phase0_length(tape, True),
+                           dedup_every=workq.DEDUP_EVERY)
+    finally:
+        workq.workq_dedup = engine_dedup
+    if not queues:
+        raise AssertionError("the h2-k2 search made no dedup")
+    kills = 0
+    for i, (ctx, queue) in enumerate(queues):
+        before, counted, plain_counted = LAUNCHES["workq_dedup"], int(ctx.counters[3]), ctx.dedup_kills
+        got = workq_dedup(ctx, *queue)
+        assert_equal(f"workq_dedup (dedup {i}) sz", got, workq_dedup_plain(ctx, *queue))
+        if LAUNCHES["workq_dedup"] != before + 1 or int(ctx.counters[3]) - counted != ctx.dedup_kills - plain_counted:
+            raise AssertionError(f"workq_dedup (dedup {i}): the kernels' kill count differs from the plain version's")
+        kills += ctx.dedup_kills - plain_counted
+    if kills == 0:
+        raise AssertionError("the dedups of the h2-k2 search killed no row")
+    by_rows = sorted(range(len(queues)), key=lambda i: queues[i][1][2].shape[0])
+    flush_buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    flush = lambda: flush_buf.fill_(1)  # noqa: E731
+    cases = [dict(case=label, dedup=i, **dedup_case(*queues[i], flush, f"{label} queue, dedup {i}"))
+             for label, i in (("median", by_rows[len(by_rows) // 2]), ("largest", by_rows[-1]))]
+    a = cases[0]
+    print(f"workq_dedup: kernels = plain on all {len(queues)} dedups of chunk 0 ({kills} rows killed)", flush=True)
+    return dict(
+        name="workq_dedup", route="cuda", source="sahara_tpu_torch/kernels/csrc/workq.cu",
+        replaces="sahara_tpu/engine/workq.py:771", max_abs_err=0, ms=a["ms"], cold_ms=a["cold_ms"],
+        call_ms=a["call_ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"], bound_by=a["bound_by"],
+        library_ms=None, cases=cases, dedups=len(queues), kills=kills, queue_rows=[q[2].shape[0] for _, q in queues],
+        shape=f"the median of chunk 0's {len(queues)} dedup queues ({DEDUP_GENERATOR}, {qd.shape[0]} strand "
+              f"queries): {a['rows']} rows, {a['live']} live",
+    )
+
+
 def count_syncs(run) -> int:
     """Synchronising calls one run makes, as torch.cuda's sync debug mode
     flags them."""
@@ -1630,7 +1714,7 @@ def workq_path(host, queries: np.ndarray, sv_rows: np.ndarray):
     torch.cuda.synchronize()
     out["first_pass_s"] = time.perf_counter() - t0
     out["launches"] = dict(LAUNCHES)
-    require_launches(out["launches"], ("workq_step",), "work-queue")
+    require_launches(out["launches"], ("workq_step", "workq_dedup"), "work-queue")
     rows = sorted_rows(res)
     out.update(hits=len(rows), sha256=hashlib.sha256(rows.tobytes()).hexdigest())
     print(f"workq hits {len(rows)} sha256 {out['sha256']} (first pass {out['first_pass_s']:.2f} s)", flush=True)
@@ -3049,6 +3133,7 @@ def main() -> int:
     index_bi = DeviceIndex.from_host(host)
     step_row, report["workq_queue"] = workq_step_phase(index_bi, queries)
     kernels.append(step_row)
+    kernels.append(workq_dedup_phase(index_bi, queries))
     del index_bi, step_row
     for row in kernels:
         print(f"{row['name']}: {row['ms']:.4f} ms (plain {row['plain_ms']:.3f} ms, "
@@ -3133,6 +3218,7 @@ def main() -> int:
     path_launches = {**launches, "verify_hamming": report["hamming"]["verify_launches"],
                      "rank_all_smem": rank_bench_launches["rank_all_smem"],
                      "workq_step": report["workq"]["launches"]["workq_step"],
+                     "workq_dedup": report["workq"]["launches"]["workq_dedup"],
                      "exact_search": report["uni"]["launches"]["exact_search"],
                      "lf_walk": report["kmer"]["launches"]["lf_walk"],
                      "frontier_step": report["approx"]["launches"]["frontier_step"]}

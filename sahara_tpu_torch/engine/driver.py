@@ -311,9 +311,11 @@ def _workq_hits(
     group, searches of the group, unlocated hits) per search.
 
     A step that passes ``workq.HARD_CAP`` halves the chunk's active queries
-    and searches the halves, recursing until each fits (counter
+    and searches the halves, halving again until each fits (counter
     ``workq.overflow_splits``); one query alone over the ceiling raises
-    ``RuntimeError``."""
+    ``RuntimeError``.  The halving is a loop over a stack, not a recursive
+    closure: such a closure refers to itself, and the reference cycle kept
+    ``queries`` on the card until Python's cycle collector next ran."""
     groups = [
         SchemeTape(side=tape.side[g : g + workq.MAX_NS], qpos=tape.qpos[g : g + workq.MAX_NS],
                    lo=tape.lo[g : g + workq.MAX_NS], hi=tape.hi[g : g + workq.MAX_NS])
@@ -323,34 +325,33 @@ def _workq_hits(
     group_tapes = [workq.upload_tape(g, dev) for g in groups]
     chunk = min(chunk, *(workq.max_chunk_queries(g.length, g.num_searches, g.max_errors, edit) for g in groups))
     out: list[tuple[int, int, int, workq.FlatHits]] = []
-
-    def search(start: int, act: np.ndarray, g0: int, gt: SchemeTape, dt) -> None:
-        try:
-            hits = workq.workq_search(
-                index, queries[start : start + chunk], dt, trace.to_device(torch.from_numpy(act), dev, "driver.active"),
-                edit=edit,
-                k=gt.max_errors, ph0=workq.phase0_length(gt, edit), dedup_every=workq.DEDUP_EVERY,
-                cap_per_query=cap_per_query,
-            )
-        except workq.QueueOverflow:
-            act_idx = np.flatnonzero(act)
-            if len(act_idx) <= 1:
-                raise RuntimeError(
-                    "a single query's search frontier exceeds the work-queue ceiling (workq.HARD_CAP)"
-                ) from None
-            trace.count("workq.overflow_splits")
-            for half in np.array_split(act_idx, 2):
-                sub = np.zeros_like(act)
-                sub[half] = True
-                search(start, sub, g0, gt, dt)
-            return
-        out.append((start, g0, gt.num_searches, hits))
-
     for start in range(0, queries.shape[0], chunk):
-        act = active[start : start + chunk]
-        if act.any():
-            for g, (gt, dt) in enumerate(zip(groups, group_tapes)):
-                search(start, act, g * workq.MAX_NS, gt, dt)
+        if not active[start : start + chunk].any():
+            continue
+        for g, (gt, dt) in enumerate(zip(groups, group_tapes)):
+            todo = [active[start : start + chunk]]  # active sets still to search, the next one last
+            while todo:
+                act = todo.pop()
+                try:
+                    hits = workq.workq_search(
+                        index, queries[start : start + chunk], dt,
+                        trace.to_device(torch.from_numpy(act), dev, "driver.active"), edit=edit,
+                        k=gt.max_errors, ph0=workq.phase0_length(gt, edit), dedup_every=workq.DEDUP_EVERY,
+                        cap_per_query=cap_per_query,
+                    )
+                except workq.QueueOverflow:
+                    act_idx = np.flatnonzero(act)
+                    if len(act_idx) <= 1:
+                        raise RuntimeError(
+                            "a single query's search frontier exceeds the work-queue ceiling (workq.HARD_CAP)"
+                        ) from None
+                    trace.count("workq.overflow_splits")
+                    for half in reversed(np.array_split(act_idx, 2)):  # the first half next
+                        sub = np.zeros_like(act)
+                        sub[half] = True
+                        todo.append(sub)
+                    continue
+                out.append((start, g * workq.MAX_NS, gt.num_searches, hits))
     return out
 
 

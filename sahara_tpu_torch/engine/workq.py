@@ -7,8 +7,9 @@ text, and a packed meta word (op/edge flags | err | d | search | query, see
 ``MetaLayout``).  Each step extends every live state by one tape character:
 
 1. dedup    every ``dedup_every``-th step after phase 0, merge states that a
-            surviving state dominates (scatter-min over a hash of the cursor,
-            then a field-by-field check), PyTorch;
+            surviving state dominates (a min over a hash of the cursor, then
+            a field-by-field check): ``kernels/dedup.py``, two launches
+            with no read-back, or its plain version on the CPU;
 2. step     K5 ``workq_step``, one launch: on drain steps (from step m on)
             states that consumed the whole query leave as hits (lane, lb,
             sz, err) unless an edge flag says a shorter span exists, and with
@@ -43,7 +44,8 @@ import torch
 from sahara_tpu_torch import trace
 from sahara_tpu_torch.engine.device import DeviceIndex
 from sahara_tpu_torch.engine.tape import SchemeTape
-from sahara_tpu_torch.kernels.workq import EDGES, StepContext, step_context, workq_step
+from sahara_tpu_torch.kernels.dedup import workq_dedup
+from sahara_tpu_torch.kernels.workq import StepContext, step_context, workq_step
 
 MAX_NS = 8  # searches per tape (the driver splits bigger schemes into groups)
 MAX_M = 511
@@ -53,8 +55,6 @@ DEDUP_EVERY = 4  # the reference's default cadence (SAHARA_DEDUP_EVERY)
 # Ceiling on one step's child count (rows).  Module attribute so tests can
 # shrink it to exercise the driver's active-set split.
 HARD_CAP = 1 << 23
-_I32_MAX = np.iinfo(np.int32).max
-_HASH = (0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D, 0x27D4EB2F)
 
 
 def _i32(x: int) -> int:
@@ -186,42 +186,6 @@ def pack_lane_tape(queries: torch.Tensor, side, qpos, lo, hi) -> torch.Tensor:
     return word.reshape(-1).contiguous()
 
 
-def _dedup(lb, lbr, sz, meta, word, layout: MetaLayout) -> torch.Tensor:
-    """``sz`` with dominated states set to 0.
-
-    Each live state hashes its cursor (lb, lbr, sz, d, s, q); one scatter-min
-    elects per hash slot the state of least (err, op/edge flags, row); a
-    state dies only when that winner has the same cursor, is not itself, and
-    can reproduce every future transition of it (equal err, or lower err
-    once no later lower bound exceeds it; a subset of its edge flags; a
-    compatible last op).  Collisions and non-dominating winners kill
-    nothing, so the hit positions are unchanged."""
-    n = sz.shape[0]
-    alive = sz > 0
-    cb = (n - 1).bit_length()
-    ht = 1 << cb
-    opf, err, _, _, _ = layout.decode(meta)
-    maxlo = (word >> 17) & 0xF
-    key = meta & layout.key_mask_i32
-    hsh = (lb.long() * _HASH[0]) ^ (lbr.long() * _HASH[1]) ^ (sz.long() * _HASH[2]) ^ (key.long() * _HASH[3])
-    hsh = hsh & (ht - 1)
-    row = torch.arange(n, dtype=torch.int64, device=sz.device)
-    bad = ((opf & 3) != 0).long() + ((opf >> 2) & 1) + ((opf >> 3) & 1)
-    pri = (err.long() << (cb + 2)) | (bad.clamp(max=3) << cb) | row
-    pri = torch.where(alive, pri, _I32_MAX)
-    table = torch.full((ht,), _I32_MAX, dtype=torch.int64, device=sz.device)
-    table.scatter_reduce_(0, hsh, pri, reduce="amin")
-    win = (table[hsh] & (ht - 1)).clamp(max=n - 1)
-    w_meta = meta[win]
-    w_opf, w_err, _, _, _ = layout.decode(w_meta)
-    same = (lb[win] == lb) & (lbr[win] == lbr) & (sz[win] == sz) & (((w_meta ^ meta) & layout.key_mask_i32) == 0)
-    err_dom = (w_err == err) | ((w_err < err) & (maxlo <= w_err))
-    edge_dom = (w_opf & EDGES & ~opf) == 0
-    op_dom = ((w_opf & 3) == 0) | ((w_opf & 3) == (opf & 3))
-    kill = alive & same & (win != row) & err_dom & edge_dom & op_dom
-    return torch.where(kill, 0, sz)
-
-
 def start_queue(index: DeviceIndex, queries: torch.Tensor, device_tape, active: torch.Tensor, *, edit: bool,
                 k: int, cap_per_query: int = 0) -> tuple[StepContext, tuple[torch.Tensor, ...]]:
     """The step context and the first queue: one state per active lane, in
@@ -284,10 +248,10 @@ def workq_search(
     many hit intervals (the reference's in-search bound; the count may
     overshoot by one step's worth, so the driver still caps rows).
 
-    Traced (``trace.py``) as the span ``workq.search``, each dedup with
-    its decode and tape-word gather as ``workq.dedup``; counters
-    ``workq.queue_rows`` (the rows entering each step, summed) and
-    ``workq.hit_intervals``."""
+    Traced (``trace.py``) as the span ``workq.search``, each dedup as
+    ``workq.dedup``; counters ``workq.queue_rows`` (the rows entering each
+    step, summed), ``workq.hit_intervals`` and ``workq.dedup_kills`` (the
+    rows the dedups zeroed, read back with K5's counts on the card)."""
     m = queries.shape[1]
     ctx, state = start_queue(index, queries, device_tape, active, edit=edit, k=k, cap_per_query=cap_per_query)
     hits: list[torch.Tensor] = []
@@ -298,9 +262,7 @@ def workq_search(
             break
         if dedup_every and g >= ph0 and (g - ph0) % dedup_every == 0:
             with trace.span("workq.dedup"):
-                _, _, d, s_id, q_id = ctx.layout.decode(meta)
-                word = ctx.tape[(q_id.long() * ctx.ns + s_id) * m + d.clamp(max=m - 1)]
-                state = (lb, lbr, _dedup(lb, lbr, sz, meta, word, ctx.layout), meta)
+                state = (lb, lbr, workq_dedup(ctx, lb, lbr, sz, meta), meta)
         trace.count("workq.queue_rows", sz.shape[0])
         # only from step m on can a state have consumed all m characters
         state, step_hits = expand_step(ctx, state, drain=g >= m)
@@ -308,6 +270,7 @@ def workq_search(
             hits.append(step_hits)
     out = trace.to_host(torch.cat(hits, dim=1), "workq.hits").numpy() if hits else np.zeros((4, 0), dtype=np.int32)
     trace.count("workq.hit_intervals", out.shape[1])
+    trace.count("workq.dedup_kills", ctx.dedup_kills)
     return FlatHits(lane=out[0], lb=out[1], sz=out[2], err=out[3], n_hits=out.shape[1])
 
 

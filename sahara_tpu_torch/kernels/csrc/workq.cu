@@ -3,7 +3,7 @@
 // Replaces the state-queue step of sahara_tpu/engine/workq.py::make_step (:702-1073): the hit drain,
 // the rank products and candidate flags of every queue row (:859-922), the compaction the TPU program
 // stitched from f32 matrix products (_compact_matmul :204, _positions :259) and the child rows
-// (:979-1055).  Dedup stays outside, in PyTorch.  One thread per queue row, 256 rows a tile:
+// (:979-1055).  One thread per queue row, 256 rows a tile:
 //
 //   1. Row.  Decode the packed meta word and read the lane's tape word (side | lo<<1 | hi<<5 | qc<<9 |
 //      maxlo<<17).  On drain steps (the DRAIN template flag) a row of a query whose pre-step hit count
@@ -31,6 +31,9 @@
 // tape word; per live row two random 64 B occ rows of an 80-160 MB table; per child and per hit 16 B
 // written.  Products, flags and the scan never reach global memory, and one thread per row, with both
 // rows' loads started together, keeps many occ rows in flight.
+//
+// The dedup (sahara_workq_dedup, below) is a second entry of this file: it shares the step's meta layout
+// and its static arguments.
 
 #include "occ.cuh"
 
@@ -399,4 +402,143 @@ extern "C" int sahara_workq_step(const StepStatic* st, const void* lb, const voi
         case 8: return launch_sigma<8>(e, dr, p, blocks, s);
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
+}
+
+// The work-queue dedup: replaces the dedup of sahara_tpu/engine/workq.py::make_step (_dedup_sz :771, run
+// every dedup_every-th step); kernels/dedup.py::workq_dedup_plain is the same function in PyTorch.  Two
+// launches on the stream, no read-back, no memset:
+//
+//   1. Elect, a thread per row.  A live row (sz > 0) hashes its cursor (lb, lbr, sz and the meta word's
+//      d | s | q bits) to one of ht = 2^cb slots, cb = bit_length(n - 1), and takes there the atomicMax of
+//      epoch << 32 | ~pri, pri = err << (cb + 2) | min(bad, 3) << cb | row, bad counting its op and edge
+//      flags.  Within a call the maximum is the least priority; an entry of an earlier call (a smaller
+//      epoch) loses to any of this call's, so the table, which stays with the search, is never cleared.
+//      The extremum does not depend on the order of the atomics: the slots hold the plain version's
+//      scatter-min.
+//   2. Kill, a thread per row.  A live row whose slot's winner (the priority's row bits) is another row
+//      with the same cursor that can reproduce every future transition of it (equal err, or lower err
+//      once no later lower bound exceeds it; a subset of its edge flags; a compatible last op) writes 0,
+//      every other row its sz.  Only such a row reads its tape word, for the largest later lower bound.
+//      A block adds its kills to counters[3], which the step's count read-back returns.
+//
+// The hash is the plain version's int64 hash cut to 32 bits: the low bits of a product depend only on the
+// low bits of its factors, and the slot is the low cb <= 23 bits.  A priority stays under 2^28 (err <= 7,
+// cb <= 23), so it fits the entry's low word.  A Hamming layout has no op or edge bits (opf_bits = 0): bad
+// is 0 and the flag tests pass, the same code.
+//
+// Bound on the H100: the launches.  Per row 16 B of state read twice and 4 B written, an 8 B atomic and an
+// 8 B table read; per killed candidate the winner's 16 B and a tape word.  A dedup of ~54 K rows is ~2.5 MB,
+// under a microsecond of bandwidth: the two launches' fixed costs set its time.
+namespace {
+
+constexpr int kDedupThreads = 256;
+constexpr uint32_t kHash0 = 0x9E3779B1u, kHash1 = 0x85EBCA77u, kHash2 = 0xC2B2AE3Du, kHash3 = 0x27D4EB2Fu;
+
+struct DedupParams {
+    const int32_t* tape;
+    const int32_t* lb;
+    const int32_t* lbr;
+    const int32_t* sz;
+    const int32_t* meta;
+    int32_t* out;
+    unsigned long long* table;  // epoch << 32 | ~priority
+    int32_t* counters;
+    int n, m, ns, cb;
+    uint32_t epoch;
+    uint32_t key_mask;  // d | s | q: the cursor's bits of the meta word
+    Layout L;
+};
+
+__device__ __forceinline__ uint32_t dedup_slot(const DedupParams& p, int32_t lb, int32_t lbr, int32_t size,
+                                               uint32_t meta) {
+    const uint32_t h = (static_cast<uint32_t>(lb) * kHash0) ^ (static_cast<uint32_t>(lbr) * kHash1) ^
+                       (static_cast<uint32_t>(size) * kHash2) ^ ((meta & p.key_mask) * kHash3);
+    return h & ((1u << p.cb) - 1u);
+}
+
+__global__ void __launch_bounds__(kDedupThreads) dedup_elect(const DedupParams p) {
+    const int64_t t = static_cast<int64_t>(blockIdx.x) * kDedupThreads + threadIdx.x;
+    if (t >= p.n) return;
+    const int32_t size = p.sz[t];
+    if (size <= 0) return;
+    const uint32_t meta = static_cast<uint32_t>(p.meta[t]);
+    const uint32_t opf = meta & p.L.opf_mask;
+    const uint32_t err = (meta >> p.L.err_shift) & p.L.err_mask;
+    const uint32_t bad = ((opf & 3u) != 0 ? 1u : 0u) + ((opf >> 2) & 1u) + ((opf >> 3) & 1u);
+    const uint32_t pri = (err << (p.cb + 2)) | ((bad < 3u ? bad : 3u) << p.cb) | static_cast<uint32_t>(t);
+    atomicMax(p.table + dedup_slot(p, p.lb[t], p.lbr[t], size, meta),
+              (static_cast<unsigned long long>(p.epoch) << 32) | ~pri);
+}
+
+__global__ void __launch_bounds__(kDedupThreads) dedup_kill(const DedupParams p) {
+    const int64_t t = static_cast<int64_t>(blockIdx.x) * kDedupThreads + threadIdx.x;
+    const int32_t size = t < p.n ? p.sz[t] : 0;
+    bool kill = false;
+    if (size > 0) {
+        const int32_t lb = p.lb[t], lbr = p.lbr[t];
+        const uint32_t meta = static_cast<uint32_t>(p.meta[t]);
+        // this row's own entry has this epoch, so the slot's does too
+        const uint32_t won = ~static_cast<uint32_t>(p.table[dedup_slot(p, lb, lbr, size, meta)]) & ((1u << p.cb) - 1u);
+        const int64_t win = won < static_cast<uint32_t>(p.n) ? static_cast<int64_t>(won) : p.n - 1;
+        if (win != t) {
+            const uint32_t w_meta = static_cast<uint32_t>(p.meta[win]);
+            if (p.lb[win] == lb && p.lbr[win] == lbr && p.sz[win] == size && ((w_meta ^ meta) & p.key_mask) == 0) {
+                const Layout& L = p.L;
+                const uint32_t opf = meta & L.opf_mask, w_opf = w_meta & L.opf_mask;
+                const uint32_t err = (meta >> L.err_shift) & L.err_mask, w_err = (w_meta >> L.err_shift) & L.err_mask;
+                const uint32_t d = (meta >> L.d_shift) & L.d_mask;
+                const uint32_t lane = ((meta >> L.q_shift) & L.q_mask) * p.ns + ((meta >> L.s_shift) & L.s_mask);
+                const int dc = d < static_cast<uint32_t>(p.m - 1) ? static_cast<int>(d) : p.m - 1;
+                const uint32_t maxlo = (__ldg(p.tape + static_cast<int64_t>(lane) * p.m + dc) >> 17) & 0xFu;
+                const bool err_dom = w_err == err || (w_err < err && maxlo <= w_err);
+                const bool edge_dom = (w_opf & kEdges & ~opf) == 0;
+                const bool op_dom = (w_opf & 3u) == 0 || (w_opf & 3u) == (opf & 3u);
+                kill = err_dom && edge_dom && op_dom;
+            }
+        }
+    }
+    if (t < p.n) p.out[t] = kill ? 0 : size;
+    const int kills = __syncthreads_count(kill);
+    if (threadIdx.x == 0 && kills > 0) atomicAdd(p.counters + 3, kills);
+}
+
+}  // namespace
+
+// sz of the n-row queue (lb, lbr, sz, meta) with dominated rows set to 0, into out (int32[n], not sz).  table
+// holds table_words >= 2^bit_length(n - 1) 64-bit entries, zero when allocated, whose epochs are all below
+// epoch (1 .. 2^32 - 1: one more than the previous call's on this table).  Adds the rows it zeroed to
+// counters[3].
+extern "C" int sahara_workq_dedup(const StepStatic* st, const void* lb, const void* lbr, const void* sz,
+                                  const void* meta, int64_t n, void* out, void* table, int64_t table_words,
+                                  uint32_t epoch, void* stream) {
+    if (n <= 0) return 0;
+    int cb = 0;
+    while ((int64_t{1} << cb) < n) ++cb;  // bit_length(n - 1)
+    if (n > kMaxRows || table_words < (int64_t{1} << cb) || epoch == 0 || st->m < 1 || st->ns < 1) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    DedupParams p;
+    p.tape = st->tape;
+    p.lb = static_cast<const int32_t*>(lb);
+    p.lbr = static_cast<const int32_t*>(lbr);
+    p.sz = static_cast<const int32_t*>(sz);
+    p.meta = static_cast<const int32_t*>(meta);
+    p.out = static_cast<int32_t*>(out);
+    p.table = static_cast<unsigned long long*>(table);
+    p.counters = st->counters;
+    p.n = static_cast<int>(n);
+    p.m = static_cast<int>(st->m);
+    p.ns = static_cast<int>(st->ns);
+    p.cb = cb;
+    p.epoch = epoch;
+    p.L = make_layout(static_cast<int>(st->opf_bits), static_cast<int>(st->err_bits), static_cast<int>(st->d_bits),
+                      static_cast<int>(st->s_bits));
+    p.key_mask = ~((1u << p.L.d_shift) - 1u);
+    auto s = static_cast<cudaStream_t>(stream);
+    const unsigned blocks = static_cast<unsigned>((n + kDedupThreads - 1) / kDedupThreads);
+    dedup_elect<<<blocks, kDedupThreads, 0, s>>>(p);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    dedup_kill<<<blocks, kDedupThreads, 0, s>>>(p);
+    return static_cast<int>(cudaGetLastError());
 }

@@ -71,8 +71,9 @@ class StepContext:
     """What every step of one search reads: the stacked occ table, the C
     array, the packed lane tape (``pack_lane_tape``), the static arguments,
     the in-search cap's per-query hit counts, and on a CUDA device the
-    kernel's scratch (tile status words, the counters, the ticket and epoch
-    the host tracks)."""
+    kernels' scratch: K5's tile status words, the counters, the ticket and
+    epoch the host tracks, the dedup's (``kernels/dedup.py``) hash table
+    and its tag, and the stream every launch of the search goes to."""
 
     occ16: torch.Tensor
     c_arr: torch.Tensor
@@ -87,10 +88,14 @@ class StepContext:
     hq_counts: torch.Tensor | None  # int32[nq] when cap_per_query > 0
     cap_per_query: int
     status: torch.Tensor | None = None  # int64[tiles]
-    counters: torch.Tensor | None = None  # int32[4]: children total, hits total, ticket, unused
+    counters: torch.Tensor | None = None  # int32[4]: children total, hits total, ticket, the dedup's kills
     static: _Static | None = None
     tickets: int = 0
     epoch: int = 0
+    dedup_kills: int = 0  # rows the search's dedups zeroed (kernels/dedup.py), as of the last count read-back
+    dedup_table: torch.Tensor | None = None  # the dedup's hash table on a CUDA device, grown to the largest queue
+    dedup_epoch: int = 0  # the last dedup's tag in that table
+    stream: int = 0  # the CUDA stream current when the context was made, which K5 and the dedup launch on
 
 
 def step_context(occ16, c_arr, tape, *, sigma, sl, edit, m, ns, rev_off, layout, max_rows, hq_counts=None,
@@ -114,6 +119,7 @@ def step_context(occ16, c_arr, tape, *, sigma, sl, edit, m, ns, rev_off, layout,
     tiles = max(-(-max_rows // TILE), 1)
     ctx.status = torch.zeros(tiles, dtype=torch.int64, device=occ16.device)
     ctx.counters = torch.zeros(4, dtype=torch.int32, device=occ16.device)
+    ctx.stream = stream_of(occ16)
     ctx.static = _Static(
         occ16.data_ptr(), c_arr.data_ptr(), tape.data_ptr(), hq_counts.data_ptr() if hq_counts is not None else None,
         ctx.status.data_ptr(), ctx.counters.data_ptr(), sigma, sl, int(edit), m, ns, rev_off, layout.opf_bits,
@@ -179,7 +185,8 @@ def workq_step_plain(ctx: StepContext, lb, lbr, sz, meta, *, drain: bool = False
 
 def workq_step(ctx: StepContext, lb, lbr, sz, meta, *, drain: bool = False):
     """One step (see ``workq_step_plain``): the kernel on CUDA tensors.
-    Reads the (children, hits) totals once to narrow the outputs."""
+    Reads the (children, hits) totals once to narrow the outputs, and with
+    them the dedup's running count of kills."""
     if not on_cuda(ctx.tape, lb, lbr, sz, meta):
         return workq_step_plain(ctx, lb, lbr, sz, meta, drain=drain)
     if ctx.static is None:
@@ -204,11 +211,11 @@ def workq_step(ctx: StepContext, lb, lbr, sz, meta, *, drain: bool = False):
     rc = _kernel()(
         ctypes.byref(ctx.static), lb.data_ptr(), lbr.data_ptr(), sz.data_ptr(), meta.data_ptr(), n, int(drain),
         ctx.tickets & 0xFFFFFFFF, ctx.epoch, out.data_ptr(), cap, out.data_ptr() + 16 * cap if drain else None,
-        stream_of(sz),
+        ctx.stream,
     )
     raise_on_error(rc, "workq_step")
     LAUNCHES["workq_step"] += 1
     ctx.tickets += tiles
     with trace.sync("workq.step_counts"):
-        n_kids, n_hits, _, _ = ctx.counters.tolist()
+        n_kids, n_hits, _, ctx.dedup_kills = ctx.counters.tolist()
     return (*children[:, :n_kids], hits[:, :n_hits])

@@ -35,6 +35,7 @@ from sahara_tpu_torch.index.jmer import pick_lut_j
 from sahara_tpu_torch.index.textstore import unpack_text4
 from sahara_tpu_torch.io.fasta import FastaRecord, write_fasta
 from sahara_tpu_torch.kernels import LAUNCHES
+from sahara_tpu_torch.kernels.dedup import workq_dedup, workq_dedup_plain
 from sahara_tpu_torch.kernels.exact import exact_search, exact_search_plain, table_start
 from sahara_tpu_torch.kernels.frontier import FrontierContext, frontier_step, frontier_step_plain, pack_tape
 from sahara_tpu_torch.kernels.lf_walk import lf_walk, lf_walk_plain
@@ -44,7 +45,7 @@ from sahara_tpu_torch.kernels.rank_smem import (
 )
 from sahara_tpu_torch.kernels.seed import seed_scan, seed_scan_plain
 from sahara_tpu_torch.kernels.verify import hamming_lanes, verify, verify_plain
-from sahara_tpu_torch.kernels.workq import EPOCHS, TILE, workq_step, workq_step_plain
+from sahara_tpu_torch.kernels.workq import EPOCHS, TILE, step_context, workq_step, workq_step_plain
 from sahara_tpu_torch.timing import event_device_ms, kernel_device_ms
 
 pytestmark = pytest.mark.gpu
@@ -510,6 +511,97 @@ def test_workq_step_look_back_over_many_tiles(bihost, monkeypatch):
         assert big[2].shape[0] > 1000 * TILE and len(got[0]) > 0 and (got[4].shape[1] > 0) == drain
 
 
+def dedup_queue(rng, n: int, layout, *, ns: int, m: int, dead: float = 0.1):
+    """A work-queue of n rows for the dedup and a lane tape it can read:
+    (lb, lbr, sz, meta, tape), int32 numpy arrays.  Rows draw their cursor
+    (lb, lbr, sz, d, s, q) from a pool of about n / 4, so many share one, at
+    equal and lower err and with other op and edge flags; q spans the
+    layout's whole field, its top bit (the meta word's sign) included; a
+    share ``dead`` of rows has sz 0.  The tape holds a word for every lane
+    q * ns + s the layout can hold, each with a random largest-lower-bound
+    field (bits 17-20), for ``m`` tape positions."""
+    pool = max(n // 4, 1)
+    lb, lbr = rng.integers(0, 1 << 30, pool), rng.integers(0, 1 << 30, pool)
+    size = rng.integers(1, 1000, pool)
+    d, s = rng.integers(0, 1 << layout.d_bits, pool), rng.integers(0, 1 << layout.s_bits, pool)
+    q = rng.integers(0, layout.max_nq, pool)
+    pick = rng.integers(0, pool, n)
+    opf = np.zeros(n, dtype=np.int64)
+    if layout.opf_bits:
+        opf = rng.integers(0, 3, n) | (rng.integers(0, 4, n) << 2)  # op | edge flags
+    meta = (opf | (rng.integers(0, 1 << layout.err_bits, n) << layout.err_shift) | (d[pick] << layout.d_shift)
+            | (s[pick] << layout.s_shift) | (q[pick] << layout.q_shift))
+    sz = np.where(rng.random(n) < dead, 0, size[pick])
+    tape = rng.integers(0, 1 << 21, (layout.max_nq * ns + (1 << layout.s_bits)) * m)
+    return (*(x.astype(np.int32) for x in (lb[pick], lbr[pick], sz)), meta.astype(np.uint32).view(np.int32),
+            tape.astype(np.int32))
+
+
+def _check_dedup(ctx, queue):
+    """The dedup kernel's sz against its plain version's, bit for bit, on
+    one queue, and the kills it adds to ``ctx.counters[3]`` against the
+    plain version's count; returns that count."""
+    before, kills, plain_kills = LAUNCHES["workq_dedup"], int(ctx.counters[3]), ctx.dedup_kills
+    got = workq_dedup(ctx, *queue)
+    torch.cuda.synchronize()
+    assert LAUNCHES["workq_dedup"] == before + 1
+    assert torch.equal(got, workq_dedup_plain(ctx, *queue))
+    assert int(ctx.counters[3]) - kills == ctx.dedup_kills - plain_kills
+    return ctx.dedup_kills - plain_kills
+
+
+# opf | err | d | s | q: edit (q takes 13 bits) and Hamming (17 bits, no op or edge flags)
+DEDUP_LAYOUTS = [workq.MetaLayout(4, 3, 9, 3), workq.MetaLayout(0, 3, 9, 3)]
+
+
+@pytest.mark.parametrize("dead", [0.1, 1.0], ids=["live", "dead"])
+@pytest.mark.parametrize("n", [1, 2, 256, 257, 65536, 65537])
+@pytest.mark.parametrize("layout", DEDUP_LAYOUTS, ids=["edit", "hamming"])
+def test_workq_dedup_kernel_matches_plain(layout, n, dead):
+    """Queues whose rows share cursors at equal and lower err and with
+    other op and edge flags, query ids filling the meta word's top bit; at
+    the hash table's and the tiles' edges; and every row dead.  A second
+    call finds the first call's entries in the table."""
+    dev = _card()
+    lb, lbr, sz, meta, tape = dedup_queue(np.random.default_rng(n), n, layout, ns=2, m=3, dead=dead)
+    ctx = step_context(torch.zeros((1, 16), dtype=torch.int32, device=dev),
+                       torch.zeros(8, dtype=torch.int32, device=dev), torch.from_numpy(tape).to(dev), sigma=6, sl=5,
+                       edit=layout.opf_bits > 0, m=3, ns=2, rev_off=0, layout=layout, max_rows=n)
+    queue = tuple(torch.from_numpy(x).to(dev) for x in (lb, lbr, sz, meta))
+    kills = _check_dedup(ctx, queue)
+    assert _check_dedup(ctx, queue) == kills
+    if dead == 1.0:
+        assert kills == 0
+    elif n >= 256:
+        assert kills > 0 and (meta[sz > 0] < 0).any()
+
+
+@pytest.mark.parametrize("edit", [True, False])
+def test_workq_dedup_kernel_on_search_queues(bihost, monkeypatch, edit):
+    """The dedup kernel against its plain version on every queue of a real
+    search (h2-k2, N in some reads), in the search's own layout, and on
+    each queue followed by a copy of itself, whose rows die against the
+    first copy's (a Hamming search makes no duplicate cursors of its own).
+    One context serves every call, its table growing, and its tags wrap."""
+    dev = _card()
+    idx_host, seqs = bihost
+    index = DeviceIndex.from_host(idx_host, device=dev)
+    queries = _reads(seqs, np.random.default_rng(13), 400, 40, 2)
+    queries[::9, 7] = 5
+    tape = compile_tape(load_scheme("h2-k2", 0, 2, 40, edit=edit, sigma=6, n_text=idx_host.n))
+    steps = _record_steps(index, queries, tape, edit=edit, k=2, cap=0, monkeypatch=monkeypatch)
+    ctx = steps[0][0]
+    assert all(c is ctx for c, _, _, _ in steps)
+    kills = sum(_check_dedup(ctx, state) for _, state, _, _ in steps)
+    assert len(steps) > 40 and (kills > 0) == edit
+    ctx.dedup_table = torch.zeros(1 << 24, dtype=torch.int64, device=dev)  # every queue below fits: no new table
+    ctx.dedup_epoch = (1 << 32) - 3
+    for _, state, _, _ in steps:
+        twice = tuple(torch.cat([x, x]) for x in state)
+        assert _check_dedup(ctx, twice) > 0 or not (state[2] > 0).any()
+    assert ctx.dedup_epoch == len(steps) - 2  # the tags wrapped at the third call
+
+
 @pytest.mark.parametrize("edit", [True, False])
 def test_workq_search_on_card_matches_cpu(bihost, edit):
     dev = _card()
@@ -517,12 +609,18 @@ def test_workq_search_on_card_matches_cpu(bihost, edit):
     queries = _reads(seqs, np.random.default_rng(9), 300, 30, 2)
     queries[::7, 3] = 5
     tape = compile_tape(load_scheme("optimum", 0, 2, 30, edit=edit, sigma=6, n_text=idx_host.n))
-    runs = []
+    runs, kills = [], []
+    before = LAUNCHES["workq_dedup"]
     for d in ("cpu", dev):
         index = DeviceIndex.from_host(idx_host, device=d)
-        hits = workq.run_workq_search(index, queries, tape, edit=edit, dedup=True)
+        timer = trace.StageTimer(d)
+        with trace.tracing(timer):
+            hits = workq.run_workq_search(index, queries, tape, edit=edit, dedup=True)
         runs.append(sorted(zip(hits.lane.tolist(), hits.lb.tolist(), hits.sz.tolist(), hits.err.tolist())))
+        kills.append(timer.report()["counters"]["workq.dedup_kills"])
     assert runs[0] == runs[1] and len(runs[0]) >= 250
+    assert LAUNCHES["workq_dedup"] > before
+    assert kills[0] == kills[1] and (kills[0] > 0) == edit
 
 
 def test_fallback_on_card_matches_cpu(bihost):
