@@ -5,10 +5,8 @@
 Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
 
 1. prints the card's name and power limit, builds the eight CUDA kernels
-   from ``sahara_tpu_torch/kernels/csrc``, the first versions of the K1, K4,
-   K3h, K6, K7 and K8 kernels (``LEGACY_SOURCES``) and their design variants
-   (``DESIGN_VARIANTS``), all nvcc runs at once, and prints each kernel's
-   registers;
+   from ``sahara_tpu_torch/kernels/csrc``, all nvcc runs at once, and prints
+   each kernel's registers;
 2. regenerates the ``bench.py`` workload from its seeds (40 MB reference,
    65,536 reads of 100 bp with 2 planted errors, both strands); phase
    ``cli`` begins: the reference goes into a one-record FASTA in a
@@ -20,19 +18,15 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
    seed-and-verify path's shapes (exact equality: all integer), and times
    both: each kernel by the profiler's device time, warm and with L2
    flushed before each launch (the pass meets them cold), beside the
-   wrapper's call time; K1 and K3h also beside their first versions and
-   their design variants (K1's positions per thread, K3h's lanes per
-   candidate) on the same inputs, K1 also by its device time in one index
-   upload (the j-mer table's ten levels, its path);
+   wrapper's call time; K1 also by its device time in one index upload
+   (the j-mer table's ten levels, its path);
    counts K3's SASS instructions per row of its steady loop by pipe
    (cuobjdump);
 4. runs the seed-and-verify path — upload without the reversed table (the
    j-mer table build runs K1) and ``search_queries`` at e=2 edit distance —
    with the launch counts reset just before, checks every kernel was
    launched and the hit set against the JAX package's, then times three
-   passes (the median is the result), one pass split by stage, and
-   profiles one pass (device busy time, the heaviest device ops and host
-   functions);
+   passes (the median is the result) and one pass split by stage;
 5. uploads the index without the full suffix array and checks that the
    sampled LF-walk locate (K7) gives the same hits on the first 8,192
    reads, and runs Hamming seed-and-verify (K3's Hamming entry) on the
@@ -40,11 +34,9 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
 6. holds K4 (table in shared memory) and K1 against the plain rank on the
    largest table K4 takes near 100,000 characters (a random text of that
    length: 3,126 occ rows, 200,064 B) at 262,144 positions, times both by
-   device time, warm and cold, K4 also beside its first version and its
-   design variants (CTAs a cluster), and reports the bytes K4 stages from
-   L2 a launch (the table once per cluster of 2 CTAs: 13,204,224 B on 132
-   CTAs, against 26,408,448 B for the first version, once per SM) and
-   K4's device time with one warp of positions a CTA (its staging); holds
+   device time, warm and cold, and reports the bytes K4 stages from L2 a
+   launch (the table once per cluster of 2 CTAs: 13,204,224 B on 132 CTAs)
+   and K4's device time with one warp of positions a CTA (its staging); holds
    K5 (the one-launch work-queue step) against the plain step on three
    queues of the workload's first chunk: the queue after phase 0, the
    largest queue, and a drain step of a search with the in-search cap;
@@ -55,8 +47,8 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
 7. runs the work-queue path on the same workload with both occ tables on
    the card (``engine="workq"``, ``generator_name="optimum"``, as
    ``bench.py`` does): its hit set must equal the seed-and-verify path's
-   (80,248 rows, same sha256); times three passes, profiles one, and counts
-   its synchronising calls;
+   (80,248 rows, same sha256); times three passes and counts its
+   synchronising calls;
 8. runs the seed-and-verify fallback: 1,024 reads with an N in a seed part
    of every 8th read, ``auto`` against ``workq`` on all of them and against
    the seed-and-verify rows on the reads without N;
@@ -82,12 +74,10 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
    plain step (live counts included) at every step of the first chunk's
    first attempt and of a whole pass (the retry searches' per-query caps
    included), timed on the widest step of chunk 0 (warm, cold, call,
-   plain, the least-work bound and the first design's) beside its first
-   version and its design variants (``frontier_lanes``, each also over a
-   pass whose rows are held to the kept kernel's), and over a pass; each
-   search (caps, lanes, overflowing lanes: the retries
-   search only the overflowing queries, pooled across chunks), three
-   timed passes, a profiled pass and its syncs; the CLI's
+   plain and the least-work bound) and over a pass; each search (caps,
+   lanes, overflowing lanes: the retries search only the overflowing
+   queries, pooled across chunks), three timed passes and their syncs; the
+   CLI's
    ``search --engine approx`` of the first 4,096 strand queries against the
    JAX CLI's (``JAX_APPROX_CLI_*``);
    then phase ``mesh``: a data mesh of the card listed twice, the index
@@ -147,8 +137,8 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
    (``JAX_KMER_*``), K6 and K7 launched at sigma 32.  Each phase reports its
    stats blocks, wall time and reads/s, and holds K6 and K7 against their
    plain versions on its own recorded calls (exact equality), timed like the
-   other kernels and beside their first versions and design variants (K6
-   also without the j-mer table start, where the call has the table), with
+   other kernels (K6 also without the j-mer table start, where the call has
+   the table), with
    each call's longest chain of dependent steps and the distinct 32 B
    sectors its plain version touches (model figures, from the inputs);
    phase ``uni`` runs K6 with a table of empty intervals, which takes away
@@ -172,7 +162,6 @@ Any failure raises, and the script exits non-zero.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import functools
 import hashlib
 import io
@@ -361,8 +350,8 @@ E1_PREFIX_READS = 4096  # the work-queue engine's share of the short-read worklo
 MESH_ENTRIES = 2  # phase mesh: the card listed twice (the machine has one GPU)
 EXACT_READS = 65536  # error-free reads of phases uni and kmer
 # a kernel's figures at the sv_e1 path's shape, kept in its row as e1_<key>
-E1_KEYS = ("max_abs_err", "ms", "cold_ms", "call_ms", "old_ms", "old_cold_ms", "plain_ms", "bound_ms", "bound_by",
-           "lanes", "variants", "shape", "rows", "children", "hits", "candidates", "cases")
+E1_KEYS = ("max_abs_err", "ms", "cold_ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "lanes", "shape", "rows",
+           "children", "hits", "candidates", "cases")
 
 # H100 SXM HBM3 bytes/s (NVIDIA data sheet).  The kernels' operations are
 # 32-bit integer ones.  An SM issues 4 warp instructions a clock (128
@@ -380,593 +369,6 @@ ISSUE_LANES_PER_SM_CLOCK = 128
 DP_ALU_OPS_PER_CELL = 4
 DP_ADD_OPS_PER_CELL = 1
 FLUSH_BYTES = 128 << 20  # written between launches to evict the 50 MB L2
-
-# ``launch.cuh`` as the first K6 and K7 included it.
-LEGACY_LAUNCH = r"""
-#include <cstdint>
-#include <cuda_runtime.h>
-namespace sahara {
-inline int sm_count() {
-    static const int sms = [] {
-        int dev = 0, n = 132;
-        if (cudaGetDevice(&dev) != cudaSuccess ||
-            cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
-            cudaGetLastError();
-            n = 132;
-        }
-        return n;
-    }();
-    return sms;
-}
-inline int balanced_block(int64_t threads) {
-    const int sms = sm_count();
-    int best = 256;
-    int64_t best_load = INT64_MAX;
-    for (int bs = 32; bs <= 256; bs += 32) {
-        const int64_t blocks = (threads + bs - 1) / bs;
-        const int64_t load = (blocks + sms - 1) / sms * bs;
-        if (load <= best_load) {
-            best_load = load;
-            best = bs;
-        }
-    }
-    return best;
-}
-}  // namespace sahara
-"""
-
-# The first versions of the K1, K4, K3h, K6, K7 and K8 kernels (``rank.cu``
-# and ``rank_smem.cu`` before their redesign, ``occ.cuh``'s ``load_row``
-# inlined; ``verify.cu``'s Hamming entry before its redesign, alone;
-# ``exact.cu`` and ``lf_walk.cu`` before theirs, ``launch.cuh`` inlined;
-# ``frontier.cu`` before its, ``occ.cuh``'s ``rank_pair`` inlined), kept
-# here only to be timed beside their redesigns on the same inputs; nothing
-# on a path loads them.  Their C entries have the current ones'
-# signatures, so the current wrappers launch them (``first_version``); the
-# first K6 takes the j-mer table's arguments and ignores them (it always
-# scans every symbol); the first K8 ignores the live counts and the lanes'
-# own caps (it scans sz over every slot, so it needs sz = 0 past the live
-# slots, and writes sz = 0 into every slot past its children; it takes one
-# s_cap and h_cap for all lanes) and reads each slot's query char from the
-# new entry's ``qt`` (one dependent load fewer than its own ``queries[q,
-# qpos]``, so it is timed a little faster than it ran).
-LEGACY_SOURCES = {
-    "rank_v1": r"""
-#include <cstdint>
-#include <cuda_runtime.h>
-namespace {
-template <int SIGMA>
-__global__ void rank_all_kernel(const int32_t* __restrict__ occ16, const int32_t* __restrict__ idx,
-                                int64_t n, int32_t* __restrict__ out) {
-    const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (t >= n) return;
-    const int32_t i = idx[t];
-    int32_t row[16];
-    const int4* r4 = reinterpret_cast<const int4*>(occ16 + static_cast<int64_t>(i >> 5) * 16);
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-        const int4 x = __ldg(r4 + v);
-        row[4 * v + 0] = x.x;
-        row[4 * v + 1] = x.y;
-        row[4 * v + 2] = x.z;
-        row[4 * v + 3] = x.w;
-    }
-    const uint32_t mask = (1u << (i & 31)) - 1u;
-#pragma unroll
-    for (int s = 0; s < SIGMA; ++s) {
-        out[t * SIGMA + s] = row[s] + __popc(static_cast<uint32_t>(row[SIGMA + s]) & mask);
-    }
-}
-template <int SIGMA>
-void launch(const int32_t* occ16, const int32_t* idx, int64_t n, int32_t* out, cudaStream_t stream) {
-    constexpr int kThreads = 256;
-    const int64_t blocks = (n + kThreads - 1) / kThreads;
-    rank_all_kernel<SIGMA><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(occ16, idx, n, out);
-}
-}  // namespace
-extern "C" int sahara_rank_all(const void* occ16, const void* idx, int64_t n, int sigma, void* out,
-                               void* stream) {
-    if (n <= 0) return 0;
-    const auto* o = static_cast<const int32_t*>(occ16);
-    const auto* x = static_cast<const int32_t*>(idx);
-    auto* y = static_cast<int32_t*>(out);
-    auto s = static_cast<cudaStream_t>(stream);
-    switch (sigma) {
-        case 2: launch<2>(o, x, n, y, s); break;
-        case 3: launch<3>(o, x, n, y, s); break;
-        case 4: launch<4>(o, x, n, y, s); break;
-        case 5: launch<5>(o, x, n, y, s); break;
-        case 6: launch<6>(o, x, n, y, s); break;
-        case 7: launch<7>(o, x, n, y, s); break;
-        case 8: launch<8>(o, x, n, y, s); break;
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-    return static_cast<int>(cudaGetLastError());
-}
-""",
-    "rank_smem_v1": r"""
-#include <cstdint>
-#include <cuda_runtime.h>
-namespace {
-constexpr int kThreads = 1024;
-template <int SIGMA>
-__global__ void __launch_bounds__(kThreads) rank_smem_kernel(const int4* __restrict__ occ16, int32_t w_rows,
-                                                             const int32_t* __restrict__ idx, int64_t n,
-                                                             int32_t* __restrict__ out) {
-    extern __shared__ int4 table[];
-    const int32_t n_vec = w_rows * (16 / 4);
-    for (int32_t v = threadIdx.x; v < n_vec; v += blockDim.x) table[v] = __ldg(occ16 + v);
-    __syncthreads();
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-    for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; t < n; t += stride) {
-        const int32_t i = __ldg(idx + t);
-        const int4* row = table + static_cast<int64_t>(i >> 5) * (16 / 4);
-        int32_t r[16];
-#pragma unroll
-        for (int v = 0; v < 4; ++v) {
-            const int4 x = row[v];
-            r[4 * v + 0] = x.x;
-            r[4 * v + 1] = x.y;
-            r[4 * v + 2] = x.z;
-            r[4 * v + 3] = x.w;
-        }
-        const uint32_t mask = (1u << (i & 31)) - 1u;
-#pragma unroll
-        for (int s = 0; s < SIGMA; ++s) {
-            out[t * SIGMA + s] = r[s] + __popc(static_cast<uint32_t>(r[SIGMA + s]) & mask);
-        }
-    }
-}
-template <int SIGMA>
-int launch(const int4* occ16, int32_t w_rows, const int32_t* idx, int64_t n, int32_t* out, cudaStream_t stream) {
-    int dev = 0, sms = 0, smem_max = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int64_t smem = static_cast<int64_t>(w_rows) * 16 * 4;
-    if (smem > smem_max) return static_cast<int>(cudaErrorInvalidValue);
-    err = cudaFuncSetAttribute(rank_smem_kernel<SIGMA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int64_t needed = (n + kThreads - 1) / kThreads;
-    const int blocks = static_cast<int>(needed < sms ? needed : sms);
-    rank_smem_kernel<SIGMA><<<blocks, kThreads, static_cast<size_t>(smem), stream>>>(occ16, w_rows, idx, n, out);
-    return static_cast<int>(cudaGetLastError());
-}
-}  // namespace
-extern "C" int sahara_rank_all_smem(const void* occ16, int32_t w_rows, const void* idx, int64_t n, int sigma,
-                                    void* out, void* stream) {
-    if (n <= 0) return 0;
-    const auto* o = static_cast<const int4*>(occ16);
-    const auto* x = static_cast<const int32_t*>(idx);
-    auto* y = static_cast<int32_t*>(out);
-    auto s = static_cast<cudaStream_t>(stream);
-    switch (sigma) {
-        case 2: return launch<2>(o, w_rows, x, n, y, s);
-        case 3: return launch<3>(o, w_rows, x, n, y, s);
-        case 4: return launch<4>(o, w_rows, x, n, y, s);
-        case 5: return launch<5>(o, w_rows, x, n, y, s);
-        case 6: return launch<6>(o, w_rows, x, n, y, s);
-        case 7: return launch<7>(o, w_rows, x, n, y, s);
-        case 8: return launch<8>(o, w_rows, x, n, y, s);
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-}
-""",
-    "verify_hamming_v1": r"""
-#include <cstdint>
-#include <cuda_runtime.h>
-namespace {
-constexpr int kInf = 1 << 20;
-__device__ __forceinline__ int text_at(const int32_t* __restrict__ text4, int64_t n, int64_t pos) {
-    if (pos < 0 || pos >= n) return 0;
-    const uint32_t word = static_cast<uint32_t>(__ldg(text4 + (pos >> 3)));
-    return static_cast<int>((word >> (4 * (pos & 7))) & 0xFu);
-}
-__global__ void hamming_kernel(const int32_t* __restrict__ text4, int64_t n, const uint8_t* __restrict__ queries,
-                               int m, const int32_t* __restrict__ q_of, const int32_t* __restrict__ base,
-                               int64_t n_cands, int32_t* __restrict__ dist) {
-    const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (r >= n_cands) return;
-    const uint8_t* q = queries + static_cast<int64_t>(q_of[r]) * m;
-    const int64_t p = base[r];
-    int mism = 0;
-    bool sentinel = false;
-    for (int i = 0; i < m; ++i) {
-        const int tc = text_at(text4, n, p + i);
-        sentinel |= (tc == 0);
-        mism += (tc != q[i]);
-    }
-    dist[r] = sentinel ? kInf : mism;
-}
-}  // namespace
-extern "C" int sahara_verify(const void* text4, int64_t n, const void* queries, int m, const void* q_of,
-                             const void* base, int64_t n_cands, int k, int edit, void* dist, void* stream) {
-    if (n_cands <= 0) return 0;
-    if (edit) return static_cast<int>(cudaErrorInvalidValue);  // the Hamming entry only
-    constexpr int kThreads = 128;
-    const int64_t blocks = (n_cands + kThreads - 1) / kThreads;
-    hamming_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(text4), n, static_cast<const uint8_t*>(queries), m,
-        static_cast<const int32_t*>(q_of), static_cast<const int32_t*>(base), n_cands, static_cast<int32_t*>(dist));
-    return static_cast<int>(cudaGetLastError());
-}
-""",
-    "exact_v1": LEGACY_LAUNCH + r"""
-namespace {
-__global__ void exact_kernel(const int32_t* __restrict__ occ, int row_ints, const int32_t* __restrict__ c_arr,
-                             const uint8_t* __restrict__ queries, const int32_t* __restrict__ qlens, int64_t nq,
-                             int width, int sigma, int32_t n, int32_t* __restrict__ lb_out,
-                             int32_t* __restrict__ len_out) {
-    const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (t >= nq) return;
-    const uint8_t* q = queries + t * width;
-    int32_t lb = 0;
-    int32_t rb = n;
-    for (int j = min(max(__ldg(qlens + t), 0), width) - 1; j >= 0; --j) {
-        const int c = min(static_cast<int>(__ldg(q + j)), sigma - 1);
-        const int32_t* row_lb = occ + static_cast<int64_t>(lb >> 5) * row_ints;
-        const int32_t ckpt_lb = __ldg(row_lb + c);
-        const uint32_t bits_lb = static_cast<uint32_t>(__ldg(row_lb + sigma + c));
-        int32_t ckpt_rb = ckpt_lb;
-        uint32_t bits_rb = bits_lb;
-        if ((rb >> 5) != (lb >> 5)) {
-            const int32_t* row_rb = occ + static_cast<int64_t>(rb >> 5) * row_ints;
-            ckpt_rb = __ldg(row_rb + c);
-            bits_rb = static_cast<uint32_t>(__ldg(row_rb + sigma + c));
-        }
-        const int32_t base = __ldg(c_arr + c);
-        lb = base + ckpt_lb + __popc(bits_lb & ((1u << (lb & 31)) - 1u));
-        rb = base + ckpt_rb + __popc(bits_rb & ((1u << (rb & 31)) - 1u));
-    }
-    lb_out[t] = lb;
-    len_out[t] = rb - lb;
-}
-}  // namespace
-// the j-mer table's arguments are taken and not used
-extern "C" int sahara_exact_search(const void* occ, const void* c_arr, const void*, int, const void* queries,
-                                   const void* qlens, int64_t nq, int width, int row_ints, int sigma, int32_t n,
-                                   void* lb, void* len, void* stream) {
-    if (nq <= 0) return 0;
-    if (sigma < 1 || 2 * sigma > row_ints) return static_cast<int>(cudaErrorInvalidValue);
-    const int block = sahara::balanced_block(nq);
-    exact_kernel<<<static_cast<unsigned>((nq + block - 1) / block), block, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(occ), row_ints, static_cast<const int32_t*>(c_arr),
-        static_cast<const uint8_t*>(queries), static_cast<const int32_t*>(qlens), nq, width, sigma, n,
-        static_cast<int32_t*>(lb), static_cast<int32_t*>(len));
-    return static_cast<int>(cudaGetLastError());
-}
-""",
-    "lf_walk_v1": LEGACY_LAUNCH + r"""
-namespace {
-__device__ __forceinline__ int32_t lf_step(const int32_t* __restrict__ occ, int row_ints,
-                                           const int32_t* __restrict__ c_arr, int sigma, int32_t row) {
-    const int32_t* r = occ + static_cast<int64_t>(row >> 5) * row_ints;
-    const int4* r4 = reinterpret_cast<const int4*>(r);
-    const int off = row & 31;
-    int c = -1;
-    uint32_t word = 0;
-    for (int v = sigma >> 2; c < 0 && v < (2 * sigma + 3) >> 2; ++v) {
-        const int4 x = __ldg(r4 + v);
-        const int32_t w[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-        for (int u = 3; u >= 0; --u) {  // downwards, so the lowest plane of the vector wins
-            const int p = 4 * v + u - sigma;
-            if (p >= 0 && p < sigma && ((static_cast<uint32_t>(w[u]) >> off) & 1u)) {
-                c = p;
-                word = static_cast<uint32_t>(w[u]);
-            }
-        }
-    }
-    if (c < 0) {  // no plane set: symbol 0, as the reference's argmax
-        c = 0;
-        word = static_cast<uint32_t>(__ldg(r + sigma));
-    }
-    return __ldg(c_arr + c) + __ldg(r + c) + __popc(word & ((1u << off) - 1u));
-}
-__global__ void lf_walk_kernel(const int32_t* __restrict__ occ, int row_ints, const int32_t* __restrict__ c_arr,
-                               const int2* __restrict__ sampled, const int32_t* __restrict__ sample_seq,
-                               const int32_t* __restrict__ sample_pos, int32_t n_samples,
-                               const int32_t* __restrict__ rows, int64_t n_rows, int sigma, int rate,
-                               int32_t* __restrict__ seq_out, int32_t* __restrict__ pos_out) {
-    const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (t >= n_rows) return;
-    int32_t row = __ldg(rows + t);
-    int2 s = __ldg(sampled + (row >> 5));
-    int steps = 0;
-    for (; steps < rate && !((static_cast<uint32_t>(s.y) >> (row & 31)) & 1u); ++steps) {
-        row = lf_step(occ, row_ints, c_arr, sigma, row);
-        s = __ldg(sampled + (row >> 5));
-    }
-    const int32_t slot = s.x + __popc(static_cast<uint32_t>(s.y) & ((1u << (row & 31)) - 1u));
-    const int32_t at = min(max(slot, 0), n_samples - 1);
-    seq_out[t] = __ldg(sample_seq + at);
-    pos_out[t] = __ldg(sample_pos + at) + steps;
-}
-}  // namespace
-extern "C" int sahara_lf_walk(const void* occ, const void* c_arr, const void* sampled, const void* sample_seq,
-                              const void* sample_pos, int32_t n_samples, const void* rows, int64_t n_rows,
-                              int row_ints, int sigma, int rate, void* seq_id, void* pos, void* stream) {
-    if (n_rows <= 0) return 0;
-    if (sigma < 1 || 2 * sigma > row_ints || row_ints % 4 || n_samples < 1) {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    const int block = sahara::balanced_block(n_rows);
-    lf_walk_kernel<<<static_cast<unsigned>((n_rows + block - 1) / block), block, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(occ), row_ints, static_cast<const int32_t*>(c_arr),
-        static_cast<const int2*>(sampled), static_cast<const int32_t*>(sample_seq),
-        static_cast<const int32_t*>(sample_pos), n_samples, static_cast<const int32_t*>(rows), n_rows, sigma, rate,
-        static_cast<int32_t*>(seq_id), static_cast<int32_t*>(pos));
-    return static_cast<int>(cudaGetLastError());
-}
-""",
-    "frontier_v1": r"""
-#include <cstdint>
-#include <cuda_runtime.h>
-namespace sahara {
-constexpr int kRowInts = 16;
-template <int SIGMA>
-__device__ __forceinline__ void rank_pair(const int32_t* __restrict__ table, int32_t lo, int32_t hi,
-                                          int32_t r_lo[SIGMA], int32_t r_hi[SIGMA]) {
-    constexpr int kVecs = (2 * SIGMA + 3) / 4;
-    const int4* a = reinterpret_cast<const int4*>(table + static_cast<int64_t>(lo >> 5) * kRowInts);
-    const int4* b = reinterpret_cast<const int4*>(table + static_cast<int64_t>(hi >> 5) * kRowInts);
-    int4 va[kVecs], vb[kVecs];
-#pragma unroll
-    for (int v = 0; v < kVecs; ++v) {
-        va[v] = __ldg(a + v);
-        vb[v] = __ldg(b + v);
-    }
-    int32_t ra[4 * kVecs], rb[4 * kVecs];
-#pragma unroll
-    for (int v = 0; v < kVecs; ++v) {
-        ra[4 * v] = va[v].x, ra[4 * v + 1] = va[v].y, ra[4 * v + 2] = va[v].z, ra[4 * v + 3] = va[v].w;
-        rb[4 * v] = vb[v].x, rb[4 * v + 1] = vb[v].y, rb[4 * v + 2] = vb[v].z, rb[4 * v + 3] = vb[v].w;
-    }
-    const uint32_t mask_lo = (1u << (lo & 31)) - 1u, mask_hi = (1u << (hi & 31)) - 1u;
-#pragma unroll
-    for (int s = 0; s < SIGMA; ++s) {
-        r_lo[s] = ra[s] + __popc(static_cast<uint32_t>(ra[SIGMA + s]) & mask_lo);
-        r_hi[s] = rb[s] + __popc(static_cast<uint32_t>(rb[SIGMA + s]) & mask_hi);
-    }
-}
-
-}  // namespace sahara
-namespace {
-
-constexpr int kWarps = 4;  // lanes a block
-constexpr int kThreads = 32 * kWarps;
-constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int32_t kOpIns = 1, kOpDel = 2, kEdgeL = 4, kEdgeR = 8, kEdges = kEdgeL | kEdgeR;
-
-struct Params {
-    const int32_t* occ16;
-    const int32_t* c_arr;
-    const int8_t* qt;  // int8[lanes, m]
-    const int32_t* tape;  // int32[ns, m]: side | lo << 1 | hi << 5 | qpos << 9
-    const int32_t* in;  // int32[6, lanes, s_cap]
-    int32_t* out;  // int32[6, lanes, s_cap]
-    int32_t* hits;  // int32[3, lanes, h_cap]
-    int32_t* hit_cnt;  // int32[lanes]
-    int32_t* flags;  // int32[2, lanes]: frontier overflow, hit overflow
-    int64_t lanes, rev_off;
-    int m, ns, s_cap, h_cap;
-};
-
-// One slot: its state and, for a live slot that has not consumed the query, its ranks and the bit of
-// each child kind it makes.
-template <int SIGMA>
-struct Slot {
-    int32_t lb, lbr, sz, err, d, op, qc;
-    int side;
-    bool finished;
-    uint32_t kinds;
-    int32_t cnt[SIGMA], ext_lb[SIGMA], ext_lbr[SIGMA];
-};
-
-template <int SIGMA, bool EDIT>
-__device__ __forceinline__ void load_slot(const Params& p, int64_t lane, int q, int s, int slot, Slot<SIGMA>& st) {
-    st.sz = 0;
-    st.finished = false;
-    st.kinds = 0;
-    if (slot >= p.s_cap) return;
-    const int64_t plane = p.lanes * p.s_cap;
-    const int32_t* in = p.in + lane * p.s_cap + slot;
-    st.sz = in[2 * plane];
-    if (st.sz <= 0) return;
-    st.lb = in[0];
-    st.lbr = in[plane];
-    st.err = in[3 * plane];
-    st.d = in[4 * plane];
-    st.op = in[5 * plane];
-    if (st.d >= p.m) {
-        st.finished = (st.op & kEdges) == 0;
-        return;
-    }
-    const int32_t word = __ldg(p.tape + static_cast<int64_t>(s) * p.m + st.d);
-    st.side = word & 1;
-    const int32_t lo_b = (word >> 1) & 0xF, hi_b = (word >> 5) & 0xF;
-    st.qc = __ldg(p.qt + lane * p.m + st.d);
-    const int32_t primary = st.side ? st.lbr : st.lb;
-    const int32_t secondary = st.side ? st.lb : st.lbr;
-    int32_t r_lo[SIGMA], r_hi[SIGMA];
-    sahara::rank_pair<SIGMA>(p.occ16 + (st.side ? p.rev_off : 0) * sahara::kRowInts, primary, primary + st.sz,
-                             r_lo, r_hi);
-    int32_t prefix = 0;
-#pragma unroll
-    for (int j = 0; j < SIGMA; ++j) {
-        st.cnt[j] = r_hi[j] - r_lo[j];
-        const int32_t newp = __ldg(p.c_arr + j) + r_lo[j];
-        const int32_t news = secondary + prefix;
-        prefix += st.cnt[j];
-        st.ext_lb[j] = st.side ? news : newp;
-        st.ext_lbr[j] = st.side ? newp : news;
-    }
-    const int32_t last = st.op & 3;
-#pragma unroll
-    for (int j = 1; j < SIGMA; ++j) {
-        const int32_t e2 = st.err + (st.qc != j ? 1 : 0);
-        if (st.cnt[j] > 0 && e2 <= hi_b && e2 >= lo_b) st.kinds |= 1u << (j - 1);
-        if (EDIT && st.cnt[j] > 0 && st.err + 1 <= hi_b && st.d > 0 && last != kOpIns) {
-            st.kinds |= 1u << (SIGMA - 1 + j - 1);
-        }
-    }
-    if (EDIT && st.err + 1 <= hi_b && st.err + 1 >= lo_b && last != kOpDel) st.kinds |= 1u << (2 * (SIGMA - 1));
-}
-
-// Child of kind C (a compile-time constant: the slot's arrays stay in registers) at frontier slot dest.
-template <int SIGMA, int C>
-__device__ __forceinline__ void write_child(const Params& p, int64_t lane, int dest, const Slot<SIGMA>& st) {
-    const int64_t plane = p.lanes * p.s_cap;
-    int32_t* out = p.out + lane * p.s_cap + dest;
-    int32_t v[6];
-    if (C < SIGMA - 1) {
-        constexpr int j = C < SIGMA - 1 ? C + 1 : 1;
-        v[0] = st.ext_lb[j], v[1] = st.ext_lbr[j], v[2] = st.cnt[j], v[3] = st.err + (st.qc != j ? 1 : 0);
-        v[4] = st.d + 1, v[5] = st.op & (st.side == 0 ? kEdgeR : kEdgeL);
-    } else if (C < 2 * (SIGMA - 1)) {
-        constexpr int j = C < 2 * (SIGMA - 1) && C >= SIGMA - 1 ? C - (SIGMA - 1) + 1 : 1;
-        v[0] = st.ext_lb[j], v[1] = st.ext_lbr[j], v[2] = st.cnt[j], v[3] = st.err + 1, v[4] = st.d;
-        v[5] = kOpDel | (st.op & kEdges) | (st.side == 0 ? kEdgeL : kEdgeR);
-    } else {
-        v[0] = st.lb, v[1] = st.lbr, v[2] = st.sz, v[3] = st.err + 1, v[4] = st.d + 1;
-        v[5] = kOpIns | (st.op & kEdges);
-    }
-#pragma unroll
-    for (int f = 0; f < 6; ++f) out[f * plane] = v[f];
-}
-
-// Writes every child of kind C of this group of 32 slots, advancing that kind's next free slot.
-template <int SIGMA, int C, int KINDS>
-__device__ __forceinline__ void emit_kind(const Params& p, int64_t lane, const Slot<SIGMA>& st, unsigned below,
-                                          int32_t next[KINDS]) {
-    const bool mine = (st.kinds >> C) & 1u;
-    const unsigned bal = __ballot_sync(kFull, mine);
-    if (mine) {
-        const int dest = next[C] + __popc(bal & below);
-        if (dest < p.s_cap) write_child<SIGMA, C>(p, lane, dest, st);
-    }
-    next[C] += __popc(bal);
-    if constexpr (C + 1 < KINDS) emit_kind<SIGMA, C + 1, KINDS>(p, lane, st, below, next);
-}
-
-template <int SIGMA, bool EDIT>
-__global__ void __launch_bounds__(kThreads) frontier_kernel(const Params p) {
-    constexpr int kKinds = EDIT ? 2 * (SIGMA - 1) + 1 : SIGMA - 1;
-    const int64_t lane = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-    if (lane >= p.lanes) return;  // the whole warp
-    const int t = threadIdx.x & 31;
-    const unsigned below = (1u << t) - 1u;
-    const int q = static_cast<int>(lane / p.ns), s = static_cast<int>(lane % p.ns);
-    const int64_t hplane = p.lanes * p.h_cap;
-    const int32_t hit_base = p.hit_cnt[lane];
-
-    // pass 1: hits in slot order, and the children of each kind
-    int32_t found = 0;
-    int32_t next[kKinds];
-#pragma unroll
-    for (int c = 0; c < kKinds; ++c) next[c] = 0;
-    for (int g = 0; g < p.s_cap; g += 32) {
-        Slot<SIGMA> st;
-        load_slot<SIGMA, EDIT>(p, lane, q, s, g + t, st);
-        const unsigned fin = __ballot_sync(kFull, st.finished);
-        if (st.finished) {
-            const int h = hit_base + found + __popc(fin & below);
-            if (h < p.h_cap) {
-                int32_t* hit = p.hits + lane * p.h_cap + h;
-                hit[0] = st.lb;
-                hit[hplane] = st.sz;
-                hit[2 * hplane] = st.err;
-            }
-        }
-        found += __popc(fin);
-#pragma unroll
-        for (int c = 0; c < kKinds; ++c) next[c] += __popc(__ballot_sync(kFull, (st.kinds >> c) & 1u));
-    }
-    // each kind's first slot: the children of the kinds before it
-    int32_t total = 0;
-#pragma unroll
-    for (int c = 0; c < kKinds; ++c) {
-        const int32_t n = next[c];
-        next[c] = total;
-        total += n;
-    }
-    if (t == 0) {
-        p.hit_cnt[lane] = min(hit_base + found, p.h_cap);
-        if (hit_base + found > p.h_cap) p.flags[p.lanes + lane] = 1;
-        if (total > p.s_cap) p.flags[lane] = 1;
-    }
-
-    // pass 2: each child at its kind's next slot
-    if (total > 0) {
-        for (int g = 0; g < p.s_cap; g += 32) {
-            Slot<SIGMA> st;
-            load_slot<SIGMA, EDIT>(p, lane, q, s, g + t, st);
-            if (__ballot_sync(kFull, st.kinds != 0) == 0) continue;
-            emit_kind<SIGMA, 0, kKinds>(p, lane, st, below, next);
-        }
-    }
-    int32_t* out_sz = p.out + 2 * p.lanes * p.s_cap + lane * p.s_cap;
-    for (int slot = min(total, p.s_cap) + t; slot < p.s_cap; slot += 32) out_sz[slot] = 0;
-}
-
-template <int SIGMA>
-int launch(bool edit, const Params& p, cudaStream_t stream) {
-    const unsigned blocks = static_cast<unsigned>((p.lanes + kWarps - 1) / kWarps);
-    if (edit) {
-        frontier_kernel<SIGMA, true><<<blocks, kThreads, 0, stream>>>(p);
-    } else {
-        frontier_kernel<SIGMA, false><<<blocks, kThreads, 0, stream>>>(p);
-    }
-    return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// One step of every lane: reads the frontier `state`, writes the next one to `out`, and updates the hit
-// buffers, hit counts and overflow flags in place (shapes in Params).
-extern "C" int sahara_frontier_step(const void* occ16, const void* c_arr, const void* qt, const void* tape,
-                                    const void* state, const void*, const void*, void* out, void*, void* hits,
-                                    void* hit_cnt, void* flags, int64_t lanes, int sigma, int edit, int m, int ns,
-                                    int64_t rev_off, int s_cap, int h_cap, void* stream) {
-    if (lanes <= 0) return 0;
-    if (m < 1 || ns < 1 || s_cap < 1 || h_cap < 1 || rev_off < 0 || lanes / ns > (1ll << 31) ||
-        (lanes + kWarps - 1) / kWarps > 0x7FFFFFFFll) {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    Params p;
-    p.occ16 = static_cast<const int32_t*>(occ16);
-    p.c_arr = static_cast<const int32_t*>(c_arr);
-    p.qt = static_cast<const int8_t*>(qt);
-    p.tape = static_cast<const int32_t*>(tape);
-    p.in = static_cast<const int32_t*>(state);
-    p.out = static_cast<int32_t*>(out);
-    p.hits = static_cast<int32_t*>(hits);
-    p.hit_cnt = static_cast<int32_t*>(hit_cnt);
-    p.flags = static_cast<int32_t*>(flags);
-    p.lanes = lanes;
-    p.rev_off = rev_off;
-    p.m = m;
-    p.ns = ns;
-    p.s_cap = s_cap;
-    p.h_cap = h_cap;
-    auto st = static_cast<cudaStream_t>(stream);
-    const bool e = edit != 0;
-    switch (sigma) {
-        case 2: return launch<2>(e, p, st);
-        case 3: return launch<3>(e, p, st);
-        case 4: return launch<4>(e, p, st);
-        case 5: return launch<5>(e, p, st);
-        case 6: return launch<6>(e, p, st);
-        case 7: return launch<7>(e, p, st);
-        case 8: return launch<8>(e, p, st);
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-}
-""",
-}
 
 
 def card_line() -> str:
@@ -986,94 +388,6 @@ def sm_clocks_s() -> float:
     )
     mhz = float(out.stdout.strip().splitlines()[0])
     return torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
-
-
-# The design constants of the K1, K4, K3h, K6, K7 and K8 redesigns, each
-# measured on the card beside the value kept: name -> (source, the
-# constant's line, the value kept, the other values tried; K3h keeps 0, the
-# launcher's pick, and forces each lane count).  A variant is the current
-# source with that one line changed and its headers inlined, built as
-# ``<name>_<value>`` with the rest and launched through the current wrapper
-# (``first_version``), as the first versions are.
-DESIGN_VARIANTS = {
-    "rank": ("rank", "constexpr int kPer = {};", 2, (1, 4)),
-    "rank_smem": ("rank_smem", "constexpr int kClusterCtas = {};", 2, (1, 4)),
-    "verify": ("verify", "constexpr int kHammingLanes = {};", 0, (1, 2, 4, 8)),
-    "exact_l1": ("exact", "constexpr int kOccL1 = {};", 2, (0, 1)),
-    "lf_walk_lanes": ("lf_walk", "constexpr int kWalkLanes = {};", 2, (1, 4)),
-    "lf_walk_vecs": ("lf_walk", "constexpr int kVecs = {};", 4, (1, 8)),
-    "frontier_lanes": ("frontier", "constexpr int kWarpLanes = {};", 8, (1, 2, 4, 16, 32)),
-}
-
-
-def inline_headers(path: str, seen: set) -> str:
-    """The text of ``path`` with each local header it includes inlined once."""
-    out = []
-    with open(path) as fh:
-        for line in fh:
-            m = re.match(r'#include "(.+)"', line)
-            if m and m.group(1) not in seen:
-                seen.add(m.group(1))
-                out.append(inline_headers(os.path.join(os.path.dirname(path), m.group(1)), seen))
-            elif not m and line.strip() != "#pragma once":
-                out.append(line)
-    return "".join(out)
-
-
-def write_extra_sources() -> dict[str, str]:
-    """Write ``LEGACY_SOURCES`` and the ``DESIGN_VARIANTS`` (as
-    ``<source>_<value>``) into the git-ignored build directory; the path of
-    each, for ``build_all``."""
-    from sahara_tpu_torch.kernels._build import BUILD_DIR, source
-
-    texts = dict(LEGACY_SOURCES)
-    for name, (src, line, kept, tried) in DESIGN_VARIANTS.items():
-        text = inline_headers(source(src), set())
-        if text.count(line.format(kept)) != 1:
-            raise AssertionError(f"{src}.cu does not hold '{line.format(kept)}' once")
-        texts.update({f"{name}_{v}": text.replace(line.format(kept), line.format(v)) for v in tried})
-    out_dir = os.path.join(BUILD_DIR, "legacy")
-    os.makedirs(out_dir, exist_ok=True)
-    paths = {}
-    for name, text in texts.items():
-        paths[name] = os.path.join(out_dir, f"{name}.cu")
-        with open(paths[name], "w") as fh:
-            fh.write(text)
-    return paths
-
-
-def variant_times(module, extra: dict, variant: str, call, name: str, flush, want, timed=None) -> dict:
-    """Device ms per launch, warm and cold, of kernel ``name`` built from
-    each value tried of ``DESIGN_VARIANTS[variant]``, each first held
-    against ``want`` (``call()``'s result); ``timed``, where given, is the
-    launch alone that is timed (so that no work ``call`` adds to build its
-    result runs between the timed launches)."""
-    _, line, _, tried = DESIGN_VARIANTS[variant]
-    out = {}
-    for v in tried:
-        run, launch = (functools.partial(first_version, module, extra[f"{variant}_{v}"], f)
-                       for f in (call, timed or call))
-        assert_equal(f"{name} with {line.format(v)}", run(), want)
-        out[line.format(v)] = dict(ms=kernel_device_ms(launch, name, 20),
-                                   cold_ms=kernel_device_ms(launch, name, 20, before=flush))
-    return out
-
-
-def first_version(module, src: str, call):
-    """``call()`` with ``module``'s wrapper (``kernels.rank`` or
-    ``kernels.rank_smem``) launching the C entry of the library built from
-    ``src`` (a first version or a design variant) in place of the current
-    kernel."""
-    from sahara_tpu_torch.kernels._build import lib_path
-
-    cur = module._kernel()
-    fn = getattr(ctypes.CDLL(lib_path(src)), cur.__name__)
-    fn.restype, fn.argtypes = cur.restype, cur.argtypes
-    module._fn = fn
-    try:
-        return call()
-    finally:
-        module._fn = cur
 
 
 def steady_row_sass(src: str, entry: str, loads: int, rows: int) -> dict | None:
@@ -1238,37 +552,25 @@ def profile_pass(run) -> dict:
     return out
 
 
-def redesign_times(new, name: str, flush, old=None) -> dict:
-    """Device ms per launch of kernel ``name`` through ``new``, warm (back
+def kernel_times(call, name: str, flush) -> dict:
+    """Device ms per launch of kernel ``name`` through ``call``, warm (back
     to back) and cold (L2 flushed before each launch), and the wrapper's
-    call time; with ``old``, also through the kernel's first version on the
-    same inputs, in the order new, old, old, new."""
-    out = dict(ms=kernel_device_ms(new, name, 20))
-    if old is not None:
-        out.update(old_ms=kernel_device_ms(old, name, 20), old_cold_ms=kernel_device_ms(old, name, 20, before=flush))
-    out.update(cold_ms=kernel_device_ms(new, name, 20, before=flush), call_ms=time_ms(new, 20))
-    return out
+    call time."""
+    return dict(ms=kernel_device_ms(call, name, 20), cold_ms=kernel_device_ms(call, name, 20, before=flush),
+                call_ms=time_ms(call, 20))
 
 
 def print_times(row: dict) -> None:
-    """A kernel's device times, its first version's and its variants'."""
+    """A kernel's device times."""
     print(f"{row['name']}: device warm {row['ms']:.4f} / cold {row['cold_ms']:.4f} ms, call "
           f"{row['call_ms']:.4f} ms, {row.get('registers', '')}", flush=True)
-    if "old_ms" in row:
-        print(f"  first version: device warm {row['old_ms']:.4f} / cold {row['old_cold_ms']:.4f} ms "
-              f"{row.get('old_registers', '')}", flush=True)
-    for label, t in row.get("variants", {}).items():
-        print(f"  with {label} device warm {t['ms']:.4f} / cold {t['cold_ms']:.4f} ms", flush=True)
 
 
-def kernel_phases(index, queries: np.ndarray, rng: np.random.Generator, ref: np.ndarray, extra: dict,
+def kernel_phases(index, queries: np.ndarray, rng: np.random.Generator, ref: np.ndarray,
                   ptxas: dict) -> list[dict]:
-    """Each kernel against its plain version at the main path's shapes; K1
-    and K3h also against their first versions and their design variants
-    (``extra``: name -> source)."""
+    """Each kernel against its plain version at the main path's shapes."""
     from sahara_tpu_torch.engine.locate import expand_intervals, lf_walk
     from sahara_tpu_torch.engine.seedverify import plan_parts, seed_parts
-    from sahara_tpu_torch.kernels import rank as rank_mod
     from sahara_tpu_torch.kernels._build import source
     from sahara_tpu_torch.kernels.rank import rank_all, rank_all_plain
     from sahara_tpu_torch.kernels.seed import seed_scan, seed_scan_plain
@@ -1284,18 +586,15 @@ def kernel_phases(index, queries: np.ndarray, rng: np.random.Generator, ref: np.
     want = rank_all_plain(index.occ, sigma, idx)
     err = assert_equal("rank_all", rank_all(index.occ, sigma, idx), want)
     call = lambda: rank_all(index.occ, sigma, idx)  # noqa: E731
-    old = functools.partial(first_version, rank_mod, extra["rank_v1"], call)
-    assert_equal("first rank_all", old(), want)
     rows_read = torch.unique(idx >> 5).numel()
     b, by = bound(rows_read * 64 + K1_POSITIONS * (4 + 4 * sigma), K1_POSITIONS * sigma * 3)
     rows.append(dict(
         name="rank_all", route="cuda", source="sahara_tpu_torch/kernels/csrc/rank.cu",
         replaces="sahara_tpu/kernels/rank.py:218", max_abs_err=err,
-        **redesign_times(call, "rank_all_kernel", flush, old),
-        variants=variant_times(rank_mod, extra, "rank", call, "rank_all_kernel", flush, want),
+        **kernel_times(call, "rank_all_kernel", flush),
         plain_ms=time_ms(lambda: rank_all_plain(index.occ, sigma, idx), 5),
         bound_ms=b, bound_by=by, library_ms=None, registers=register_row(ptxas, "rank", "rank_all_kernelILi6E"),
-        old_registers=register_row(ptxas, "rank_v1", "rank_all_kernelILi6E"), occ_rows_read=rows_read,
+        occ_rows_read=rows_read,
         shape=f"{K1_POSITIONS} positions, sigma={sigma}",
     ))
 
@@ -1319,7 +618,7 @@ def kernel_phases(index, queries: np.ndarray, rng: np.random.Generator, ref: np.
     rows.append(dict(
         name="seed_scan", route="cuda", source="sahara_tpu_torch/kernels/csrc/seed.cu",
         replaces="sahara_tpu/engine/seedverify.py:158", max_abs_err=err,
-        **redesign_times(lambda: seed_scan(*args), "seed_scan_kernel", flush),
+        **kernel_times(lambda: seed_scan(*args), "seed_scan_kernel", flush),
         plain_ms=time_ms(lambda: seed_scan_plain(*args), 3), bound_ms=b, bound_by=by, library_ms=None,
         registers=register_row(ptxas, "seed", "seed_scan_kernel"),
         shape=f"{CHUNK} reads x {len(parts)} parts", shared_row_steps=shared_row_steps(index, qd, parts),
@@ -1344,7 +643,7 @@ def kernel_phases(index, queries: np.ndarray, rng: np.random.Generator, ref: np.
         replaces="sahara_tpu/engine/seedverify.py:330", max_abs_err=err,
         plain_ms=time_ms(lambda: verify_plain(*vargs), 2), bound_ms=b, bound_by=by, library_ms=None,
         shape=f"{n_cands} candidates x {s_cnt} starts, m={m}, k={K}",
-        **redesign_times(lambda: verify(*vargs), "edit_kernel", flush),
+        **kernel_times(lambda: verify(*vargs), "edit_kernel", flush),
         registers=register_row(ptxas, "verify", "edit_kernelILi2E"), fast_windows=clean_windows(index, base, m),
         # the steady loop loads one text and two query words per 8 rows
         steady_row_sass=steady_row_sass(source("verify"), "edit_kernelILi2E", 3, 8),
@@ -1353,8 +652,7 @@ def kernel_phases(index, queries: np.ndarray, rng: np.random.Generator, ref: np.
         name="verify_hamming", route="cuda", source="sahara_tpu_torch/kernels/csrc/verify.cu",
         replaces="sahara_tpu/engine/seedverify.py:330", library_ms=None,
         registers={g: register_row(ptxas, "verify", f"hamming_kernelILi{g}E") for g in (1, 2, 4, 8)},
-        old_registers=register_row(ptxas, "verify_hamming_v1", "hamming_kernel"),
-        **hamming_times((index.text4, n, qc, q_of, a0.to(torch.int32), K, False), extra, flush),
+        **hamming_times((index.text4, n, qc, q_of, a0.to(torch.int32), K, False), flush),
     ))
     return rows
 
@@ -1371,39 +669,32 @@ def edit_bound(vargs) -> tuple[float, str]:
                  cells * DP_ALU_OPS_PER_CELL, cells * DP_ADD_OPS_PER_CELL)
 
 
-def hamming_times(vargs, extra: dict, flush) -> dict:
+def hamming_times(vargs, flush) -> dict:
     """K3h on ``vargs`` (``verify``'s arguments, Hamming): held against its
-    plain version, its first version and each forced lane count; its device
-    time warm and cold beside theirs, its call time, the plain version's
-    time and the bound."""
-    from sahara_tpu_torch.kernels import verify as verify_mod
+    plain version; its device time warm and cold, its call time, the plain
+    version's time and the bound."""
     from sahara_tpu_torch.kernels.verify import hamming_lanes, verify, verify_plain
 
     text4, n, queries, q_of, base, _, _ = vargs
     want = verify_plain(*vargs)
     err = assert_equal("verify_hamming", verify(*vargs), want)
     call = lambda: verify(*vargs)  # noqa: E731
-    old = functools.partial(first_version, verify_mod, extra["verify_hamming_v1"], call)
-    assert_equal("first verify_hamming", old(), want)
     n_cands, m = q_of.shape[0], queries.shape[1]
     words = torch.unique((base.long()[:, None] + torch.arange(m, device=base.device)).clamp(0, n - 1) >> 3).numel()
     # each window word, each distinct query, q_of, base and dist once; a
     # compare, a sentinel test and an add a char
     b, by = bound(words * 4 + torch.unique(q_of).numel() * m + n_cands * 12, n_cands * m * 3)
     return dict(
-        max_abs_err=err, **redesign_times(call, "hamming_kernel", flush, old),
-        variants=variant_times(verify_mod, extra, "verify", call, "hamming_kernel", flush, want),
+        max_abs_err=err, **kernel_times(call, "hamming_kernel", flush),
         lanes=hamming_lanes(n_cands, m), plain_ms=time_ms(lambda: verify_plain(*vargs), 2), bound_ms=b,
         bound_by=by, shape=f"{n_cands} candidates, m={m}",
     )
 
 
-def smem_phase(dev, extra: dict) -> dict:
-    """K4 and K1 against the plain rank on the largest table K4 takes, K4
-    also against its first version and its design variants; all by device
-    time, warm and cold."""
+def smem_phase(dev) -> dict:
+    """K4 and K1 against the plain rank on the largest table K4 takes, both
+    by device time, warm and cold."""
     from sahara_tpu_torch.bench_rank import setup
-    from sahara_tpu_torch.kernels import rank_smem as smem_mod
     from sahara_tpu_torch.kernels.rank import rank_all, rank_all_plain
     from sahara_tpu_torch.kernels.rank_smem import launch_shape, rank_all_smem
 
@@ -1411,34 +702,27 @@ def smem_phase(dev, extra: dict) -> dict:
     want = rank_all_plain(occ16, sigma, idx)
     err = assert_equal("rank_all_smem", rank_all_smem(occ16, sigma, idx), want)
     call = lambda: rank_all_smem(occ16, sigma, idx)  # noqa: E731
-    old = functools.partial(first_version, smem_mod, extra["rank_smem_v1"], call)
-    assert_equal("first rank_all_smem", old(), want)
     assert_equal("rank_all on K4's table", rank_all(occ16, sigma, idx), want)
     n, table = idx.shape[0], occ16.numel() * 4
     # each position read once, each rank written once, the table read once
     b, by = bound(n * (4 + 4 * sigma) + table, n * sigma * 3)
     flush_buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     flush = lambda: flush_buf.fill_(1)  # noqa: E731
-    k1 = redesign_times(lambda: rank_all(occ16, sigma, idx), "rank_all_kernel", flush)
+    k1 = kernel_times(lambda: rank_all(occ16, sigma, idx), "rank_all_kernel", flush)
     shape = launch_shape(n, sigma)
     # one warp of positions per CTA: the launch is then its table staging
     few = idx[: 32 * shape["ctas"]].contiguous()
     staging = lambda: rank_all_smem(occ16, sigma, few)  # noqa: E731
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     return dict(
         name="rank_all_smem", route="cuda", source="sahara_tpu_torch/kernels/csrc/rank_smem.cu",
         replaces="sahara_tpu/kernels/rank.py:108", max_abs_err=err,
-        **redesign_times(call, "rank_smem_kernel", flush, old),
-        variants=variant_times(smem_mod, extra, "rank_smem", call, "rank_smem_kernel", flush, want),
+        **kernel_times(call, "rank_smem_kernel", flush),
         plain_ms=time_ms(lambda: rank_all_plain(occ16, sigma, idx), 5),
         bound_ms=b, bound_by=by, library_ms=None,
         k1_ms_same_inputs=k1["ms"], k1_cold_ms_same_inputs=k1["cold_ms"], k1_call_ms_same_inputs=k1["call_ms"],
-        # the L2 serves the table once per cluster (the first version: once per block)
+        # the L2 serves the table once per cluster
         launch=shape, l2_staging_bytes=table * shape["ctas"] // shape["cluster_ctas"],
         staging_ms=kernel_device_ms(staging, "rank_smem_kernel", 20),
-        old_staging_ms=kernel_device_ms(functools.partial(first_version, smem_mod, extra["rank_smem_v1"], staging),
-                                        "rank_smem_kernel", 20),
-        old_l2_staging_bytes=table * min(-(-n // 1024), sms),
         shape=f"{n} positions, {occ16.shape[0]} occ rows ({table} B), sigma={sigma}",
     )
 
@@ -1728,12 +1012,9 @@ def workq_path(host, queries: np.ndarray, sv_rows: np.ndarray):
     passes = timed_passes(run, rows, "work-queue")
     dt = sorted(passes)[1]
     out.update(passes_s=passes, pass_s=dt, reads_per_s=len(queries) / 2 / dt,
-               max_memory_allocated=torch.cuda.max_memory_allocated(), syncs_per_pass=count_syncs(run),
-               profile=profile_pass(run))
-    busy = out["profile"]["device_busy_ms"]
-    print(f"workq path: {out['reads_per_s']:.1f} reads/s (median of 3: {dt * 1e3:.1f} ms), device busy "
-          f"{busy:.1f} ms ({busy / (dt * 1e3) * 100:.1f}%), {out['syncs_per_pass']} syncs a pass, "
-          f"max_memory_allocated {out['max_memory_allocated']} B", flush=True)
+               max_memory_allocated=torch.cuda.max_memory_allocated(), syncs_per_pass=count_syncs(run))
+    print(f"workq path: {out['reads_per_s']:.1f} reads/s (median of 3: {dt * 1e3:.1f} ms), "
+          f"{out['syncs_per_pass']} syncs a pass, max_memory_allocated {out['max_memory_allocated']} B", flush=True)
     return index, out
 
 
@@ -1796,7 +1077,7 @@ def rows_sha(rows: np.ndarray) -> str:
     return hashlib.sha256(rows.tobytes()).hexdigest()
 
 
-def sv_e1_phase(index, ref: np.ndarray, extra: dict) -> dict:
+def sv_e1_phase(index, ref: np.ndarray) -> dict:
     """The short-read workload (36 bp, k=3) through ``auto``, which takes
     one-error seed-and-verify: its hit set against the JAX package's, three
     timed passes after the first, a profiled pass, its syncs, peak memory and
@@ -1920,7 +1201,7 @@ def sv_e1_phase(index, ref: np.ndarray, extra: dict) -> dict:
     out["hamming"] = dict(
         hits=len(ham_rows), sha256=rows_sha(ham_rows), launches=ham_launches, verify_launches=ham_launches["verify"],
         candidates=sum(args[3].shape[0] for args, _, _ in calls),
-        k3h=hamming_times(largest, extra, lambda: flush_buf.fill_(1)),
+        k3h=hamming_times(largest, lambda: flush_buf.fill_(1)),
     )
     print(f"sv_e1 Hamming: {len(ham_rows)} hits (JAX package {JAX_E1_HAMMING_HITS}, same sha256), mismatches "
           f"recounted; K3h {ham_launches['verify']} launches over {out['hamming']['candidates']} candidates", flush=True)
@@ -2103,13 +1384,12 @@ def sector_ms(sectors: int) -> float:
     return sectors * 32 / PEAK_BYTES_S * 1e3
 
 
-def exact_figures(args, flush, extra: dict) -> dict:
+def exact_figures(args, flush) -> dict:
     """K6 on one recorded call's arguments (``exact_search``'s, with the
     j-mer table where the path passed it): held against its plain full scan,
-    also without the table and as its first version and design variants;
-    device times warm and cold beside theirs (the kept design's warm time
-    taken again last, the spread of one configuration in the run), call
-    time, the plain version's time and the bound.  Where the call has the
+    also without the table; device times warm and cold beside those without
+    the table (the warm time taken again last, the spread of one
+    configuration in the run), call time, the plain version's time and the bound.  Where the call has the
     table, K6 also runs with a table of empty intervals: a query it starts
     from the table then finds nothing, so the queries whose hit vanishes are
     the ones the kernel started there (``table_start_k6``), held against
@@ -2117,7 +1397,6 @@ def exact_figures(args, flush, extra: dict) -> dict:
     the plain scan's run implies, not measured (longest chain, steps run,
     distinct 32 B sectors and their time at the HBM rate, occ loads the
     design issues)."""
-    from sahara_tpu_torch.kernels import exact as k6
     from sahara_tpu_torch.kernels.exact import exact_search, exact_search_plain, table_start
 
     occ, _, queries, qlens, sigma, n = args[:6]
@@ -2133,16 +1412,13 @@ def exact_figures(args, flush, extra: dict) -> dict:
     # checkpoints, bases)
     b, by = bound(words * 8 + steps + queries.shape[0] * 12, steps * 8, steps * 6)
     call = lambda: exact_search(*args)  # noqa: E731
-    old = functools.partial(first_version, k6, extra["exact_v1"], call)
-    assert_equal("first exact_search", old(), want)
-    times = redesign_times(call, "exact_kernel", flush, old)
-    variants = variant_times(k6, extra, "exact_l1", call, "exact_kernel", flush, want)
+    times = kernel_times(call, "exact_kernel", flush)
     started = {}
     if lut is not None:
         scan = lambda: exact_search(*args[:6])  # noqa: E731
         assert_equal("exact_search without the j-mer table", scan(), want)
-        variants["no j-mer table start"] = dict(ms=kernel_device_ms(scan, "exact_kernel", 20),
-                                                cold_ms=kernel_device_ms(scan, "exact_kernel", 20, before=flush))
+        started.update(no_table_ms=kernel_device_ms(scan, "exact_kernel", 20),
+                       no_table_cold_ms=kernel_device_ms(scan, "exact_kernel", 20, before=flush))
         empty = (*args[:6], torch.zeros_like(lut), lut_j)
         got = exact_search(*empty)
         assert_equal("exact_search with a table of empty intervals", got, exact_search_plain(*empty))
@@ -2151,9 +1427,9 @@ def exact_figures(args, flush, extra: dict) -> dict:
         if not torch.equal(took, hit & (skip > 0)):
             raise AssertionError(f"K6 started {int(took.sum())} queries with a hit from the j-mer table, the rule "
                                  f"{int((hit & (skip > 0)).sum())}")
-        started = dict(table_start_k6=int(took.sum()), queries_with_hit=int(hit.sum()))
+        started.update(table_start_k6=int(took.sum()), queries_with_hit=int(hit.sum()))
     return dict(
-        max_abs_err=err, **times, ms_again=kernel_device_ms(call, "exact_kernel", 20), variants=variants, **started,
+        max_abs_err=err, **times, ms_again=kernel_device_ms(call, "exact_kernel", 20), **started,
         plain_ms=time_ms(lambda: exact_search_plain(*args), 2), bound_ms=b, bound_by=by, occ_words=words,
         steps=steps, rows_found=int(want[1].sum()),
         model=dict(table_start_rule=int((skip > 0).sum()), longest_chain=int((lens - skip).max()),
@@ -2191,13 +1467,11 @@ def walk_words(args) -> dict:
                 model=dict(longest_chain=int(walked.max()), sectors=sectors, sector_ms=sector_ms(sectors)))
 
 
-def walk_figures(args, flush, extra: dict) -> dict:
+def walk_figures(args, flush) -> dict:
     """K7 on one recorded call's arguments (``lf_walk``'s): held against its
-    plain version, its first version and its design variants; device times
-    warm and cold beside theirs (the kept design's warm time taken again
+    plain version; device times warm and cold (the warm time taken again
     last), call time, the plain version's time and the bound; ``model``:
     the longest walk and the distinct 32 B sectors of the plain walk."""
-    from sahara_tpu_torch.kernels import lf_walk as k7
     from sahara_tpu_torch.kernels.lf_walk import lf_walk, lf_walk_plain
 
     occ, sigma, rate, rows = args[0], args[5], args[6], args[7]
@@ -2211,14 +1485,9 @@ def walk_figures(args, flush, extra: dict) -> dict:
     b, by = bound(8 * (w["sampled_words"] + w["occ_words"] + w["slots"]) + 12 * rows.shape[0],
                   w["lf_steps"] * 5 + w["planes"] * 2, w["lf_steps"] * 4)
     call = lambda: lf_walk(*args)  # noqa: E731
-    old = functools.partial(first_version, k7, extra["lf_walk_v1"], call)
-    assert_equal("first lf_walk", old(), want)
-    times = redesign_times(call, "lf_walk_kernel", flush, old)
-    variants = {}
-    for name in ("lf_walk_lanes", "lf_walk_vecs"):
-        variants.update(variant_times(k7, extra, name, call, "lf_walk_kernel", flush, want))
     return dict(
-        max_abs_err=err, **times, ms_again=kernel_device_ms(call, "lf_walk_kernel", 20), variants=variants,
+        max_abs_err=err, **kernel_times(call, "lf_walk_kernel", flush),
+        ms_again=kernel_device_ms(call, "lf_walk_kernel", 20),
         plain_ms=time_ms(lambda: lf_walk_plain(*args), 2), bound_ms=b, bound_by=by, **w,
         shape=f"{rows.shape[0]} rows, sigma={sigma}, {occ.shape[1]}-int rows, rate {rate}",
     )
@@ -2236,7 +1505,7 @@ def search_output(path: str, want_sha: str, want_lines: int, what: str) -> tuple
     return np.array(data.decode().split(), dtype=np.int64).reshape(-1, 3), sha, lines
 
 
-def uni_phase(tmp: str, fasta: str, card: str, extra: dict) -> tuple[dict, dict, dict]:
+def uni_phase(tmp: str, fasta: str, card: str) -> tuple[dict, dict, dict]:
     """Phase uni: EXACT_READS error-free reads through ``read_simulator``,
     ``uni-index`` and ``uni-search`` on the card; the output's sha256
     against the JAX package's CLI, K6 launched there, with the j-mer table,
@@ -2278,7 +1547,7 @@ def uni_phase(tmp: str, fasta: str, card: str, extra: dict) -> tuple[dict, dict,
         raise AssertionError("exact search with the sampled walk gives other rows than uni-search")
     flush_buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=sampled.device)
     flush = lambda: flush_buf.fill_(1)  # noqa: E731
-    k6_fig, k7_fig = exact_figures(calls[0][0], flush, extra), walk_figures(walks[0][0], flush, extra)
+    k6_fig, k7_fig = exact_figures(calls[0][0], flush), walk_figures(walks[0][0], flush)
     if not k6_fig["table_start_k6"] > 0:
         raise AssertionError("K6 started no query of uni-search from the j-mer table")
     rep = dict(reads=EXACT_READS, queries=len(queries), read_simulator_s=sim_s, index_s=index_s,
@@ -2296,7 +1565,7 @@ def uni_phase(tmp: str, fasta: str, card: str, extra: dict) -> tuple[dict, dict,
     return rep, k6_fig, k7_fig
 
 
-def kmer_phase(tmp: str, fasta: str, reads: str, card: str, extra: dict) -> tuple[dict, dict, dict]:
+def kmer_phase(tmp: str, fasta: str, reads: str, card: str) -> tuple[dict, dict, dict]:
     """Phase kmer: ``kmer-index`` of the reference (``KMER_FLAGS``: sigma
     32) and ``kmer-search`` of phase uni's reads on the card; the output's
     sha256 against the JAX package's CLI and K6 and K7 launched at sigma 32.
@@ -2319,7 +1588,7 @@ def kmer_phase(tmp: str, fasta: str, reads: str, card: str, extra: dict) -> tupl
         raise AssertionError(f"kmer-search ran at sigma {sigmas}, not {KMER_SIGMA}")
     flush_buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=calls[0][0][0].device)
     flush = lambda: flush_buf.fill_(1)  # noqa: E731
-    k6_fig, k7_fig = exact_figures(calls[0][0], flush, extra), walk_figures(walks[0][0], flush, extra)
+    k6_fig, k7_fig = exact_figures(calls[0][0], flush), walk_figures(walks[0][0], flush)
     rep = dict(index_s=index_s, index_stats=stats_block(index_log),
                wall_s=wall, reads_per_s=EXACT_READS / wall, stats=stats_block(log), launches=launches, lines=lines,
                sha256=sha, sigma=KMER_SIGMA, card=card)
@@ -2327,22 +1596,6 @@ def kmer_phase(tmp: str, fasta: str, reads: str, card: str, extra: dict) -> tupl
           f"{rep['reads_per_s']:.1f} reads/s end to end; stats block s {json.dumps(rep['stats'])}; launches "
           f"{json.dumps(launches)}; {card}", flush=True)
     return rep, k6_fig, k7_fig
-
-
-def first_design_bound(ctx, state, hits_before: int, hits_after: int, out) -> tuple[float, str]:
-    """The bound of one K8 step as the first design moved it, on ``state``
-    with sz = 0 past the live slots: the sz plane read; each live slot's
-    other planes, tape word and query char, and each distinct occ row its
-    two ranks read once; the children, the new hits and every other slot's
-    sz written, and the counts and flags."""
-    from sahara_tpu_torch.kernels.frontier import n_kinds
-
-    fig = step_figures(ctx, state, out)
-    lanes, s_cap = ctx.lanes, ctx.s_cap
-    n_bytes = (lanes * s_cap * 4 + fig["live"] * 20 + fig["ranked"] * 8 + fig["occ_rows"] * 64
-               + fig["children"] * 24 + (lanes * s_cap - fig["children"]) * 4 + (hits_after - hits_before) * 12
-               + lanes * 12)
-    return bound(n_bytes, fig["ranked"] * (6 * ctx.sigma + 4 * n_kinds(ctx.sigma, ctx.edit)))
 
 
 def step_figures(ctx, state, out) -> dict:
@@ -2377,21 +1630,18 @@ def frontier_bound(ctx, fig: dict, new_hits: int, new_flags: int) -> tuple[float
     return bound(n_bytes, fig["ranked"] * (6 * ctx.sigma + 4 * n_kinds(ctx.sigma, ctx.edit)))
 
 
-def approx_phase(index, queries: np.ndarray, sv_rows: np.ndarray, tmp: str, fasta: str, reads: str,
-                 extra: dict) -> dict:
+def approx_phase(index, queries: np.ndarray, sv_rows: np.ndarray, tmp: str, fasta: str, reads: str) -> dict:
     """The frontier engine (``engine="approx"``, K8) over the workload on the
     upload with both tables: the rows of its first APPROX_PREFIX queries
     against the JAX package's, the whole row set beside seed-and-verify's,
     each search (caps, lanes, overflowing lanes), K8 against its plain step
     at every step of the first chunk's first attempt, K8 timed on the widest
-    of those steps beside its first version and design variants and in a
-    pass, three timed passes, and the CLI's ``--engine approx`` against the
-    JAX CLI's."""
+    of those steps and in a pass, three timed passes, and the CLI's
+    ``--engine approx`` against the JAX CLI's."""
     from sahara_tpu_torch.engine import approx
     from sahara_tpu_torch.engine.driver import load_scheme, search_queries
     from sahara_tpu_torch.engine.tape import compile_tape
     from sahara_tpu_torch.kernels import LAUNCHES, reset_launches
-    from sahara_tpu_torch.kernels import frontier as k8
     from sahara_tpu_torch.kernels.frontier import SZ, frontier_step, frontier_step_plain, pack_tape
 
     kw = dict(k=K, edit=True, chunk=CHUNK, engine="approx", generator_name=WORKQ_GENERATOR)
@@ -2468,40 +1718,22 @@ def approx_phase(index, queries: np.ndarray, sv_rows: np.ndarray, tmp: str, fast
     nxt, nxt_live = torch.empty_like(state), torch.empty_like(live)
     hits, hit_cnt, flags = (x.clone() for x in (hits0, cnt0, flags0))
     dead = torch.arange(ctx.s_cap, device=state.device) >= live[:, None]
-    state_v1 = state.clone()
-    state_v1[SZ][dead] = 0  # the first K8 finds the live slots by sz
+    zeroed = state.clone()
+    zeroed[SZ][dead] = 0  # step_figures finds the live slots by sz
 
-    def launch(st=state):
+    def launch():
         hit_cnt.copy_(cnt0)
-        frontier_step(ctx, st, live, nxt, nxt_live, hits, hit_cnt, flags, checked=True)
+        frontier_step(ctx, state, live, nxt, nxt_live, hits, hit_cnt, flags, checked=True)
 
-    def prime():
-        """The buffers as before the step, the next frontier a sentinel, so
-        that a compared launch is held to all it must write."""
-        nxt.fill_(-1)
-        nxt_live.fill_(-1)
-        hits.copy_(hits0)
-        flags.copy_(flags0)
-
-    def flat(frontier, n_live):
-        return tuple(x.reshape(-1) for x in (frontier, n_live, hits, hit_cnt, flags))
-
-    def result():
-        prime()
-        launch()
-        return flat(torch.where(torch.arange(ctx.s_cap, device=nxt.device) < nxt_live[:, None], nxt, 0), nxt_live)
-
-    want = tuple(x.clone() for x in result())
+    nxt.fill_(-1)  # a sentinel: the kernel writes only the children and the next live counts
+    nxt_live.fill_(-1)
+    hits.copy_(hits0)
+    flags.copy_(flags0)
+    launch()
     children, new_flags = torch.where(nxt[SZ] > 0, nxt, 0), int((flags != flags0).sum())
-    old = functools.partial(first_version, k8, extra["frontier_v1"], functools.partial(launch, state_v1))
-    prime()
-    old()
-    assert_equal("first frontier_step", flat(torch.where(nxt[SZ] > 0, nxt, 0), (nxt[SZ] > 0).sum(1, dtype=torch.int32)),
-                 want)
-    fig = step_figures(ctx, state_v1, children)
+    fig = step_figures(ctx, zeroed, children)
     new_hits = hits_after - int(cnt0.sum())
     b, by = frontier_bound(ctx, fig, new_hits, new_flags)
-    b1, by1 = first_design_bound(ctx, state_v1, int(cnt0.sum()), hits_after, children)
     flush_buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=index.device)
     flush = lambda: flush_buf.fill_(1)  # noqa: E731
     counts = torch.bincount(live.clamp(max=33).long(), minlength=34).tolist()
@@ -2511,11 +1743,10 @@ def approx_phase(index, queries: np.ndarray, sv_rows: np.ndarray, tmp: str, fast
         name="frontier_step", route="cuda", source="sahara_tpu_torch/kernels/csrc/frontier.cu",
         replaces="sahara_tpu/engine/approx.py:161", max_abs_err=check.err, steps_checked=check.n,
         chunk0_steps_checked=chunk0_steps,
-        **redesign_times(launch, "frontier_kernel", flush, old),
-        variants=variant_times(k8, extra, "frontier_lanes", result, "frontier_kernel", flush, want, launch),
+        **kernel_times(launch, "frontier_kernel", flush),
         plain_ms=time_ms(lambda: frontier_step_plain(ctx, state, live, torch.empty_like(nxt), torch.empty_like(live),
                                                      hits.clone(), cnt0.clone(), flags.clone()), 5),
-        bound_ms=b, bound_by=by, first_design_bound_ms=b1, first_design_bound_by=by1, library_ms=None,
+        bound_ms=b, bound_by=by, library_ms=None,
         launches=launches["frontier_step"], new_hits=new_hits, **fig,
         lanes_by_live={"0": counts[0], "1": counts[1], "2-4": sum(counts[2:5]), "5-8": sum(counts[5:9]),
                        "9-32": sum(counts[9:33]), "33+": counts[33]},
@@ -2526,28 +1757,17 @@ def approx_phase(index, queries: np.ndarray, sv_rows: np.ndarray, tmp: str, fast
     row["ms_again"] = kernel_device_ms(launch, "frontier_kernel", 20)
     run = lambda: search_queries(index, queries, **kw)  # noqa: E731
     row["pass_ms"], row["pass_launches"] = kernel_device_total(run, "frontier_kernel")
-    _, line, _, tried = DESIGN_VARIANTS["frontier_lanes"]
-
-    def variant_pass(v):
-        require_rows(f"a pass with {line.format(v)}", first_version(k8, extra[f"frontier_lanes_{v}"], run), rows)
-
-    row["variant_pass_ms"] = {line.format(v): kernel_device_total(functools.partial(variant_pass, v),
-                                                                  "frontier_kernel")[0] for v in tried}
     print(f"frontier_step: {chunk0_steps} steps of chunk 0 and {check.n - chunk0_steps} of a whole pass (its retry "
           f"searches' own caps included) equal to the plain step; widest {row['shape']}: lanes by live "
           f"slots {row['lanes_by_live']}, warps (8 lanes) by rounds {row['warps_by_rounds']}; {fig}; plain "
-          f"{row['plain_ms']:.3f} ms; least-work bound {b:.5f} ms by {by}, first design's traffic {b1:.5f} ms by "
-          f"{by1}; warm again {row['ms_again']:.4f} ms; a pass {row['pass_ms']:.2f} ms in {row['pass_launches']} "
-          f"launches (with the other lanes a warp: {row['variant_pass_ms']})", flush=True)
+          f"{row['plain_ms']:.3f} ms; least-work bound {b:.5f} ms by {by}; warm again {row['ms_again']:.4f} ms; a pass "
+          f"{row['pass_ms']:.2f} ms in {row['pass_launches']} launches", flush=True)
 
     passes = timed_passes(run, rows, "approx")
     dt = sorted(passes)[1]
-    out.update(passes_s=passes, pass_s=dt, reads_per_s=len(queries) / 2 / dt, profile=profile_pass(run),
-               syncs=count_syncs(run))
-    busy = out["profile"]["device_busy_ms"]
-    print(f"approx path: {out['reads_per_s']:.1f} reads/s (median of 3: {dt * 1e3:.1f} ms), device busy {busy:.1f} ms "
-          f"({busy / (dt * 1e3) * 100:.1f}%), {out['syncs']} syncs; host top "
-          f"{out['profile']['top_host_tottime_ms'][:5]}", flush=True)
+    out.update(passes_s=passes, pass_s=dt, reads_per_s=len(queries) / 2 / dt, syncs=count_syncs(run))
+    print(f"approx path: {out['reads_per_s']:.1f} reads/s (median of 3: {dt * 1e3:.1f} ms), {out['syncs']} syncs",
+          flush=True)
 
     # the CLI's --engine approx on the first APPROX_CLI_QUERIES strand queries
     path = os.path.join(tmp, "approx_out.txt")
@@ -3023,7 +2243,6 @@ def main() -> int:
     from sahara_tpu_torch.engine.seedverify import StageTimer
     from sahara_tpu_torch.index.fmindex import load_index
     from sahara_tpu_torch.kernels import LAUNCHES, reset_launches
-    from sahara_tpu_torch.kernels import rank as rank_mod
     from sahara_tpu_torch.kernels._build import KERNEL_SOURCES, build_all, source
     from sahara_tpu_torch.sim.workload import bench_workload
 
@@ -3031,8 +2250,7 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     t_start = t0 = time.perf_counter()
-    extra = write_extra_sources()
-    ptxas = build_all([source(name) for name in KERNEL_SOURCES] + list(extra.values()))
+    ptxas = build_all([source(name) for name in KERNEL_SOURCES])
     report["build_s"] = time.perf_counter() - t0
     report["sm_clocks_s"] = sm_clocks_s()
     print(f"build: {report['build_s']:.1f} s", flush=True)
@@ -3052,16 +2270,13 @@ def main() -> int:
 
     # K1-K3 vs plain, on an uploaded copy of the forward index
     kernels = kernel_phases(DeviceIndex.from_host(host, include_rev=False), queries, np.random.default_rng(7), ref,
-                            extra, ptxas)
+                            ptxas)
     # K1 on its path: the j-mer table's levels at upload (2 to 524,288 positions)
     upload = lambda: DeviceIndex.from_host(host, include_rev=False)  # noqa: E731
     k1 = kernels[0]
     upload()  # warm
     k1["upload_ms"], k1["upload_launches"] = kernel_device_total(upload, "rank_all_kernel")
-    k1["old_upload_ms"], _ = kernel_device_total(
-        functools.partial(first_version, rank_mod, extra["rank_v1"], upload), "rank_all_kernel")
-    print(f"rank_all in one upload: {k1['upload_launches']} launches, device {k1['upload_ms']:.4f} ms (first version "
-          f"{k1['old_upload_ms']:.4f} ms)", flush=True)
+    print(f"rank_all in one upload: {k1['upload_launches']} launches, device {k1['upload_ms']:.4f} ms", flush=True)
     for row in kernels:
         print_times(row)
     sass = next(row for row in kernels if row["name"] == "verify")["steady_row_sass"]
@@ -3090,7 +2305,6 @@ def main() -> int:
     timer = StageTimer(index.device)
     search_queries(index, queries, timer=timer, **kw)
     stages = timer.totals()
-    report["profile"] = profile_pass(lambda: search_queries(index, queries, **kw))
     report.update(
         passes_s=passes, pass_s=dt, reads_per_s=len(queries) / 2 / dt, stage_ms=stages,
         max_memory_allocated=torch.cuda.max_memory_allocated(), hits=len(rows), sha256=sha,
@@ -3098,7 +2312,7 @@ def main() -> int:
     print(f"main path: {report['reads_per_s']:.1f} reads/s (median of 3: {dt * 1e3:.1f} ms for {len(queries) // 2} reads, "
           f"both strands), stages ms {json.dumps({k: round(v, 3) for k, v in stages.items()})}, "
           f"max_memory_allocated {report['max_memory_allocated']} B", flush=True)
-    print(f"passes s {passes}; device busy {report['profile']['device_busy_ms']:.2f} ms of a pass", flush=True)
+    print(f"passes s {passes}", flush=True)
 
     # sampled LF-walk locate (K7): no full suffix array on the card
     sampled = DeviceIndex.from_host(host, full_sa=False, include_rev=False)
@@ -3123,13 +2337,12 @@ def main() -> int:
     del index
 
     # K4 and K5 vs plain; then the work-queue path and the fallback
-    kernels.append(smem_phase(torch.device("cuda"), extra))
+    kernels.append(smem_phase(torch.device("cuda")))
     k4 = kernels[-1]
     print_times(k4)
     print(f"  K1 on the same inputs: device warm {k4['k1_ms_same_inputs']:.4f} / cold "
           f"{k4['k1_cold_ms_same_inputs']:.4f} ms; K4 stages {k4['l2_staging_bytes']} B from L2 a launch "
-          f"({k4['launch']}; first version {k4['old_l2_staging_bytes']} B); one warp of positions a CTA: device "
-          f"{k4['staging_ms']:.4f} ms (first version {k4['old_staging_ms']:.4f} ms)", flush=True)
+          f"({k4['launch']}); one warp of positions a CTA: device {k4['staging_ms']:.4f} ms", flush=True)
     index_bi = DeviceIndex.from_host(host)
     step_row, report["workq_queue"] = workq_step_phase(index_bi, queries)
     kernels.append(step_row)
@@ -3140,16 +2353,12 @@ def main() -> int:
               f"bound {row['bound_ms']:.4f} ms by {row['bound_by']}) at {row['shape']}", flush=True)
     index_bi, report["workq"] = workq_path(host, queries, rows)
     report["fallback"], n_queries, n_rows = fallback_phase(index_bi, queries, rows)
-    report["sv_e1"] = sv_e1_phase(index_bi, ref, extra)
-    report["approx"], k8 = approx_phase(index_bi, queries, rows, tmp.name, fasta, reads, extra)
+    report["sv_e1"] = sv_e1_phase(index_bi, ref)
+    report["approx"], k8 = approx_phase(index_bi, queries, rows, tmp.name, fasta, reads)
     # phase mesh: the data mesh, the card listed twice
     report["mesh"] = mesh_phase(host, queries, rows, n_queries, n_rows, ref)
-    kernels.append(dict(k8, registers=register_row(ptxas, "frontier", "frontier_kernelILi6ELb1E"),
-                        old_registers=register_row(ptxas, "frontier_v1", "frontier_kernelILi6ELb1E"),
-                        variant_registers={name: register_row(ptxas, name, "frontier_kernelILi6ELb1E")
-                                           for name in extra if name.startswith("frontier_")}))
+    kernels.append(dict(k8, registers=register_row(ptxas, "frontier", "frontier_kernelILi6ELb1E")))
     print_times(kernels[-1])
-    print(f"  registers: {kernels[-1]['variant_registers']}", flush=True)
     del index_bi
     # each kernel of the sv_e1 path: its figures there beside that path's launches
     e1_path, e1 = report["sv_e1"], report["sv_e1"]["hamming"]["k3h"]
@@ -3179,9 +2388,8 @@ def main() -> int:
     report["corpus"] = corpus_phase(tmp.name)
 
     # phases uni and kmer: exact search through the CLI (K6, K7)
-    report["uni"], k6, uni_k7 = uni_phase(tmp.name, fasta, card, extra)
-    report["kmer"], kmer_k6, k7 = kmer_phase(tmp.name, fasta, os.path.join(tmp.name, "exact_reads.fasta"), card,
-                                             extra)
+    report["uni"], k6, uni_k7 = uni_phase(tmp.name, fasta, card)
+    report["kmer"], kmer_k6, k7 = kmer_phase(tmp.name, fasta, os.path.join(tmp.name, "exact_reads.fasta"), card)
     tmp.cleanup()
     kernels.append(dict(
         name="exact_search", route="cuda", source="sahara_tpu_torch/kernels/csrc/exact.cu",
@@ -3234,15 +2442,12 @@ def main() -> int:
     print(f"total {report['total_s']:.1f} s; {timing.PROFILER_SESSIONS} profiler sessions; kernel times from CUDA "
           f"events where the profiler recorded nothing: {timing.EVENT_TIMED or 'none'}")
     print(card)
-    # device times also cold and the call time; K1, K4 and K3h their first
-    # version's; K5, K3 and K3h also at the sv_e1 path's shapes, beside that
-    # path's launches; K6 also on the kmer path, K7 also on the uni path's
-    # sampled walk
-    more = ("cold_ms", "call_ms", "old_ms", "old_cold_ms", "sharded_launches", "swap_launches", "pass_ms",
-            "pass_launches", "first_design_bound_ms")
+    # device times also cold and the call time; K5, K3 and K3h also at the
+    # sv_e1 path's shapes, beside that path's launches; K6 also on the kmer
+    # path, K7 also on the uni path's sampled walk
+    more = ("cold_ms", "call_ms", "sharded_launches", "swap_launches", "pass_ms", "pass_launches")
     more += tuple(f"{p}_{k}" for p in ("e1", "kmer", "uni") for k in (
-        "launches", "max_abs_err", "ms", "cold_ms", "call_ms", "old_ms", "old_cold_ms", "plain_ms", "bound_ms",
-        "bound_by"))
+        "launches", "max_abs_err", "ms", "cold_ms", "call_ms", "plain_ms", "bound_ms", "bound_by"))
     print(json.dumps({"kernels": [{k: row[k] for k in keys + more if k in row} for row in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

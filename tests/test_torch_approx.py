@@ -26,6 +26,8 @@ from sahara_tpu_torch.engine.tape import compile_tape
 from sahara_tpu_torch.index.build import build_bifmindex
 from sahara_tpu_torch.kernels.frontier import SZ, FrontierContext, frontier_step_plain, pack_tape
 
+from tests import torch_support  # noqa: F401  (PyTorch on one thread)
+
 M = 24
 
 
@@ -54,25 +56,37 @@ def corpus():
     return seqs, queries, jdev, pdev
 
 
-def _both(corpus, **kw):
-    _, queries, jdev, pdev = corpus
+@pytest.fixture(scope="module")
+def port_rows(corpus):
+    """The port's rows on the corpus's queries by search options, each
+    search made once a module."""
+    _, queries, _, pdev = corpus
+
+    @functools.cache
+    def rows(**kw):
+        return search_queries(pdev, queries, engine="approx", device="cpu", **kw).rows()
+
+    return rows
+
+
+def _both(corpus, port_rows, **kw):
+    _, queries, jdev, _ = corpus
     want = jax_driver.search_queries(jdev, queries, engine="approx", **kw).rows()
-    got = search_queries(pdev, queries, engine="approx", device="cpu", **kw).rows()
-    return got, want
+    return port_rows(**kw), want
 
 
 @pytest.mark.parametrize("gen,k,edit", [
     ("optimum", 1, True), ("optimum", 2, True), ("optimum", 3, True), ("h2-k2", 2, True), ("01*0", 2, True),
     ("optimum", 1, False), ("pigeon_opt", 2, False), ("kianfar", 3, False),
 ])
-def test_approx_matches_jax(corpus, gen, k, edit):
-    got, want = _both(corpus, k=k, edit=edit, generator_name=gen)
+def test_approx_matches_jax(corpus, port_rows, gen, k, edit):
+    got, want = _both(corpus, port_rows, k=k, edit=edit, generator_name=gen)
     assert got == want and len(want) >= 6
 
 
 @pytest.mark.parametrize("kw", [{"mode": "besthits"}, {"max_hits": 2}], ids=["besthits", "max_hits"])
-def test_approx_modes_match_jax(corpus, kw):
-    got, want = _both(corpus, k=2, generator_name="optimum", **kw)
+def test_approx_modes_match_jax(corpus, port_rows, kw):
+    got, want = _both(corpus, port_rows, k=2, generator_name="optimum", **kw)
     assert got == want and len(want) >= 8
     if "max_hits" in kw:
         assert np.bincount([r[0] for r in want]).max() == 2
@@ -90,13 +104,14 @@ def test_approx_on_a_mirrored_index(corpus):
     assert search_queries(pdev, queries, device="cpu", **kw).rows() == want and len(want) >= 8
 
 
-def test_retries_give_the_uncapped_rows(corpus):
+def test_retries_give_the_uncapped_rows(corpus, port_rows):
     """Caps of 2 frontier slots and 1 hit overflow at first: the chunks
     retry with doubled caps (each on its own, so their hit buffers end at
-    different widths) and give the rows of the default caps."""
+    different widths) and give the rows of the default caps (those of the
+    optimum-2-True case of ``test_approx_matches_jax``)."""
     _, queries, jdev, pdev = corpus
     kw = dict(k=2, generator_name="optimum", engine="approx")
-    uncapped = search_queries(pdev, queries, device="cpu", **kw).rows()
+    uncapped = port_rows(k=2, edit=True, generator_name="optimum")
     want = jax_driver.search_queries(jdev, queries, s_cap=2, h_cap=1, chunk=8, **kw).rows()
     got = search_queries(pdev, queries, device="cpu", s_cap=2, h_cap=1, chunk=8, **kw).rows()
     assert got == want == uncapped

@@ -31,6 +31,8 @@ from sahara_tpu_torch.cli.main import main
 from sahara_tpu_torch.index.fmindex import FastNpz
 from sahara_tpu_torch.io.fasta import FastaRecord, iter_fasta_seq_matrix_blocks, read_fasta, write_fasta
 
+from tests import torch_support  # noqa: F401  (PyTorch on one thread)
+
 # chip_smoke.py's copy of the conformance corpus, which it runs on the card:
 # the goldens below hold it right
 READS = chip_smoke.GOLDEN_READS

@@ -17,6 +17,8 @@ from sahara_tpu_torch.engine.driver import search_queries
 from sahara_tpu_torch.index.build import build_bifmindex
 from sahara_tpu_torch.sim.corpus import make_genome
 
+from tests import torch_support  # noqa: F401  (PyTorch on one thread)
+
 
 @pytest.mark.parametrize("seed,n,kw", [
     (0, 4000, {}),

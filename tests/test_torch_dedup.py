@@ -13,6 +13,7 @@ from sahara_tpu_torch.engine.workq import MetaLayout, meta_layout
 from sahara_tpu_torch.kernels import LAUNCHES
 from sahara_tpu_torch.kernels.dedup import HASH, dedup_keys, table_bits, workq_dedup, workq_dedup_plain
 from sahara_tpu_torch.kernels.workq import EDGES, MAX_ROWS, step_context
+from tests import torch_support  # noqa: F401  (PyTorch on one thread)
 from tests.test_torch_gpu import dedup_queue
 
 NS, M = 2, 3

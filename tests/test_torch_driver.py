@@ -16,6 +16,7 @@ from sahara_tpu_torch.engine.driver import search_queries
 from sahara_tpu_torch.index.fmindex import from_arrays
 from sahara_tpu_torch.parallel import data_mesh, replicate_index
 
+from tests import torch_support  # noqa: F401  (PyTorch on one thread)
 from tests.util import random_seqs
 
 M = 48

@@ -26,6 +26,8 @@ from sahara_tpu_torch.index.build import build_fmindex
 from sahara_tpu_torch.index.jmer import pick_lut_j
 from sahara_tpu_torch.kernels.exact import table_start
 
+from tests import torch_support  # noqa: F401  (PyTorch on one thread)
+
 CASES = [(6, True), (6, False), (16, False), (32, False), (64, False), (128, False)]
 
 

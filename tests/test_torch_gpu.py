@@ -48,6 +48,10 @@ from sahara_tpu_torch.kernels.verify import hamming_lanes, verify, verify_plain
 from sahara_tpu_torch.kernels.workq import EPOCHS, TILE, step_context, workq_step, workq_step_plain
 from sahara_tpu_torch.timing import event_device_ms, kernel_device_ms
 
+# by its own name, from the directory pytest puts on sys.path: the card's
+# Python has a package of its own named ``tests``
+import torch_support  # noqa: F401  (PyTorch on one thread)
+
 pytestmark = pytest.mark.gpu
 
 

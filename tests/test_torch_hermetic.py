@@ -15,6 +15,8 @@ from sahara_tpu.sim.read_simulator import simulate_reads as jax_simulate_reads
 from sahara_tpu_torch.sim.read_simulator import simulate_reads
 from sahara_tpu_torch.sim.workload import bench_workload, make_reference
 
+from tests import torch_support  # noqa: F401  (PyTorch on one thread)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = """

@@ -17,6 +17,7 @@ from sahara_tpu_torch.index import build, fmindex
 from sahara_tpu_torch.index.jmer import build_jmer_lut, pick_lut_j
 from sahara_tpu_torch.index.textstore import pack_text4, unpack_text4
 
+from tests import torch_support  # noqa: F401  (PyTorch on one thread)
 from tests.util import random_seqs
 
 ARRAYS = ("occ", "c_arr", "sampled", "sample_seq", "sample_pos", "seq_lens", "text4", "sa_abs")

@@ -27,6 +27,8 @@ from sahara_tpu_torch.index.shard import (
     ShardedIndex, build_sharded_bifmindex, load_any_index, peek_index_kind, plan_shards, save_sharded,
 )
 
+from tests import torch_support  # noqa: F401  (PyTorch on one thread)
+
 M = 36  # three exact parts of 12 at k=2: the resident regime applies
 MAX_CHARS, OVERLAP = 400, 64
 ARRAYS = ("occ", "occ_rev", "c_arr", "sampled", "sample_seq", "sample_pos", "seq_lens", "text4", "sa_abs")

@@ -14,6 +14,8 @@ from sahara_tpu_torch import adaptive_kmer_index as aki
 from sahara_tpu_torch import kmer, native
 from sahara_tpu_torch.cli.kmer_cmd import dense_ids
 
+from tests import torch_support  # noqa: F401  (PyTorch on one thread)
+
 VOCABS = [2, 5, 14, 30, 62, 126]  # one per sigma bucket: 3, 6, 16, 32, 64, 128
 
 

@@ -11,6 +11,8 @@ from sahara_tpu.engine.driver import _merge_results as jax_merge_results
 from sahara_tpu_torch import trace
 from sahara_tpu_torch.engine.driver import KEY_BITS, SearchResult, _merge_results
 
+from tests import torch_support  # noqa: F401  (PyTorch on one thread)
+
 FIELDS = ("query_id", "seq_id", "pos", "errors")
 
 

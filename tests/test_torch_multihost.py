@@ -20,6 +20,8 @@ from sahara_tpu.cli.main import main as jax_main
 from sahara_tpu_torch.cli.main import main
 from sahara_tpu_torch.io.fasta import FastaRecord, write_fasta
 
+from tests import torch_support
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # (seed, record lengths, reads, read seed, processes, extra flags)
@@ -58,7 +60,8 @@ def test_multi_process_run_matches_single_process(tmp_path, seed, lens, n_reads,
     assert _quiet(jax_main, search + ["-o", str(jax_out)]) == 0
 
     port, multi = _free_port(), tmp_path / "multi.txt"
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, os.environ.get("PYTHONPATH", "")]))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, os.environ.get("PYTHONPATH", "")]),
+               **torch_support.ONE_THREAD_ENV)
     procs = [
         subprocess.Popen(
             [sys.executable, "-m", "sahara_tpu_torch", *search, "-o", str(multi), "--device", "cpu", *extra,

@@ -30,6 +30,8 @@ from sahara_tpu_torch.parallel.search import distributed_workq_search
 from sahara_tpu_torch.parallel.sv import distributed_sv_search
 from sahara_tpu_torch.schemes import expand, get_generator
 
+from tests import torch_support  # noqa: F401  (PyTorch on one thread)
+
 CPU8 = ["cpu"] * 8
 
 

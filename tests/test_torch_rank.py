@@ -14,6 +14,8 @@ from sahara_tpu_torch.engine import rank
 from sahara_tpu_torch.kernels.rank import rank_all
 from sahara_tpu_torch.kernels.rank_smem import SMEM_LIMIT, occ16_smem_bytes, rank_all_smem
 
+from tests import torch_support  # noqa: F401  (PyTorch on one thread)
+
 
 @pytest.fixture(scope="module")
 def occ_fixture():
@@ -25,16 +27,22 @@ def occ_fixture():
     return host, occ16, idx
 
 
-def test_rank_all_matches_xla_and_pallas(occ_fixture):
+@pytest.fixture(scope="module")
+def vmem_ranks(occ_fixture):
+    """rank_all_vmem in interpret mode on the fixture's table and
+    positions, computed once for the two tests that hold ranks to it."""
+    host, _, idx = occ_fixture
+    return np.asarray(rank_all_vmem(jax_pack_occ16(host.occ), host.sigma, jnp.asarray(idx), interpret=True))
+
+
+def test_rank_all_matches_xla_and_pallas(occ_fixture, vmem_ranks):
     host, occ16, idx = occ_fixture
     got = rank_all(occ16, host.sigma, torch.from_numpy(idx)).numpy()
     occ = jnp.asarray(host.occ)
     want = np.asarray(jax_rank.rank_all(occ, host.sigma, jnp.asarray(idx)))
     np.testing.assert_array_equal(got, want)
-    packed = jax_pack_occ16(host.occ)
-    vmem = rank_all_vmem(packed, host.sigma, jnp.asarray(idx), interpret=True)
-    hbm = rank_all_hbm(packed, host.sigma, jnp.asarray(idx), interpret=True)
-    np.testing.assert_array_equal(got, np.asarray(vmem))
+    hbm = rank_all_hbm(jax_pack_occ16(host.occ), host.sigma, jnp.asarray(idx), interpret=True)
+    np.testing.assert_array_equal(got, vmem_ranks)
     np.testing.assert_array_equal(got, np.asarray(hbm))
 
 
@@ -85,13 +93,12 @@ def test_rank_all_rejects_other_devices(occ_fixture):
         rank_all(occ16.to("meta"), 6, torch.from_numpy(idx))
 
 
-def test_rank_all_smem_plain_matches_pallas_vmem(occ_fixture):
+def test_rank_all_smem_plain_matches_pallas_vmem(occ_fixture, vmem_ranks):
     """K4's plain version (taken on the CPU) against rank_all_vmem in
     interpret mode, the TPU kernel it replaces."""
     host, occ16, idx = occ_fixture
     got = rank_all_smem(occ16, host.sigma, torch.from_numpy(idx)).numpy()
-    want = rank_all_vmem(jax_pack_occ16(host.occ), host.sigma, jnp.asarray(idx), interpret=True)
-    np.testing.assert_array_equal(got, np.asarray(want))
+    np.testing.assert_array_equal(got, vmem_ranks)
 
 
 def test_rank_all_smem_refuses_tables_over_shared_memory(occ_fixture):

@@ -15,6 +15,8 @@ from sahara_tpu_torch.engine.tape import compile_tape
 from sahara_tpu_torch.schemes import GENERATORS, expand, limit_to_hamming
 from sahara_tpu_torch.schemes.costs import node_count, optimize_by_wnc_topdown, weighted_node_count
 
+from tests import torch_support  # noqa: F401  (PyTorch on one thread)
+
 
 def _searches(scheme):
     return [(tuple(s.pi), tuple(s.l), tuple(s.u)) for s in scheme]

@@ -21,6 +21,7 @@ from sahara_tpu_torch.engine.seedverify import plan_parts, seed_parts
 from sahara_tpu_torch.index.fmindex import from_arrays
 from sahara_tpu_torch.kernels.verify import verify
 
+from tests import torch_support  # noqa: F401  (PyTorch on one thread)
 from tests.util import random_seqs
 
 

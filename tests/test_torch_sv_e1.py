@@ -18,6 +18,7 @@ from sahara_tpu_torch.engine.driver import search_queries
 from sahara_tpu_torch.engine.seedverify import plan_parts, plan_parts_e1
 from sahara_tpu_torch.index.fmindex import from_arrays
 
+from tests import torch_support  # noqa: F401  (PyTorch on one thread)
 from tests.util import random_seqs
 
 

@@ -9,6 +9,8 @@ import torch
 
 from sahara_tpu_torch import timing
 
+from tests import torch_support  # noqa: F401  (PyTorch on one thread)
+
 
 def _event(key: str, count: int, ms: float):
     return SimpleNamespace(key=key, count=count, self_device_time_total=ms * 1e3)

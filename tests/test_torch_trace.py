@@ -5,6 +5,7 @@ profiler; the spans under ``torch.profiler`` as nested annotations; the
 seed-and-verify stage totals; the frontier ladder's counters; the work
 queue's spans."""
 
+import functools
 import json
 
 import numpy as np
@@ -16,6 +17,8 @@ from sahara_tpu_torch.engine import seedverify
 from sahara_tpu_torch.engine.device import DeviceIndex
 from sahara_tpu_torch.engine.driver import search_queries
 from sahara_tpu_torch.index.build import build_bifmindex
+
+from tests import torch_support  # noqa: F401  (PyTorch on one thread)
 
 ENGINES = {"sv": dict(engine="auto"), "approx": dict(engine="approx", generator_name="optimum"),
            "workq": dict(engine="workq", generator_name="h2-k2")}
@@ -41,6 +44,29 @@ def setup():
 def search(setup, engine, **kw):
     index, reads = setup
     return search_queries(index, reads, k=2, device="cpu", chunk=32, **ENGINES[engine], **kw)
+
+
+def refuse(*args, **kwargs):
+    raise AssertionError("a span entered record_function")
+
+
+@pytest.fixture(scope="module")
+def untraced(setup):
+    """An engine's search with neither a tracer nor a profiler, made once a
+    module with ``record_function`` refused and no last tracer: its rows,
+    and the last tracer, the current tracer and the current span it left."""
+
+    @functools.cache
+    def run(engine):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(torch.profiler, "record_function", refuse)
+            mp.setattr(torch.autograd.profiler, "record_function", refuse)
+            mp.setattr(trace, "_last", None)
+            assert not torch.autograd._profiler_enabled()
+            rows = search(setup, engine).rows()
+            return rows, trace.last(), trace._TRACER.get(), trace._SPAN.get()
+
+    return run
 
 
 def test_spans_nest_with_call_ids_and_self_times(monkeypatch):
@@ -93,13 +119,13 @@ def test_tracing_none_keeps_the_current_tracer():
 
 
 @pytest.mark.parametrize("engine", sorted(ENGINES))
-def test_rows_alike_with_and_without_a_tracer(setup, engine):
+def test_rows_alike_with_and_without_a_tracer(setup, untraced, engine):
     """The same rows either way; the report holds the call's spans, every
     self time summing to the root's duration."""
-    plain = search(setup, engine)
+    plain = untraced(engine)[0]
     timer = trace.StageTimer("cpu")
     traced = search(setup, engine, timer=timer)
-    assert traced.rows() == plain.rows() and len(plain.rows()) >= 120
+    assert traced.rows() == plain and len(plain) >= 120
     assert trace.last() is timer
     rep = timer.report()
     spans = rep["spans"]
@@ -125,32 +151,30 @@ def test_rows_alike_with_and_without_a_tracer(setup, engine):
         assert {"workq.lanes", "workq.hits", "driver.flat_hits", "driver.located"} <= set(rep["sites"])
 
 
-def test_the_ladder_counts_its_retries(setup):
+def test_the_ladder_counts_its_retries(setup, untraced):
     """Caps of 2 slots and 1 hit overflow: the retried queries are counted
     apart, inside every query the ladder searched."""
     timer = trace.StageTimer("cpu")
-    want = search(setup, "approx")
-    assert search(setup, "approx", timer=timer, s_cap=2, h_cap=1).rows() == want.rows()
+    want = untraced("approx")[0]
+    assert search(setup, "approx", timer=timer, s_cap=2, h_cap=1).rows() == want
     counters = timer.report()["counters"]
     assert 0 < counters["approx.queries_retried"] and counters["approx.queries_searched"] == (
         120 + counters["approx.queries_retried"])
 
 
 @pytest.mark.parametrize("engine", sorted(ENGINES))
-def test_no_tracer_and_no_profiler_record_nothing(setup, engine, monkeypatch):
+def test_no_tracer_and_no_profiler_record_nothing(untraced, engine, monkeypatch):
     """With neither, no span enters ``record_function`` and nothing is
-    kept: a span is the shared null context."""
-
-    def refuse(*args, **kwargs):
-        raise AssertionError("a span entered record_function")
-
+    kept: a span is the shared null context.  The search is the module's
+    untraced one (``untraced``), which refuses ``record_function``."""
+    rows, last, tracer, span = untraced(engine)
     monkeypatch.setattr(torch.profiler, "record_function", refuse)
     monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
-    monkeypatch.setattr(trace, "_last", None)
     assert not torch.autograd._profiler_enabled()
-    assert search(setup, engine).rows()
+    assert rows
     assert trace.span("search") is trace._NULL and trace.stage("seed") is trace._NULL
-    assert trace.last() is None and trace._TRACER.get() is None and trace._SPAN.get() is None
+    assert last is None and tracer is None and span is None
+    assert trace._TRACER.get() is None and trace._SPAN.get() is None
 
 
 def annotations(tmp_path, run):

@@ -24,6 +24,7 @@ from sahara_tpu_torch.engine.tape import compile_tape
 from sahara_tpu_torch.index.fmindex import from_arrays
 from sahara_tpu_torch.kernels.workq import EDGE_L, EDGE_R, EDGES, OP_DEL, OP_INS, workq_step_plain
 
+from tests import torch_support  # noqa: F401  (PyTorch on one thread)
 from tests.util import random_seqs
 
 _ARRAYS = ("occ", "c_arr", "sampled", "sample_seq", "sample_pos", "seq_lens", "text4", "sa_abs", "occ_rev")

@@ -23,6 +23,8 @@ from sahara_tpu_torch.engine.tape import compile_tape
 from sahara_tpu_torch.index.build import build_bifmindex
 from sahara_tpu_torch.kernels import LAUNCHES
 
+from tests import torch_support  # noqa: F401  (PyTorch on one thread)
+
 K, M, CHUNK = 2, 100, 16
 # A step's widest queue is 130-odd rows at a chunk of 16 here and under 64
 # for one query: 96 makes the driver halve some chunks, each half fitting.
