@@ -19,7 +19,8 @@ Needs one CUDA card (Hopper, sm_90a) and nvcc.  In order it:
    both: each kernel by the profiler's device time, warm and with L2
    flushed before each launch (the pass meets them cold), beside the
    wrapper's call time; K1 also by its device time in one index upload
-   (the j-mer table's ten levels, its path);
+   (the j-mer table's ten levels, its path); the seed bad mask (K2m) on
+   K2's chunk with N planted and on one ``sv.mapped`` call's matrix;
    counts K3's SASS instructions per row of its steady loop by pipe
    (cuobjdump);
 4. runs the seed-and-verify path — upload without the reversed table (the
@@ -343,6 +344,7 @@ K1_POSITIONS = 1 << 20
 WORKQ_GENERATOR = "optimum"  # bench.py's generator for the work-queue engine
 DEDUP_GENERATOR = "h2-k2"  # the workq.mapped cell's scheme, whose queues the dedup phase records
 FALLBACK_READS = 1024
+SV_CALL_QUERIES = 865920  # strand queries of one call of the benchmark's sv.mapped cell
 RANK_BENCH_POSITIONS = 262144  # bench_rank.py's default batch
 SMEM_TEXT_MB = 0.1  # the largest random text whose occ table K4 takes
 E1_K = 3  # the short-read workload's k: 36 // 4 < 10, so one-error seeds
@@ -573,7 +575,7 @@ def kernel_phases(index, queries: np.ndarray, rng: np.random.Generator, ref: np.
     from sahara_tpu_torch.engine.seedverify import plan_parts, seed_parts
     from sahara_tpu_torch.kernels._build import source
     from sahara_tpu_torch.kernels.rank import rank_all, rank_all_plain
-    from sahara_tpu_torch.kernels.seed import seed_scan, seed_scan_plain
+    from sahara_tpu_torch.kernels.seed import seed_bad_mask_kernel, seed_bad_mask_plain, seed_scan, seed_scan_plain
     from sahara_tpu_torch.kernels.verify import verify, verify_plain
 
     dev, sigma, n = index.device, index.sigma, index.n
@@ -622,6 +624,30 @@ def kernel_phases(index, queries: np.ndarray, rng: np.random.Generator, ref: np.
         plain_ms=time_ms(lambda: seed_scan_plain(*args), 3), bound_ms=b, bound_by=by, library_ms=None,
         registers=register_row(ptxas, "seed", "seed_scan_kernel"),
         shape=f"{CHUNK} reads x {len(parts)} parts", shared_row_steps=shared_row_steps(index, qd, parts),
+    ))
+
+    # K2m, the seed bad mask: on K2's chunk with an N in every 8th read's
+    # first table-covered suffix, then on one sv.mapped call's matrix (the
+    # chunk tiled to 865,920 strand queries), which it scans once a call
+    j = index.lut_j
+    qn = qd.clone()
+    qn[::8, parts[0][0] + parts[0][1] - 1] = 5
+    flags = seed_bad_mask_kernel(qn, parts, j)
+    err = assert_equal("seed_bad_mask", flags, seed_bad_mask_plain(qn, parts, j))
+    if int(flags.sum()) < CHUNK // 8:
+        raise AssertionError("seed_bad_mask missed the planted N")
+    big = qd.repeat(-(-SV_CALL_QUERIES // CHUNK), 1)[:SV_CALL_QUERIES]
+    margs = (big, parts, j)
+    err += assert_equal("seed_bad_mask call", seed_bad_mask_kernel(*margs), seed_bad_mask_plain(*margs))
+    b, by = bound(big.numel() + SV_CALL_QUERIES, 0)  # the matrix in, a flag a query out
+    rows.append(dict(
+        name="seed_bad_mask", route="cuda", source="sahara_tpu_torch/kernels/csrc/seed.cu",
+        replaces="sahara_tpu/engine/seedverify.py:114", max_abs_err=err,
+        **kernel_times(lambda: seed_bad_mask_kernel(*margs), "bad_mask_kernel", flush),
+        plain_ms=time_ms(lambda: seed_bad_mask_plain(*margs), 3), bound_ms=b, bound_by=by, library_ms=None,
+        registers=register_row(ptxas, "seed", "bad_mask_kernel"),
+        shape=f"{SV_CALL_QUERIES} queries x {m}, {len(parts)} parts x {j} covered chars",
+        chunk_ms=kernel_device_ms(lambda: seed_bad_mask_kernel(qd, parts, j), "bad_mask_kernel", 20),
     ))
 
     # K3 on the real candidates of the workload's first chunk
@@ -1037,7 +1063,7 @@ def fallback_phase(index, queries: np.ndarray, sv_rows: np.ndarray) -> tuple[dic
     reset_launches()
     auto = sorted_rows(search_queries(index, sub, k=K, edit=True, chunk=CHUNK))
     launches = dict(LAUNCHES)
-    require_launches(launches, ("seed_scan", "verify", "workq_step"), "fallback")
+    require_launches(launches, ("seed_scan", "seed_bad_mask", "verify", "workq_step"), "fallback")
     wq = sorted_rows(search_queries(index, sub, k=K, edit=True, chunk=CHUNK, engine="workq"))
     if not np.array_equal(auto, wq):
         raise AssertionError("auto with fallback differs from the work-queue engine")
@@ -2279,6 +2305,9 @@ def main() -> int:
     print(f"rank_all in one upload: {k1['upload_launches']} launches, device {k1['upload_ms']:.4f} ms", flush=True)
     for row in kernels:
         print_times(row)
+    mask = next(row for row in kernels if row["name"] == "seed_bad_mask")
+    print(f"seed_bad_mask: {mask['shape']}: bound {mask['bound_ms']:.4f} ms ({mask['bound_by']}), plain "
+          f"{mask['plain_ms']:.4f} ms; a {CHUNK}-query chunk {mask['chunk_ms']:.4f} ms", flush=True)
     sass = next(row for row in kernels if row["name"] == "verify")["steady_row_sass"]
     print(f"verify steady loop, SASS instructions a row by pipe: {sass or 'not measured'}", flush=True)
 
@@ -2292,7 +2321,7 @@ def main() -> int:
     res = search_queries(index, queries, **kw)
     launches = dict(LAUNCHES)
     report["launches"] = launches
-    require_launches(launches, ("rank_all", "seed_scan", "verify"), "seed-and-verify")
+    require_launches(launches, ("rank_all", "seed_scan", "verify", "seed_bad_mask"), "seed-and-verify")
     rows = sorted_rows(res)
     sha = hashlib.sha256(rows.tobytes()).hexdigest()
     print(f"hits {len(rows)} (JAX package {JAX_HITS}, BENCH_r05 bench.py {BENCH_R05_HITS}) sha256 {sha}", flush=True)

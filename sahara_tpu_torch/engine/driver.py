@@ -215,16 +215,19 @@ def _run_sv_chunks(
     parts,
 ) -> tuple[SearchResult, np.ndarray]:
     """Upload the query matrix once as uint8, then run each chunk of it
-    through ``run`` with ``parts``: ``sv_fused`` (exact parts) or
-    ``_sv_e1_chunk`` (one-error parts).  The chunks' rows are concatenated,
-    not merged.  Returns the rows and bool[nq]: queries over ``PART_CAP``,
-    which gave no rows here."""
+    through ``run`` with ``parts``: ``sv_fused`` (exact parts, with its
+    slice of the uploaded matrix's ``seed_bad_mask``) or ``_sv_e1_chunk``
+    (one-error parts, whose seed search takes N).  The chunks' rows are
+    concatenated, not merged.  Returns the rows and bool[nq]: queries over
+    ``PART_CAP`` or flagged by the mask, which gave no rows here."""
     qfull = trace.to_device(torch.from_numpy(np.ascontiguousarray(qarr, dtype=np.uint8)), index.device,
                             "driver.queries")
     seq_starts = trace.to_host(index.seq_starts, "driver.seq_starts").numpy().astype(np.int64)
+    bad = seed_bad_mask(index, qfull, parts) if run is sv_fused else None
     results, over_all = [], []
     for start in range(0, qarr.shape[0], chunk):
-        q_idx, abs_pos, err, over = run(index, qfull[start : start + chunk], parts, k=k, edit=edit)
+        extra = {} if bad is None else {"bad": bad[start : start + chunk]}
+        q_idx, abs_pos, err, over = run(index, qfull[start : start + chunk], parts, k=k, edit=edit, **extra)
         over_all.append(over)
         results.append(_sv_hits_to_result(seq_starts, start + q_idx, abs_pos, err, qids))
     return _concat(results), np.concatenate(over_all) if over_all else np.zeros(0, dtype=bool)
@@ -402,13 +405,7 @@ def _run_sv(
     if parts is None:
         return _run_sv_chunks(index, qarr, qids, k=k, edit=edit, chunk=chunk, run=_sv_e1_chunk,
                               parts=plan_parts_e1(m, k))
-    bad = seed_bad_mask(index, qarr, parts)
-    fallback = np.zeros(qarr.shape[0], dtype=bool) if bad is None else bad.copy()
-    keep = np.flatnonzero(~fallback)
-    sv_q, sv_ids = (qarr, qids) if bad is None else (qarr[keep], qids[keep])
-    res, over = _run_sv_chunks(index, sv_q, sv_ids, k=k, edit=edit, chunk=chunk, run=sv_fused, parts=parts)
-    fallback[keep[over]] = True
-    return res, fallback
+    return _run_sv_chunks(index, qarr, qids, k=k, edit=edit, chunk=chunk, run=sv_fused, parts=parts)
 
 
 def _run_sv_with_fallback(

@@ -39,7 +39,7 @@ from sahara_tpu_torch import trace
 from sahara_tpu_torch.engine.device import DeviceIndex
 from sahara_tpu_torch.engine.locate import expand_intervals, lf_walk
 from sahara_tpu_torch.engine.tape import SchemeTape, compile_tape
-from sahara_tpu_torch.kernels.seed import seed_scan
+from sahara_tpu_torch.kernels.seed import seed_bad_mask_kernel, seed_scan
 from sahara_tpu_torch.kernels.verify import MAX_K, verify
 from sahara_tpu_torch.schemes import expand, get_generator, limit_to_hamming
 from sahara_tpu_torch.trace import StageTimer  # noqa: F401  (importable from here too)
@@ -84,18 +84,21 @@ def plan_parts_e1(m: int, k: int) -> tuple[tuple[int, int], ...] | None:
     return _balanced_split(m, p)
 
 
+def _table_seeds(index: DeviceIndex, parts) -> bool:
+    """Whether K2 starts every part from the j-mer table."""
+    return index.lut is not None and index.lut_j > 0 and min(ln for _, ln in parts) >= index.lut_j
+
+
 @trace.spanned("sv.bad_mask")
-def seed_bad_mask(index: DeviceIndex, queries: np.ndarray, parts) -> np.ndarray | None:
-    """Queries whose table-covered part suffixes carry ranks the j-mer table
-    cannot encode (anything outside 1..4); None when there are none or the
-    table path is inactive."""
-    j = index.lut_j
-    if index.lut is None or j <= 0 or min(ln for _, ln in parts) < j:
+def seed_bad_mask(index: DeviceIndex, queries: torch.Tensor, parts) -> torch.Tensor | None:
+    """bool[nq] on the index's device: the queries (uint8 ranks on that
+    device) whose table-covered part suffixes carry ranks the j-mer table
+    cannot encode (anything outside 1..4); None where the table path is
+    inactive.  Nothing is read back: ``sv_fused`` counts the flags with its
+    own counts."""
+    if not _table_seeds(index, parts):
         return None
-    cols = [off + ln - 1 - i for off, ln in parts for i in range(j)]
-    sub = queries[:, cols]
-    bad = ((sub < 1) | (sub > 4)).any(axis=1)
-    return bad if bad.any() else None
+    return seed_bad_mask_kernel(queries, parts, index.lut_j)
 
 
 def sv_eligible(index: DeviceIndex, m: int, k: int, seed_errors: int = 0) -> bool:
@@ -118,7 +121,7 @@ def seed_tape(ln: int, edit: bool) -> SchemeTape:
 def seed_parts(index: DeviceIndex, queries: torch.Tensor, parts) -> tuple[torch.Tensor, torch.Tensor]:
     """(lo, sz) int32[nq, P]: the exact SA interval of every (query, part)
     lane; ``queries`` are uint8 ranks on the index's device."""
-    use_lut = index.lut is not None and index.lut_j > 0 and min(ln for _, ln in parts) >= index.lut_j
+    use_lut = _table_seeds(index, parts)
     return seed_scan(
         index.occ, index.c_arr, index.lut if use_lut else None, index.lut_j if use_lut else 0,
         queries, parts, index.sigma, index.n,
@@ -169,21 +172,28 @@ def sv_fused(
     k: int,
     edit: bool,
     part_cap: int | None = None,
+    bad: torch.Tensor | None = None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """One chunk of the exact-parts plan: seed -> expand -> locate -> verify
     -> emit.
 
-    ``queries`` uint8[nq, m] on the index's device.  Returns host arrays
-    (q_idx int64[H] local query index, abs_pos int64[H] padded-text start,
-    err int64[H], over bool[nq] — queries with a part interval larger than
-    ``part_cap`` (default ``PART_CAP``), which contribute no hits here)."""
+    ``queries`` uint8[nq, m] on the index's device; ``bad`` the chunk's
+    slice of ``seed_bad_mask`` (None: no query flagged).  Returns host
+    arrays (q_idx int64[H] local query index, abs_pos int64[H] padded-text
+    start, err int64[H], over bool[nq] — queries with a part interval larger
+    than ``part_cap`` (default ``PART_CAP``) or flagged in ``bad``, which
+    contribute no hits here).  Counter ``sv.bad_queries``: the flagged."""
     p_cnt = len(parts)
     with trace.stage("seed"):
         lo, sz = seed_parts(index, queries, parts)
         over = (sz > (PART_CAP if part_cap is None else part_cap)).any(dim=1)
+        if bad is not None:
+            over |= bad  # a flagged query's table intervals are garbage
         sz = torch.where(over[:, None], 0, sz)
+        counts = [sz.sum(dtype=torch.int64), over.sum()] + ([] if bad is None else [bad.sum()])
         with trace.sync("sv.counts"):
-            n_cands, n_over = torch.stack([sz.sum(dtype=torch.int64), over.sum()]).tolist()
+            n_cands, n_over, *n_bad = torch.stack(counts).tolist()
+    trace.count("sv.bad_queries", sum(n_bad))
     over_host = _over_host(over, n_over)
     if n_cands == 0:
         return (*_NO_HITS, over_host)

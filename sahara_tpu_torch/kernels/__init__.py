@@ -12,7 +12,7 @@ import torch
 
 LAUNCHES = {
     "rank_all": 0, "seed_scan": 0, "verify": 0, "rank_all_smem": 0, "workq_step": 0, "exact_search": 0,
-    "lf_walk": 0, "frontier_step": 0, "workq_dedup": 0,
+    "lf_walk": 0, "frontier_step": 0, "workq_dedup": 0, "seed_bad_mask": 0,
 }
 
 

@@ -6,6 +6,10 @@ table lookup for the last ``lut_j`` chars of each part, then one
 single-symbol rank at both interval ends per remaining char.  Neither
 version stops early, so ``lo`` is defined (and equal to the reference's)
 even for empty intervals.
+
+Beside it, ``seed_bad_mask_kernel`` (``bad_mask_kernel``, K2m): the queries
+whose table-covered part suffixes hold a rank outside 1..4, which the table
+cannot encode, flagged on the card from the uploaded query matrix.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from sahara_tpu_torch.kernels import LAUNCHES, check, on_cuda, raise_on_error, s
 from sahara_tpu_torch.kernels._build import load
 
 _fn = None
+_bad_fn = None
 
 
 def _kernel():
@@ -36,6 +41,20 @@ def _kernel():
         ]
         _fn = fn
     return _fn
+
+
+def _bad_kernel():
+    global _bad_fn
+    if _bad_fn is None:
+        fn = load("seed").sahara_seed_bad_mask
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,  # queries, nq, m
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # part ends (host int32[P]), P, lut_j
+            ctypes.c_void_p, ctypes.c_void_p,  # out, stream
+        ]
+        _bad_fn = fn
+    return _bad_fn
 
 
 def seed_scan_plain(occ16, c_arr, lut, lut_j, queries, parts, sigma, n):
@@ -95,3 +114,34 @@ def seed_scan(occ16, c_arr, lut, lut_j, queries, parts, sigma, n):
     raise_on_error(rc, "seed_scan")
     LAUNCHES["seed_scan"] += 1
     return lo, sz
+
+
+def seed_bad_mask_plain(queries, parts, lut_j):
+    """bool[nq]: the queries with a rank outside 1..4 in the last ``lut_j``
+    chars of any part."""
+    sub = queries[:, [off + ln - 1 - i for off, ln in parts for i in range(lut_j)]]
+    return ((sub < 1) | (sub > 4)).any(dim=1)
+
+
+def seed_bad_mask_kernel(queries, parts, lut_j):
+    """The queries whose table-covered part suffixes (the last ``lut_j``
+    chars of each part) hold a rank the j-mer table cannot encode: bool[nq]
+    on the queries' device, read back nowhere.
+
+    ``queries`` are uint8 ranks [nq, m]; every part holds at least ``lut_j``
+    >= 1 chars."""
+    if not on_cuda(queries):
+        return seed_bad_mask_plain(queries, parts, lut_j)
+    check("queries", queries, torch.uint8, 2)
+    nq, m = queries.shape
+    if not parts or lut_j < 1 or min(ln for _, ln in parts) < lut_j or max(off + ln for off, ln in parts) > m:
+        raise ValueError(f"parts {parts} do not fit {m}-char queries with {lut_j}-char table suffixes")
+    out = torch.empty(nq, dtype=torch.bool, device=queries.device)
+    if nq == 0:
+        return out
+    ends = np.asarray([off + ln for off, ln in parts], dtype=np.int32)
+    rc = _bad_kernel()(queries.data_ptr(), nq, m, ends.ctypes.data, len(parts), lut_j, out.data_ptr(),
+                       stream_of(queries))
+    raise_on_error(rc, "seed_bad_mask")
+    LAUNCHES["seed_bad_mask"] += 1
+    return out

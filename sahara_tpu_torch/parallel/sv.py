@@ -37,17 +37,18 @@ class SvHits:
 def _sv_slice(index: DeviceIndex, queries: np.ndarray, active: np.ndarray, parts, *, k: int, edit: bool,
               part_cap: int) -> SvHits:
     """Exact-parts seed-and-verify of one device's slice (int32[n, m] host
-    ``queries``): the active queries whose seeds the j-mer table can encode
-    are searched; those with a part interval over ``part_cap``, and the
-    active ones it cannot encode, are flagged in ``fallback``."""
-    bad = seed_bad_mask(index, queries, parts)
-    fallback = np.zeros(len(queries), dtype=bool) if bad is None else bad & active
-    keep = np.flatnonzero(active & ~fallback)
+    ``queries``): the active queries are uploaded and searched; those with
+    a part interval over ``part_cap``, and those whose seeds the j-mer
+    table cannot encode (``seed_bad_mask`` on the upload), are flagged in
+    ``fallback``."""
+    fallback = np.zeros(len(queries), dtype=bool)
+    keep = np.flatnonzero(active)
     if len(keep) == 0:
         z = np.zeros(0, dtype=np.int64)
         return SvHits(z, z, z, fallback)
     q = torch.from_numpy((queries if len(keep) == len(queries) else queries[keep]).astype(np.uint8)).to(index.device)
-    q_idx, abs_pos, err, over = sv_fused(index, q, parts, k=k, edit=edit, part_cap=part_cap)
+    q_idx, abs_pos, err, over = sv_fused(index, q, parts, k=k, edit=edit, part_cap=part_cap,
+                                         bad=seed_bad_mask(index, q, parts))
     fallback[keep[over]] = True
     return SvHits(keep[q_idx], abs_pos, err, fallback)
 

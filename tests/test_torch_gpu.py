@@ -43,7 +43,7 @@ from sahara_tpu_torch.kernels.rank import rank_all, rank_all_plain
 from sahara_tpu_torch.kernels.rank_smem import (
     SMEM_LIMIT, launch_shape, occ16_smem_bytes, rank_all_smem, rank_all_smem_plain,
 )
-from sahara_tpu_torch.kernels.seed import seed_scan, seed_scan_plain
+from sahara_tpu_torch.kernels.seed import seed_bad_mask_kernel, seed_bad_mask_plain, seed_scan, seed_scan_plain
 from sahara_tpu_torch.kernels.verify import hamming_lanes, verify, verify_plain
 from sahara_tpu_torch.kernels.workq import EPOCHS, TILE, step_context, workq_step, workq_step_plain
 from sahara_tpu_torch.timing import event_device_ms, kernel_device_ms
@@ -124,6 +124,29 @@ def test_seed_scan_kernel_matches_plain(host, use_lut):
     lo_p, sz_p = seed_scan_plain(*args)
     assert torch.equal(lo, lo_p) and torch.equal(sz, sz_p)
     assert (sz > 0).any()
+
+
+@pytest.mark.parametrize("m", [36, 60, 100])
+@pytest.mark.parametrize("nq", [1, 255, 256, 257, 65_537, 865_920])
+def test_seed_bad_mask_kernel_matches_plain(nq, m):
+    """N-laden matrices: ACGT rows, every 16th row ranks 0..5 throughout,
+    and a rank 0..5 at a random column of every 5th row; also from a row
+    that starts off the 16-byte grid (the matrix less its first row)."""
+    dev = _card()
+    rng = np.random.default_rng(nq + m)
+    q = rng.integers(1, 5, (nq, m), dtype=np.uint8)
+    q[::16] = rng.integers(0, 6, q[::16].shape, dtype=np.uint8)
+    q[::5, rng.integers(0, m)] = rng.integers(0, 6, len(q[::5]), dtype=np.uint8)
+    qd = torch.from_numpy(q).to(dev)
+    parts = plan_parts(m, 2)
+    for lut_j in (10, 3):
+        for sub in (qd, qd[1:]):
+            before = LAUNCHES["seed_bad_mask"]
+            got = seed_bad_mask_kernel(sub, parts, lut_j)
+            torch.cuda.synchronize()
+            assert LAUNCHES["seed_bad_mask"] == before + (len(sub) > 0)
+            assert got.dtype == torch.bool and torch.equal(got, seed_bad_mask_plain(sub, parts, lut_j))
+    assert got.any() or nq < 16
 
 
 def _windows(text, rng, case, m, k):
@@ -634,9 +657,9 @@ def test_fallback_on_card_matches_cpu(bihost):
     queries = _reads(seqs, np.random.default_rng(10), 400, 50, 2)
     queries[::8, 16] = 5  # the last char of the first part: the j-mer table cannot seed it
     want = search_queries(DeviceIndex.from_host(idx_host, device="cpu"), queries, k=2, device="cpu", chunk=128)
-    before = LAUNCHES["workq_step"]
+    before, masks = LAUNCHES["workq_step"], LAUNCHES["seed_bad_mask"]
     got = search_queries(DeviceIndex.from_host(idx_host, device=dev), queries, k=2, chunk=128)
-    assert LAUNCHES["workq_step"] > before
+    assert LAUNCHES["workq_step"] > before and LAUNCHES["seed_bad_mask"] == masks + 1  # one mask a call
     assert got.rows() == want.rows() and len(want.rows()) >= 400
 
 

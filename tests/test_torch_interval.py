@@ -170,6 +170,22 @@ def test_resident_fallback_is_deferred(corpus, single_rows, monkeypatch):
     assert any("(resident)" in line for line in lines) and any("full index swap-in" in line for line in lines)
 
 
+def test_resident_n_reads_match_jax(corpus, monkeypatch):
+    """An N at the end of the first seed part of every fourth read, where a
+    shard's j-mer table reads it: each shard's seed-and-verify flags it on
+    the device, the deferred fallback searches it whole, and the rows equal
+    the JAX package's."""
+    seqs, queries = corpus
+    qs = [q.copy() for q in queries]
+    for q in qs[::4]:
+        q[11] = 5  # the last char of the first 12-char part
+    lines = []
+    got, want, ours, _ = _both(seqs, qs, monkeypatch, "resident", k=2, edit=True, verbose_cb=lines.append)
+    assert got == want and len(got) >= len(qs) // 2
+    assert any("(resident)" in line for line in lines) and ours.resident is None  # dropped for the fallback
+    assert any(f"{len(qs[::4])} repeat-saturated queries" in line for line in lines)
+
+
 @pytest.mark.parametrize("start", [380, 340])
 def test_window_boundary_hits_once(corpus, start):
     """A read across the first window's end lies wholly in the second

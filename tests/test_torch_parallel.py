@@ -181,6 +181,25 @@ def test_search_queries_mesh_parity(sv_setup, mode, monkeypatch):
     assert search_queries(reps[0], queries, device="cpu", **kw).rows() == want
 
 
+def test_search_queries_mesh_n_reads_match_jax(sv_setup):
+    """An N at the end of the first seed part of every third read: each
+    device's slice flags it (``seed_bad_mask`` on its upload), the
+    work-queue engine re-searches it, and the rows equal sahara_tpu's."""
+    seqs, _, mesh, reps, jdev = sv_setup
+    m, k = 36, 2
+    queries = [seqs[0][9 * i : 9 * i + m].astype(np.uint8) for i in range(12)]  # copies: the fixture stays
+    for q in queries[::3]:
+        q[11] = 5  # the last char of the first 12-char part
+    kw = dict(k=k, edit=True, chunk=4)
+    hits, _ = distributed_sv_search(mesh, reps, np.stack(queries), k, edit=True, chunk=2)
+    assert hits.fallback.nonzero()[0].tolist() == [0, 3, 6, 9] and not np.isin(hits.q_idx, [0, 3, 6, 9]).any()
+    want = jax_search_queries(jdev, queries, **kw).rows()
+    lines = []
+    got = search_queries(reps, queries, mesh=mesh, device="cpu", verbose_cb=lines.append, **kw)
+    assert got.rows() == want and len(want) >= 12
+    assert "seed-verify: 4 repeat-saturated queries re-searched via the scheme engine" in lines
+
+
 def test_search_queries_mesh_short_reads_take_workq(sv_setup):
     """Short reads on a mesh take the reference's mesh route, the
     work-queue engine (exact parts only; one device takes SV-e1): the rows

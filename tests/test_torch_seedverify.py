@@ -17,8 +17,9 @@ from sahara_tpu.engine.seedverify import sv_verify as jax_sv_verify
 from sahara_tpu.index.build import build_bifmindex
 from sahara_tpu_torch.engine.device import DeviceIndex
 from sahara_tpu_torch.engine.locate import expand_intervals, lf_walk
-from sahara_tpu_torch.engine.seedverify import plan_parts, seed_parts
+from sahara_tpu_torch.engine.seedverify import plan_parts, seed_bad_mask, seed_parts
 from sahara_tpu_torch.index.fmindex import from_arrays
+from sahara_tpu_torch.kernels.seed import seed_bad_mask_plain
 from sahara_tpu_torch.kernels.verify import verify
 
 from tests import torch_support  # noqa: F401  (PyTorch on one thread)
@@ -68,6 +69,67 @@ def test_plan_parts_matches_jax():
     for m in (12, 20, 36, 40, 100, 150):
         for k in range(8):
             assert plan_parts(m, k) == jax_plan_parts(m, k)
+
+
+def _host_scan(queries: np.ndarray, parts, j: int) -> np.ndarray:
+    """The numpy lines the driver ran on the host before the mask moved to
+    the card (a None there stood for no flag set)."""
+    cols = [off + ln - 1 - i for off, ln in parts for i in range(j)]
+    sub = queries[:, cols]
+    return ((sub < 1) | (sub > 4)).any(axis=1)
+
+
+def _planted(rng, nq, m, parts, j, case):
+    """Random ACGT ranks [nq, m] with ranks 0..5 planted: at each
+    table-covered column of each part in turn (``covered``), one column
+    before each covered suffix (``before``: never flagged), at a covered
+    column of every read (``every``), or nowhere (``none``)."""
+    q = rng.integers(1, 5, (nq, m)).astype(np.uint8)
+    covered = [off + ln - 1 - i for off, ln in parts for i in range(j)]
+    rows = np.arange(nq)
+    q[rows[::7], rng.integers(0, m, len(rows[::7]))] = rng.integers(0, 6, len(rows[::7]))  # anywhere, every 7th
+    if case == "covered":
+        q[rows, np.resize(covered, nq)] = rng.integers(0, 6, nq)
+    elif case == "before":
+        q[rows, np.resize([off + ln - 1 - j for off, ln in parts], nq)] = rng.integers(0, 6, nq)
+    elif case == "every":
+        q[rows, rng.choice(covered, nq)] = rng.choice([0, 5], nq)
+    return q
+
+
+@pytest.mark.parametrize("case", ["covered", "before", "every", "none"])
+@pytest.mark.parametrize("m,k,j", [(36, 2, 6), (100, 2, 10), (45, 3, 3)])
+def test_bad_mask_plain_equals_the_host_scan(case, m, k, j):
+    """The plain mask (the wrapper's version for CPU tensors) equals the
+    host scan bit for bit."""
+    parts = plan_parts(m, k)
+    q = _planted(np.random.default_rng(m * 10 + k), 700, m, parts, j, case)
+    want = _host_scan(q, parts, j)
+    got = seed_bad_mask_plain(torch.from_numpy(q), parts, j)
+    assert got.dtype == torch.bool and np.array_equal(got.numpy(), want)
+    planted_anywhere = np.arange(len(q)) % 7 == 0
+    assert {"covered": want[~planted_anywhere].any(), "before": not want[~planted_anywhere].any(),
+            "every": want.all(), "none": not want[~planted_anywhere].any()}[case]
+
+
+@pytest.mark.parametrize("case", ["covered", "every"])
+def test_seed_bad_mask_on_the_index_equals_the_host_scan(long_index, case):
+    _, _, pdev = long_index
+    parts = plan_parts(40, 2)
+    q = _planted(np.random.default_rng(5), 300, 40, parts, pdev.lut_j, case)
+    got = seed_bad_mask(pdev, torch.from_numpy(q), parts)
+    assert got.device == pdev.device and np.array_equal(got.numpy(), _host_scan(q, parts, pdev.lut_j))
+
+
+def test_seed_bad_mask_none_without_the_table_path(long_index):
+    """None where K2 takes no table: no table, or a part shorter than the
+    table's depth."""
+    _, _, pdev = long_index
+    q = torch.from_numpy(np.full((8, 40), 5, dtype=np.uint8))
+    assert seed_bad_mask(dataclasses.replace(pdev, lut=None), q, plan_parts(40, 2)) is None
+    short = [(0, pdev.lut_j - 1), (pdev.lut_j - 1, 40 - pdev.lut_j + 1)]
+    assert seed_bad_mask(pdev, q, short) is None
+    assert seed_bad_mask(pdev, q, plan_parts(40, 2)).all()
 
 
 @pytest.mark.parametrize("use_lut", [True, False])

@@ -136,7 +136,11 @@ def test_rows_alike_with_and_without_a_tracer(setup, untraced, engine):
     assert rep["last_call"]["ms"] == pytest.approx(spans["search"]["total_ms"])
     if engine == "sv":
         assert {"sv.bad_mask", "sv.seed", "sv.expand", "sv.locate", "sv.verify", "sv.emit"} <= set(spans)
-        assert {"driver.queries", "sv.counts", "sv.emit_nonzero", "sv.emit_rows"} <= set(rep["sites"])
+        # the sites and counts of the driver that scanned the reads on the host: the mask reads nothing back
+        assert {site: v["count"] for site, v in rep["sites"].items()} == {
+            "driver.queries": 1, "driver.seq_starts": 1, "sv.counts": 4, "sv.part_offsets": 4,
+            "sv.emit_nonzero": 4, "sv.emit_rows": 4}
+        assert rep["counters"]["sv.bad_queries"] == 0
     elif engine == "approx":
         counters = rep["counters"]
         assert spans["approx.ladder"]["count"] == 1 and spans["approx.search"]["count"] >= 4  # chunks of 32
@@ -149,6 +153,24 @@ def test_rows_alike_with_and_without_a_tracer(setup, untraced, engine):
         assert counters["workq.queue_rows"] > 0 and counters["workq.hit_intervals"] > 0
         assert "workq.overflow_splits" not in counters
         assert {"workq.lanes", "workq.hits", "driver.flat_hits", "driver.located"} <= set(rep["sites"])
+
+
+@pytest.mark.parametrize("step", [0, 5, 1])
+def test_sv_counts_the_queries_the_mask_flags(setup, step):
+    """Counter ``sv.bad_queries``: exactly the reads with an N planted at
+    the end of the first seed part, where the j-mer table reads it (every
+    ``step``-th read; 0: none).  The span ``sv.bad_mask`` holds no other
+    span, so no ``sync``: the mask is never read back."""
+    index, reads = setup
+    reads = reads.copy()
+    if step:
+        reads[::step, 16] = 5  # parts (0, 17), (17, 17), (34, 16) at m = 50, k = 2
+    timer = trace.StageTimer("cpu")
+    search_queries(index, reads, k=2, device="cpu", chunk=32, timer=timer)
+    rep = timer.report()
+    bad_mask = rep["spans"]["sv.bad_mask"]
+    assert rep["counters"]["sv.bad_queries"] == (len(reads[::step]) if step else 0)
+    assert bad_mask["count"] == 1 and bad_mask["self_ms"] == bad_mask["total_ms"]
 
 
 def test_the_ladder_counts_its_retries(setup, untraced):

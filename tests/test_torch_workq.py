@@ -207,21 +207,26 @@ def test_many_searches_split_into_tape_groups(three_seqs):
 @pytest.fixture(scope="module")
 def n_reads(sv_workload):
     """Reads with an N at the end of a seed part (where the j-mer table
-    reads it) in every third read, and one random read."""
+    reads it), by the step between them: every third read (one of them
+    random), and every read."""
     *_, queries = sv_workload
-    qs = [q.copy() for q in queries]
-    for q in qs[::3]:
-        q[11] = 5
-    return qs
+    out = {}
+    for step in (3, 1):
+        out[step] = [q.copy() for q in queries]
+        for q in out[step][::step]:
+            q[11] = 5
+    return out
 
 
-@pytest.mark.parametrize("mode", ["all", "besthits"])
-def test_sv_fallback_for_n_reads_equals_jax(sv_workload, n_reads, mode):
+@pytest.mark.parametrize("mode,step", [("all", 3), ("besthits", 3), ("all", 1)], ids=["all", "besthits", "all-every"])
+def test_sv_fallback_for_n_reads_equals_jax(sv_workload, n_reads, mode, step):
     jdev, _, pdev, _ = sv_workload
+    qs = n_reads[step]
     kw = dict(k=2, edit=True, mode=mode, chunk=16)
-    assert seedverify.seed_bad_mask(pdev, np.stack(n_reads), seedverify.plan_parts(36, 2)) is not None
-    want = jax_search_queries(jdev, n_reads, **kw)
-    assert search_queries(pdev, n_reads, device="cpu", **kw).rows() == want.rows()
+    bad = seedverify.seed_bad_mask(pdev, torch.from_numpy(np.stack(qs)), seedverify.plan_parts(36, 2))
+    assert bad is not None and bad.nonzero().flatten().tolist() == list(range(0, len(qs), step))
+    want = jax_search_queries(jdev, qs, **kw)
+    assert search_queries(pdev, qs, device="cpu", **kw).rows() == want.rows() and want.rows()
 
 
 def test_sv_fallback_over_part_cap_equals_jax(sv_workload, monkeypatch):
