@@ -1,18 +1,24 @@
 """A tiny configuration and traffic mix that the harness runs on the CPU,
 with the program's plain kernels: each cell's files with the text cut to
-30,000 chars, chunks of 64 queries and batches of 48 reads."""
+30,000 chars, chunks of 64 queries and batches of 48 reads.  PyTorch's
+pool for operators on host tensors holds one thread, as in a run."""
 
 import copy
 import os
 import sys
 
 import pytest
+import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 from benchmark import harness  # noqa: E402
+
+# Under pytest-xdist every worker would take a thread a core: a tiny batch
+# then took 1.0-1.6 s, not 0.06-0.09, and a 1 s window held one batch.
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="session")
@@ -40,3 +46,16 @@ def tiny(bench):
 @pytest.fixture(scope="session")
 def cache_dir(tmp_path_factory):
     return str(tmp_path_factory.mktemp("bench_cache"))
+
+
+@pytest.fixture
+def read(monkeypatch):
+    """``read(name, rec, rep)``: the metric's reader on ``rec`` with the
+    program's report (``program_trace.report()``) replaced by ``rep``."""
+    from benchmark import program_trace
+
+    def call(name, rec, rep):
+        monkeypatch.setattr(program_trace, "report", lambda: rep)
+        return harness.reader(name)(rec)
+
+    return call

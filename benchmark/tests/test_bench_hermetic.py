@@ -1,8 +1,10 @@
 """Nothing of the benchmark imports JAX or the JAX package, by whole
 top-level name; the reference, the generators and the arithmetic import
-nothing of the program either; ``BENCHMARK.json`` keeps to its contract."""
+nothing of the program either; ``BENCHMARK.json`` keeps to its contract,
+and every entry accepted so far stands where it stood."""
 
 import ast
+import copy
 import json
 import os
 import re
@@ -116,6 +118,63 @@ def test_benchmark_json_keeps_to_its_contract():
             rel = os.path.relpath(os.path.join(base, f), ROOT)
             if "__pycache__" not in rel and ".cache" not in rel:
                 assert re.match(r"^[A-Za-z0-9_./-]+$", rel), rel
+
+
+# The entries accepted so far, in their order.  A later entry is appended
+# after them; only a change that retires or reorders entries edits this.
+ACCEPTED = {
+    "configs": ("chr21-100bp-k2-sv", "chr21-100bp-k2-oss", "chr21-100bp-k2-workq"),
+    "workloads": ("chr21-100bp-k2-sv.mapped", "chr21-100bp-k2-oss.mapped", "chr21-100bp-k2-oss.hostdep",
+                  "chr21-100bp-k2-workq.mapped"),
+    "end_to_end": ("reads_per_s", "setup_s"),
+    "per_layer": ("kernels.device_ms", "device.idle_pct", "device.launches", "sv.stage_ms", "approx.k8_launches",
+                  "host.cpu_ms", "index.load_s", "index.upload_s", "driver.merge_ms", "driver.sync_wait_ms",
+                  "driver.syncs", "sv.bad_mask_ms", "approx.ladder_ms", "approx.launch_us", "approx.retry_share",
+                  "workq.k5_launches", "workq.step_us", "workq.dedup_ms", "workq.queue_rows"),
+}
+
+
+def moved_lists(b: dict) -> list[str]:
+    """The lists of ``b`` that do not start with their accepted entries in
+    their order: an entry inserted among them, moved or dropped."""
+    return [key for key, names in ACCEPTED.items() if tuple(e["name"] for e in b[key][: len(names)]) != names]
+
+
+def appended(b: dict) -> dict:
+    """``b`` with one configuration, one cell and one per-layer metric more,
+    each after the last entry of its list."""
+    b = copy.deepcopy(b)
+    config, cell = "chr21-36bp-k3-sve1", "chr21-36bp-k3-sve1.mapped"
+    b["configs"].append(dict(b["configs"][0], name=config, file=f"benchmark/configs/{config}.json"))
+    b["workloads"].append(dict(b["workloads"][0], name=cell, config=config))
+    b["per_layer"].append(dict(b["per_layer"][0], name="sve1.seed_ms", workloads=[cell]))
+    return b
+
+
+def test_accepted_entries_stay_a_prefix(bench):
+    """``BENCHMARK.json`` starts each list with the accepted entries, and
+    so does a copy with entries appended: an addition passes this check
+    without an edit to it."""
+    assert moved_lists(bench) == []
+    grown = appended(bench)
+    assert moved_lists(grown) == []
+    assert [len(grown[k]) - len(bench[k]) for k in ("configs", "workloads", "per_layer")] == [1, 1, 1]
+
+
+@pytest.mark.parametrize("key", list(ACCEPTED))
+@pytest.mark.parametrize("change", ["inserted", "swapped", "dropped"])
+def test_an_accepted_entry_out_of_place_fails_the_prefix_check(bench, key, change):
+    """An entry inserted before the last accepted one, two accepted entries
+    swapped, or one dropped: the check names that list alone."""
+    b = appended(bench)
+    at = len(ACCEPTED[key]) - 1
+    if change == "inserted":
+        b[key].insert(at, dict(b[key][at], name="new." + key))
+    elif change == "swapped":
+        b[key][at - 1], b[key][at] = b[key][at], b[key][at - 1]
+    else:
+        del b[key][at]
+    assert moved_lists(b) == [key]
 
 
 @pytest.mark.parametrize("where", ["checkout", "benchmark_only"])

@@ -36,18 +36,6 @@ def record(**kw):
     return rec
 
 
-@pytest.fixture
-def read(bench, monkeypatch):
-    """``read(name, rec, rep)``: the metric's reader on ``rec`` with the
-    program's report replaced by ``rep``."""
-
-    def call(name, rec, rep):
-        monkeypatch.setattr(program_trace, "report", lambda: rep)
-        return harness.reader(name)(rec)
-
-    return call
-
-
 def test_readers_on_a_report(read):
     rep, rec = report(), record()
     assert read("driver.merge_ms", rec, rep) == pytest.approx(400.0 / 500)
@@ -96,5 +84,7 @@ def test_each_cell_reads_the_new_metrics_the_table_lists(bench):
         assert names(cell) == driver | {"approx.ladder_ms", "approx.launch_us", "approx.retry_share"}
     assert not {m["name"] for m in harness.metrics_of(bench, SV, False)} & set(NEW)
     new = {m["name"]: m for m in bench["per_layer"] if m["name"] in NEW}
-    assert set(new) == set(NEW) and [m["name"] for m in bench["per_layer"][-len(NEW):]] == list(NEW)
+    names = [m["name"] for m in bench["per_layer"]]
+    at = names.index(NEW[0])
+    assert set(new) == set(NEW) and names[at : at + len(NEW)] == list(NEW)  # in their order, one after another
     assert all(m["moves"] == "reads_per_s" for m in new.values())

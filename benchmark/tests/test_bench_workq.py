@@ -1,5 +1,5 @@
 """The work-queue cell (``chr21-100bp-k2-workq.mapped``): which per-layer
-metrics it reads; where its entries sit in ``BENCHMARK.json``; the
+metrics it reads; its entries in ``BENCHMARK.json``, found by name; the
 configuration's ``search`` section reaching the program's search
 unchanged; and a tiny run of the cell on the CPU, correct, with the
 engine's spans and counters on the program's own tracer."""
@@ -14,21 +14,22 @@ DRIVER = {"driver.merge_ms", "driver.sync_wait_ms", "driver.syncs"}
 
 def test_the_cell_reads_every_metric_that_lists_no_cells(bench):
     """The kernels', the device's, the host's, the index's and the driver's
-    metrics; none of another engine's."""
+    metrics, and those that name the cell; none of another engine's."""
     traced = {m["name"] for m in harness.metrics_of(bench, CELL, True)}
-    assert traced == {m["name"] for m in bench["per_layer"] if "workloads" not in m}
+    assert traced == ({m["name"] for m in bench["per_layer"] if "workloads" not in m}
+                      | {m["name"] for m in bench["per_layer"] if CELL in m.get("workloads", [])})
     assert DRIVER | {"kernels.device_ms", "device.idle_pct", "device.launches", "host.cpu_ms"} <= traced
+    assert not {name for name in traced if name.startswith(("sv.", "approx."))}
     assert {m["name"] for m in harness.metrics_of(bench, CELL, False)} == {"reads_per_s", "setup_s"}
 
 
 def test_the_new_entries_are_appended(bench):
-    """The configuration and the cell come after every entry the benchmark
-    had; no per-layer entry follows the driver's and the engines' last
-    seven."""
-    assert bench["configs"][-1]["name"] == "chr21-100bp-k2-workq"
-    assert bench["workloads"][-1]["name"] == CELL and bench["workloads"][-1]["chips"] == 1
-    assert bench["workloads"][-1]["config"] == "chr21-100bp-k2-workq" and bench["workloads"][-1]["traffic"] == "mapped"
-    assert bench["per_layer"][-1]["name"] == "approx.retry_share"
+    """The configuration and the cell, found by name (where they stand is
+    ``test_bench_hermetic.py``'s prefix check): one chip, the work-queue
+    configuration under the ``mapped`` traffic."""
+    assert "chr21-100bp-k2-workq" in {c["name"] for c in bench["configs"]}
+    cell = {w["name"]: w for w in bench["workloads"]}[CELL]
+    assert cell["chips"] == 1 and cell["config"] == "chr21-100bp-k2-workq" and cell["traffic"] == "mapped"
 
 
 def test_the_search_section_reaches_the_program_unchanged(bench, monkeypatch):
